@@ -1,6 +1,6 @@
 """Model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``)."""
 from __future__ import annotations
 
-from . import vision
+from . import bert, vision
 
-__all__ = ["vision"]
+__all__ = ["bert", "vision"]

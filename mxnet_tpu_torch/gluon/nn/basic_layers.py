@@ -8,16 +8,14 @@ from __future__ import annotations
 
 import math
 
-import torch.nn.functional as F
-
-from ...base import MXNetError
+from ...ops import contrib as _contrib
 from ...ops import nn as _nn
 from ...ops import tensor as _tensor
 from ..block import Block, HybridBlock
 from ..parameter import DeferredParams
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
-           "Activation", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding", "Activation", "GELU", "Flatten"]
 
 
 class Sequential(Block):
@@ -47,32 +45,35 @@ class HybridSequential(Sequential, HybridBlock):
     """Stack of HybridBlocks (ref: nn.HybridSequential)."""
 
 
-# activations the JAX package's Dense fuses into the matmul-epilogue
-# kernel (basic_layers.py there); that kernel is not ported yet
+# activations Dense fuses into the matmul-epilogue kernel (K2): one
+# bias + activation (+ dropout) pass over the matmul output. gelu is
+# epilogue-only (the Activation op has no gelu mode).
 _EPILOGUE_ACTS = ("relu", "tanh", "sigmoid", "gelu")
 
 
 class Dense(DeferredParams, HybridBlock):
     """y = act(x W^T + b) (ref: nn.Dense → FullyConnected op).
 
-    The JAX package runs Dense with a bias and a relu/tanh/sigmoid/gelu
-    activation through its matmul-epilogue kernel; that kernel is not
-    ported yet, so such a layer raises at construction rather than run
-    without it. Without an activation, or without a bias, the layer is
-    the plain FullyConnected (+ Activation) path."""
+    With a bias and an activation in relu/tanh/sigmoid/gelu, or with a
+    bias, no activation and ``epilogue_dropout > 0``, the layer runs the
+    matrix product without its bias and then the matmul-epilogue kernel
+    (K2) over its output, exactly where the JAX package fuses. Any other
+    layer is the plain FullyConnected (+ activation, + Dropout) path.
+    ``epilogue_dropout`` is an inverted dropout that acts only in
+    training."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0):
+                 bias_initializer="zeros", in_units=0, epilogue_dropout=0.0):
         super().__init__()
-        if use_bias and activation in _EPILOGUE_ACTS:
-            raise MXNetError(
-                f"Dense(activation={activation!r}) with a bias runs through "
-                "the matmul-epilogue kernel, which is not ported yet")
         self._units = units
         self._flatten = flatten
         self._activation = activation
         self._use_bias = use_bias
+        self._epilogue_dropout = float(epilogue_dropout)
+        self._fuse = use_bias and (
+            activation in _EPILOGUE_ACTS
+            or (activation is None and self._epilogue_dropout > 0))
         self._declare("weight", (units, in_units), weight_initializer, dtype)
         if use_bias:
             self._declare("bias", (units,), bias_initializer, dtype)
@@ -82,18 +83,47 @@ class Dense(DeferredParams, HybridBlock):
         self._set_shape("weight", (self._units, in_units))
 
     def forward(self, x):
-        out = _nn.fully_connected(
-            x, self.weight, self.bias if self._use_bias else None,
-            num_hidden=self._units, no_bias=not self._use_bias,
-            flatten=self._flatten)
+        bias = self.bias if self._use_bias else None
+        if self._fuse:
+            out = _nn.fully_connected(x, self.weight, num_hidden=self._units,
+                                      no_bias=True, flatten=self._flatten)
+            return _contrib.matmul_epilogue(
+                out, bias, act_type=self._activation or "identity",
+                p=self._epilogue_dropout, training=self.training)
+        out = _nn.fully_connected(x, self.weight, bias,
+                                  num_hidden=self._units,
+                                  no_bias=bias is None,
+                                  flatten=self._flatten)
         if self._activation == "gelu":
-            return F.gelu(out, approximate="none")
-        if self._activation is not None:
-            return _nn.activation(out, act_type=self._activation)
+            out = _nn.leaky_relu(out, act_type="gelu")
+        elif self._activation is not None:
+            out = _nn.activation(out, act_type=self._activation)
+        if self._epilogue_dropout > 0:
+            out = _nn.dropout(out, p=self._epilogue_dropout,
+                              training=self.training)
         return out
 
     def extra_repr(self):
         return f"units={self._units}, activation={self._activation}"
+
+
+class Dropout(HybridBlock):
+    """Inverted dropout (ref: nn.Dropout): the identity in predict mode;
+    training mode raises until the training slice."""
+
+    def __init__(self, rate, axes=()):
+        super().__init__()
+        self._rate = rate
+        self._axes = axes
+
+    def forward(self, x):
+        if self._rate <= 0:
+            return x
+        return _nn.dropout(x, p=self._rate, axes=self._axes,
+                           training=self.training)
+
+    def extra_repr(self):
+        return f"p={self._rate}, axes={self._axes}"
 
 
 class BatchNorm(DeferredParams, HybridBlock):
@@ -146,6 +176,54 @@ class BatchNorm(DeferredParams, HybridBlock):
                 f"activation={self._activation}")
 
 
+class LayerNorm(DeferredParams, HybridBlock):
+    """ref: nn.LayerNorm — normalize along ``axis`` with two-pass fp32
+    moments, then ``* gamma + beta``."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__()
+        self._axis = axis
+        self._epsilon = epsilon
+        self._declare("gamma", (in_channels,), gamma_initializer,
+                      differentiable=scale)
+        self._declare("beta", (in_channels,), beta_initializer,
+                      differentiable=center)
+
+    def infer_shape(self, x):
+        channels = x.shape[self._axis]
+        self._set_shape("gamma", (channels,))
+        self._set_shape("beta", (channels,))
+
+    def forward(self, x):
+        return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                              eps=self._epsilon)
+
+    def extra_repr(self):
+        return f"axis={self._axis}, eps={self._epsilon}"
+
+
+class Embedding(DeferredParams, HybridBlock):
+    """Lookup table (ref: nn.Embedding); out-of-range ids give NaN rows,
+    as in the JAX package (see :func:`ops.nn.embedding`)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False):
+        super().__init__()
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._declare("weight", (input_dim, output_dim), weight_initializer,
+                      dtype)
+
+    def forward(self, x):
+        return _nn.embedding(x, self.weight, input_dim=self._input_dim,
+                             output_dim=self._output_dim)
+
+    def extra_repr(self):
+        return f"{self._input_dim} -> {self._output_dim}"
+
+
 class Activation(HybridBlock):
     """ref: nn.Activation."""
 
@@ -165,3 +243,10 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return _tensor.flatten(x)
+
+
+class GELU(HybridBlock):
+    """ref: nn.GELU — exact-erf gelu (the LeakyReLU op's gelu mode)."""
+
+    def forward(self, x):
+        return _nn.leaky_relu(x, act_type="gelu")

@@ -5,17 +5,24 @@ Each kernel module holds the kernel's wrapper, its plain PyTorch version
 and a launch count; ``csrc/`` holds the CUDA sources, which
 :mod:`._build` compiles for Hopper at first use. A CPU tensor takes the
 plain version; a CUDA tensor takes the kernel or the call raises.
+
+- K1 :mod:`.conv_epilogue`: ``act(scale * y + bias [+ res])``.
+- K2 :mod:`.matmul_epilogue`: ``dropout(act(y + bias))``.
 """
 from __future__ import annotations
 
-from . import conv_epilogue
-from .conv_epilogue import (EPILOGUE_ACTS, conv_epilogue_plain,
-                            fused_conv_epilogue)
+from . import conv_epilogue, matmul_epilogue
+from ._common import EPILOGUE_ACTS
+from .conv_epilogue import conv_epilogue_plain, fused_conv_epilogue
+from .matmul_epilogue import (fused_matmul_epilogue, keep_threshold,
+                              matmul_epilogue_plain)
 
 __all__ = ["EPILOGUE_ACTS", "conv_epilogue_plain", "fused_conv_epilogue",
-           "launch_counts", "reset_launch_counts"]
+           "fused_matmul_epilogue", "keep_threshold", "launch_counts",
+           "matmul_epilogue_plain", "reset_launch_counts"]
 
-_COUNTS = {"conv_epilogue": conv_epilogue.launch_count}
+_COUNTS = {"conv_epilogue": conv_epilogue.launch_count,
+           "matmul_epilogue": matmul_epilogue.launch_count}
 
 
 def launch_counts() -> dict:

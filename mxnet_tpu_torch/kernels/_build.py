@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library that ``ctypes``
 loads; nothing includes PyTorch's headers, so a build takes seconds.
+Device helpers that several kernels share live in ``csrc/*.cuh``.
 The library lands in ``build/mxnet_tpu_torch/`` beside the package's
 parent directory (the repository's ``build/``, which git ignores). Its
-file name carries a hash of the source and the flags, so a stale build
-is never loaded. Builds happen at first use, from the sources in the
-package; :func:`build_all` starts one ``nvcc`` per source at once.
+file name carries a hash of the source, the headers and the flags, so
+a stale build is never loaded. Builds happen at first use, from the
+sources in the package; :func:`build_all` starts one ``nvcc`` per
+source at once.
 
 There is no fallback: a missing ``nvcc`` or a failing build raises
 with the compiler's output.
@@ -27,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
-SOURCES = ("conv_epilogue",)
+SOURCES = ("conv_epilogue", "matmul_epilogue")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,8 +50,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    """The library path of one kernel: its name carries a hash of the
+    source, every header under ``csrc/`` (the sources include them) and
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

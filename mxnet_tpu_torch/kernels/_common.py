@@ -1,0 +1,89 @@
+"""What the epilogue kernels' wrappers share: the activation table of
+their plain versions, the codes passed to the CUDA sources
+(``csrc/epilogue_common.cuh``), the checks before a launch and the
+launch count."""
+from __future__ import annotations
+
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+
+__all__ = ["ACT_CODE", "DTYPE_CODE", "EPILOGUE_ACTS", "LaunchCount",
+           "act_fn", "check_cuda_inputs"]
+
+EPILOGUE_ACTS = ("identity", "relu", "gelu", "tanh", "sigmoid")
+ACT_CODE = {None: 0, "identity": 0, "relu": 1, "gelu": 2, "tanh": 3,
+            "sigmoid": 4}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_ACT_FNS = {
+    None: lambda x: x,
+    "identity": lambda x: x,
+    "relu": torch.relu,
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+class LaunchCount:
+    """How many times a wrapper launched its kernel. Only a successful
+    launch adds one; the CPU path and the plain version add nothing."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self):
+        with self._lock:
+            self._n = 0
+
+
+def act_fn(what, act_type):
+    """The plain version of one activation (exact-erf gelu); ``what``
+    names the caller in the error for an unknown one."""
+    try:
+        return _ACT_FNS[act_type]
+    except KeyError:
+        raise MXNetError(f"{what}: unknown act_type {act_type!r}; one of "
+                         f"{list(EPILOGUE_ACTS)}") from None
+
+
+def check_cuda_inputs(what, y, named):
+    """Raise on anything a kernel does not take. ``named`` lists
+    ``(name, tensor or None, dtype)`` beside ``y``; a dtype of None means
+    ``y``'s."""
+    if y.dtype not in DTYPE_CODE:
+        raise MXNetError(f"{what}: dtype {y.dtype} not supported; one of "
+                         f"{list(DTYPE_CODE)}")
+    if y.device.index != torch.cuda.current_device():
+        raise MXNetError(f"{what}: input on {y.device} but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    tensors = [t for _, t, _ in named if t is not None]
+    for name, t, dtype in (("y", y, None), *named):
+        if t is None:
+            continue
+        want = y.dtype if dtype is None else dtype
+        if t.device != y.device:
+            raise MXNetError(f"{what}: {name} on {t.device}, y on "
+                             f"{y.device}")
+        if t.dtype != want:
+            raise MXNetError(f"{what}: {name} is {t.dtype}, want {want}")
+        if not t.is_contiguous():
+            raise MXNetError(f"{what}: {name} is not contiguous")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (y, *tensors)):
+        raise MXNetError(f"{what}: an input requires grad; the kernel has "
+                         "no backward yet (run under torch.inference_mode() "
+                         "or torch.no_grad())")

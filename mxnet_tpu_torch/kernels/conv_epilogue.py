@@ -21,61 +21,19 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 
 import torch
 
 from ..base import MXNetError
 from . import _build
+from ._common import (ACT_CODE, DTYPE_CODE, EPILOGUE_ACTS, LaunchCount,
+                      act_fn, check_cuda_inputs)
 
 __all__ = ["EPILOGUE_ACTS", "conv_epilogue_plain", "fused_conv_epilogue",
            "fused_conv_epilogue_plain", "launch_count"]
 
-EPILOGUE_ACTS = ("identity", "relu", "gelu", "tanh", "sigmoid")
-_ACT_CODE = {None: 0, "identity": 0, "relu": 1, "gelu": 2, "tanh": 3,
-             "sigmoid": 4}
 MODE_NONE, MODE_COL, MODE_ROW = 0, 1, 2
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-class LaunchCount:
-    """How many times a wrapper launched its kernel. Only a successful
-    launch adds one; the CPU path and the plain version add nothing."""
-
-    def __init__(self):
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self):
-        with self._lock:
-            self._n += 1
-
-    @property
-    def value(self) -> int:
-        return self._n
-
-    def reset(self):
-        with self._lock:
-            self._n = 0
-
-
 launch_count = LaunchCount()
-
-
-def _act_fn(act_type):
-    fns = {
-        None: lambda x: x,
-        "identity": lambda x: x,
-        "relu": torch.relu,
-        "gelu": lambda x: torch.nn.functional.gelu(x, approximate="none"),
-        "tanh": torch.tanh,
-        "sigmoid": torch.sigmoid,
-    }
-    try:
-        return fns[act_type]
-    except KeyError:
-        raise MXNetError(f"conv epilogue: unknown act_type {act_type!r}; "
-                         f"one of {list(EPILOGUE_ACTS)}") from None
 
 
 def conv_epilogue_plain(y, scale=None, bias=None, res=None,
@@ -90,7 +48,7 @@ def conv_epilogue_plain(y, scale=None, bias=None, res=None,
         out = out + bias.float()
     if res is not None:
         out = out + res.float()
-    return _act_fn(act_type)(out).to(y.dtype)
+    return act_fn("conv epilogue", act_type)(out).to(y.dtype)
 
 
 @functools.cache
@@ -106,37 +64,10 @@ def _lib():
     return lib
 
 
-def _check_cuda_inputs(y, scale, bias, res):
-    """Raise on anything the kernel does not take."""
-    if y.dtype not in _DTYPE_CODE:
-        raise MXNetError(f"conv epilogue kernel: dtype {y.dtype} not "
-                         f"supported; one of {list(_DTYPE_CODE)}")
-    if y.device.index != torch.cuda.current_device():
-        raise MXNetError(f"conv epilogue kernel: input on {y.device} but "
-                         f"the current device is cuda:"
-                         f"{torch.cuda.current_device()}")
-    named = (("y", y), ("scale", scale), ("bias", bias), ("res", res))
-    for name, t in named:
-        if t is None:
-            continue
-        if t.device != y.device:
-            raise MXNetError(f"conv epilogue kernel: {name} on {t.device}, "
-                             f"y on {y.device}")
-        if t.dtype != y.dtype:
-            raise MXNetError(f"conv epilogue kernel: {name} is {t.dtype}, "
-                             f"y is {y.dtype}")
-        if not t.is_contiguous():
-            raise MXNetError(f"conv epilogue kernel: {name} is not "
-                             "contiguous")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for _, t in named):
-        raise MXNetError("conv epilogue kernel: an input requires grad; the "
-                         "kernel has no backward yet (run under "
-                         "torch.inference_mode() or torch.no_grad())")
-
-
 def _launch(y, scale, bias, res, act_type, mode, c, inner):
-    _check_cuda_inputs(y, scale, bias, res)
+    check_cuda_inputs("conv epilogue kernel", y,
+                      (("scale", scale, None), ("bias", bias, None),
+                       ("res", res, None)))
     out = torch.empty_like(y, memory_format=torch.contiguous_format)
     n = y.numel()
     if n == 0:
@@ -147,7 +78,7 @@ def _launch(y, scale, bias, res, act_type, mode, c, inner):
         y.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if res is None else res.data_ptr(), out.data_ptr(),
-        n, c, inner, mode, _ACT_CODE[act_type], _DTYPE_CODE[y.dtype], stream)
+        n, c, inner, mode, ACT_CODE[act_type], DTYPE_CODE[y.dtype], stream)
     if err != 0:
         raise MXNetError("conv epilogue kernel launch failed: "
                          + lib.conv_epilogue_error_string(err).decode())
@@ -158,7 +89,7 @@ def _launch(y, scale, bias, res, act_type, mode, c, inner):
 def _layout(x, scale, bias, res, channel_axis, act_type):
     """Validate an N-D call; returns (scale, bias, mode, c, inner, axis)
     with missing vectors filled (ones / zeros) and flattened to (C,)."""
-    _act_fn(act_type)
+    act_fn("conv epilogue", act_type)
     if res is not None and tuple(res.shape) != tuple(x.shape):
         raise MXNetError(f"conv epilogue: res {tuple(res.shape)} vs x "
                          f"{tuple(x.shape)}")

@@ -28,44 +28,16 @@
 // C interface for ctypes: conv_epilogue_launch returns the cudaError_t of
 // the launch (0 on success); conv_epilogue_error_string names it.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "epilogue_common.cuh"
+
+using namespace mxtt;
 
 namespace {
 
-enum Act { ACT_IDENTITY = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_TANH = 3,
-           ACT_SIGMOID = 4 };
 enum Mode { MODE_NONE = 0, MODE_COL = 1, MODE_ROW = 2 };
-enum DType { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half(v);
-}
-
-template <int ACT> __device__ __forceinline__ float activate(float x) {
-  if (ACT == ACT_RELU) return x < 0.0f ? 0.0f : x;  // NaN stays NaN
-  if (ACT == ACT_GELU) return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-  if (ACT == ACT_TANH) return tanhf(x);
-  if (ACT == ACT_SIGMOID) return 1.0f / (1.0f + expf(-x));
-  return x;
-}
 
 template <typename T, typename I, int ACT, int MODE, bool RES>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 conv_epilogue_kernel(const T* __restrict__ y, const T* __restrict__ scale,
                      const T* __restrict__ bias, const T* __restrict__ res,
                      T* __restrict__ out, I n, I c, I inner) {
@@ -87,11 +59,7 @@ template <typename T, typename I, int ACT, int MODE>
 cudaError_t launch_res(const void* y, const void* scale, const void* bias,
                        const void* res, void* out, int64_t n, int64_t c,
                        int64_t inner, cudaStream_t stream) {
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  // enough blocks to fill every SM many times over; the grid-stride loop
-  // covers the rest
-  if (blocks > 8192) blocks = 8192;
+  const unsigned blocks = grid_for(n);
   const T* yp = static_cast<const T*>(y);
   const T* sp = static_cast<const T*>(scale);
   const T* bp = static_cast<const T*>(bias);
@@ -99,12 +67,12 @@ cudaError_t launch_res(const void* y, const void* scale, const void* bias,
   T* op = static_cast<T*>(out);
   if (res != nullptr) {
     conv_epilogue_kernel<T, I, ACT, MODE, true>
-        <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+        <<<blocks, kThreads, 0, stream>>>(
             yp, sp, bp, rp, op, static_cast<I>(n), static_cast<I>(c),
             static_cast<I>(inner));
   } else {
     conv_epilogue_kernel<T, I, ACT, MODE, false>
-        <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+        <<<blocks, kThreads, 0, stream>>>(
             yp, sp, bp, rp, op, static_cast<I>(n), static_cast<I>(c),
             static_cast<I>(inner));
   }
@@ -162,8 +130,7 @@ cudaError_t launch_index(int act, int mode, const void* y, const void* scale,
                          const void* bias, const void* res, void* out,
                          int64_t n, int64_t c, int64_t inner,
                          cudaStream_t stream) {
-  // 32-bit indices while i + stride cannot overflow them
-  if (n + 8192LL * 256LL < (1LL << 32)) {
+  if (fits_u32(n)) {
     return launch_act<T, uint32_t>(act, mode, y, scale, bias, res, out, n, c,
                                    inner, stream);
   }

@@ -3,7 +3,9 @@
 Plain functions on tensors with the JAX package's op names, arguments
 and NCHW/OIHW layouts. Convolution, pooling and the matrix product go to
 PyTorch, as the JAX package leaves them to XLA; the BatchNorm + activation
-epilogue goes to the hand-written conv-epilogue kernel.
+epilogue goes to the hand-written conv-epilogue kernel. Only the predict
+branches of BatchNorm and Dropout are ported; their training branches
+raise until the training slice.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..kernels import fused_conv_epilogue
 
-__all__ = ["activation", "batch_norm", "convolution", "fully_connected",
-           "pooling"]
+__all__ = ["activation", "batch_norm", "convolution", "dropout", "embedding",
+           "fully_connected", "layer_norm", "leaky_relu", "pooling"]
 
 
 def _pair(v, n):
@@ -152,3 +154,59 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
             x, scale=scale.to(x.dtype), bias=offset.to(x.dtype),
             channel_axis=ax, act_type=act_type)
     return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+
+
+def leaky_relu(x, act_type="leaky", slope=0.25, lower_bound=0.125,
+               upper_bound=0.334):
+    """ref: LeakyReLU, its ``gelu`` mode (exact erf), the one the BERT
+    slice needs; the other modes are not ported yet."""
+    if act_type == "gelu":
+        return F.gelu(x, approximate="none")
+    raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not ported yet; "
+                     "only 'gelu'")
+
+
+def _moments_acc(x, axis):
+    """Centered two-pass mean and variance along ``axis``, accumulated
+    in at least fp32 (fp64 stays fp64), as the JAX package's
+    ``_moments_acc``."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = torch.mean(xf, dim=axis, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=axis, keepdim=True)
+    return mean, var
+
+
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """ref: LayerNorm — two-pass fp32 moments, normalize in ``x``'s
+    dtype, then ``* gamma + beta`` along ``axis``."""
+    mean, var = _moments_acc(x, axis)
+    inv = torch.rsqrt(var + eps)
+    bshape = [1] * x.ndim
+    bshape[axis % x.ndim] = x.shape[axis % x.ndim]
+    out = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def dropout(x, p=0.5, mode="training", axes=(), training=False):
+    """ref: Dropout. Outside training (and without ``mode="always"``) or
+    with ``p <= 0`` it is the identity; drawing a mask belongs to the
+    training slice and raises until then."""
+    if p <= 0 or (not training and mode != "always"):
+        return x
+    raise MXNetError("Dropout: the training branch (a random mask) is not "
+                     "ported yet; run in predict mode")
+
+
+def embedding(indices, weight, input_dim=None, output_dim=None):
+    """ref: Embedding — rows of ``weight`` at ``indices`` (cast to int32).
+    As the JAX package's ``jnp.take``: an id in [-V, -1] counts from the
+    end, and an id >= V or < -V gives a row of NaN (never an error or a
+    device-side assert)."""
+    v = weight.shape[0]
+    ids = indices.to(torch.int32).long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    inside = (ids >= 0) & (ids < v)
+    rows = weight[ids.clamp(0, v - 1)]
+    return torch.where(inside.unsqueeze(-1), rows,
+                       torch.full((), math.nan, dtype=rows.dtype,
+                                  device=rows.device))

@@ -181,10 +181,11 @@ class Server:
     # -- client surface ------------------------------------------------------
     def submit(self, x, deadline_ms=None) -> PendingResponse:
         """Admit one sample (NO batch axis). Raises :class:`RequestError`
-        for a shape outside the bucket grid, :class:`ServerOverloaded`
+        for a shape outside the bucket grid or values the server's integer
+        dtype would change, :class:`ServerOverloaded`
         when the bounded queue is full and :class:`ServerStopped` once
         ``stop()`` has closed admission."""
-        payload = np.asarray(x, dtype=self._dtype)
+        payload = self._payload(x)
         key = self.grid.feature_key(payload.shape)
         if key is None:
             with self._lock:
@@ -216,6 +217,24 @@ class Server:
         with self._lock:
             self.counters["accepted"] += 1
         return PendingResponse(req, self.config.result_timeout_s)
+
+    def _payload(self, x):
+        """``x`` as an array of the server's dtype. For an integer dtype
+        (token ids) a value that the dtype would change — a fraction, or
+        one outside its range — is a rejected request, not a silently
+        different one."""
+        if self._dtype.kind not in "iu":
+            return np.asarray(x, dtype=self._dtype)
+        given = np.asarray(x)
+        if given.dtype.kind in "biuf":
+            with np.errstate(invalid="ignore"):      # NaN: refused below
+                payload = given.astype(self._dtype)
+            if np.array_equal(payload, given):
+                return payload
+        err = RequestError(f"request of {given.dtype} values is not exactly "
+                           f"{self._dtype} (the server's dtype)")
+        err.retryable = False          # every replica shares the dtype
+        raise err
 
     def predict(self, x, deadline_ms=None, timeout_s=None):
         """Synchronous convenience: submit + wait."""

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card (marker ``cuda``): the
-hand-written conv-epilogue kernel against its plain version on CUDA
-tensors, its launch count, and its refusals. Without a card they skip;
+hand-written conv-epilogue (K1) and matmul-epilogue (K2) kernels against
+their plain versions on CUDA tensors, their launch counts, and their
+refusals. Without a card they skip;
 on the card run them with ``python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py`` (the suite's conftest imports the JAX
 package)."""
@@ -10,6 +11,7 @@ import torch
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import conv_epilogue as ce
+from mxnet_tpu_torch.kernels import matmul_epilogue as me
 
 pytestmark = pytest.mark.cuda
 
@@ -45,7 +47,8 @@ def test_kernel_matches_plain(cuda, shape, axis, vectors, with_res, act,
     kernels.reset_launch_counts()
     got = ce.fused_conv_epilogue(x, s, b, r, channel_axis=axis,
                                  act_type=act)
-    assert kernels.launch_counts() == {"conv_epilogue": 1}
+    assert kernels.launch_counts() == {"conv_epilogue": 1,
+                                       "matmul_epilogue": 0}
     want = ce.fused_conv_epilogue_plain(x, s, b, r, channel_axis=axis,
                                         act_type=act)
     torch.cuda.synchronize()
@@ -61,3 +64,62 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ce.fused_conv_epilogue(x.double(), res=x.double())
     with pytest.raises(MXNetError, match="requires grad"):
         ce.fused_conv_epilogue(x.requires_grad_(), res=x)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("act", me.EPILOGUE_ACTS)
+@pytest.mark.parametrize("shape,vec,p", [
+    ((1024, 3072), "col", 0.0),
+    ((1024, 768), "col", 0.1),
+    ((8, 768), "col", 0.0),
+    ((77, 5), "row", 0.5),
+    ((3, 1), "col", 0.1),
+])
+def test_matmul_epilogue_kernel_matches_plain(cuda, shape, vec, p, act,
+                                              dtype, tol):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    r, c = shape
+    y = (torch.randn(r, c, generator=gen, device=cuda) * 2).to(dtype)
+    b = (torch.randn(*((1, c) if vec == "col" else (r, 1)), generator=gen,
+                     device=cuda) * 0.5).to(dtype)
+    bits = torch.randint(0, 256, shape, generator=gen, device=cuda,
+                         dtype=torch.uint8)
+    kernels.reset_launch_counts()
+    got = me.matmul_epilogue_2d(y, b, bits, act_type=act, p=p)
+    assert kernels.launch_counts() == {"conv_epilogue": 0,
+                                       "matmul_epilogue": 1}
+    want = me.matmul_epilogue_plain(y, b, bits, act_type=act, p=p)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == y.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if p == 0.0 and dtype == torch.float32:      # bit-equal without dropout
+        assert torch.equal(got, want)
+
+
+def test_dense_launches_matmul_epilogue(cuda):
+    from mxnet_tpu_torch import gluon
+    dense = gluon.nn.Dense(16, activation="gelu", flatten=False)
+    dense.initialize(ctx=cuda, generator=torch.Generator(device=cuda))
+    x = torch.randn(2, 3, 8, device=cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = dense(x)
+    assert kernels.launch_counts()["matmul_epilogue"] == 1
+    want = me.matmul_epilogue_plain(x @ dense.weight.t(), dense.bias,
+                                    act_type="gelu")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_matmul_epilogue_refuses_what_it_does_not_take(cuda):
+    y = torch.randn(4, 6, device=cuda)
+    b = torch.randn(1, 6, device=cuda)
+    with pytest.raises(MXNetError, match="contiguous"):
+        me.matmul_epilogue_2d(y.t().contiguous().t(), b)
+    with pytest.raises(MXNetError, match="dtype"):
+        me.matmul_epilogue_2d(y.double(), b.double())
+    with pytest.raises(MXNetError, match="bias"):
+        me.matmul_epilogue_2d(y, b.half())
+    with pytest.raises(MXNetError, match="requires grad"):
+        me.matmul_epilogue_2d(y.requires_grad_(), b)

@@ -1,6 +1,7 @@
 """The port's Server (mxnet_tpu_torch/serving) on the CPU: concurrent
 requests answered with the model's logits (port forward and JAX logits
-at atol = rtol = 1e-4, as for the ResNet parity), bucket padding and
+at atol = rtol = 1e-4, as for the ResNet parity), the narrow BERT served
+on int32 token ids of two unbucketed lengths, bucket padding and
 cropping, admission shedding, drain and no-drain stop, and bucket-grid
 parity with the JAX package's copy."""
 import threading
@@ -19,7 +20,7 @@ from mxnet_tpu_torch.serving import (BucketGrid, RequestError, Server,
                                      ServerConfig, ServerOverloaded,
                                      ServerStopped)
 
-from torch_parity import narrow_pair
+from torch_parity import bert_outputs, bert_pair, narrow_pair
 
 
 def test_concurrent_requests_match_port_and_jax_logits():
@@ -54,6 +55,37 @@ def test_concurrent_requests_match_port_and_jax_logits():
         np.testing.assert_allclose(results[i], own, rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(results[i], want[i], rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_bert_served_on_int32_ids_of_two_lengths():
+    jnet, tnet, _ = bert_pair(seed=3, use_decoder=False)
+    rng = np.random.RandomState(4)
+    seqs = [rng.randint(0, 100, size=n).astype(np.int32)
+            for n in (12, 20, 12, 20, 12)]
+    server = Server(tnet, ServerConfig(max_batch=4, dtype="int32",
+                                       window_ms=20), ctx=tmx.cpu()).start()
+    pending = [server.submit(s) for s in seqs]
+    answers = [p.result(60) for p in pending]
+    with pytest.raises(RequestError, match="int32"):
+        server.submit(seqs[0] + 0.5)         # fractional ids are refused
+    server.stop()
+    stats = server.stats()
+    assert stats["served"] == len(seqs) and stats["errors"] == 0
+    # the sequence axis is unbucketed: each length has its own predictor
+    assert {key[1] for key in server.cache._lru} == {(12,), (20,)}
+    for seq, answer in zip(seqs, answers):
+        assert isinstance(answer, tuple) and len(answer) == 3
+        seq_out, pooled, nsp = answer
+        assert (seq_out.shape, pooled.shape, nsp.shape) == \
+            ((len(seq), 64), (64,), (2,))
+        with torch.inference_mode():
+            own = tnet(torch.from_numpy(seq[None]))
+        _, want = bert_outputs(jnet, tnet, seq[None])
+        for served, direct, jax_out in zip(answer, own, want):
+            np.testing.assert_allclose(served, direct.numpy()[0], rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(served, jax_out[0], rtol=1e-4,
+                                       atol=1e-4)
 
 
 def test_bucket_padding_and_cropping():
