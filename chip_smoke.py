@@ -40,6 +40,27 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                answered; K2 must run 25 times per batch forward; every
                output (seq_out, pooled, nsp) must match the same model and
                weights run on the CPU.
+7. kernel K3 — hold the flash-attention kernel against its plain version
+               on the card: the long-context slice's own call (q, k, v as
+               strided views of a (4, 4096, 2304) fused QKV, 12 heads, D
+               64), the contiguous [B, H, S, D] form, causal and not, S_q
+               != S_kv both ways (causal S_q > S_kv gives zero rows),
+               ragged S (1025, 1100, 1, 7), D 16, 64, 80, 128 and 256, 3-D
+               inputs, float32 and bfloat16; tolerance 1e-5 (fp32) and
+               1e-2 (bf16) of max |out|. Times of the slice's call (CUDA
+               events after warm-up) for the kernel, the plain version and
+               torch's scaled_dot_product_attention (backend printed),
+               beside the operations bound at 67 TFLOP/s.
+8. serve     — full-width BERT-base at S 4096 (bert_12_768_12 without the
+   long BERT   MLM decoder, max_length 4096, seeded as in phase 6) behind
+               the Server on cuda:0, batch buckets 1/2/4, int32 ids. 8
+               requests from 4 threads must all be answered; per batch
+               forward flash_attention must run 12 times and K2 25 times;
+               seq_out, pooled and nsp of served requests 0 and 1 must
+               match the same model and weights run on the CPU. The
+               default deadline is raised to 10 s for this phase: a batch-4
+               forward here takes about 160 ms on an H100 at 700 W, and a
+               request may wait behind two of them.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after. The line before the last lists every kernel as
@@ -67,6 +88,13 @@ LOGIT_RTOL = 1e-3                    # of max |output|, TF32 off
 BERT_SEQ = 128                       # benchmarks/bert.py's sequence length
 BERT_VOCAB = 30522
 BERT_K2_PER_FORWARD = 25             # ffn_1 and ffn_2 of 12 cells, pooler
+LONG_SEQ = 4096                      # benchmarks/long_context.py's rung
+LONG_BATCH = 4
+LONG_HEADS = 12
+LONG_K3_PER_FORWARD = 12             # one flash attention per cell
+LONG_REQUESTS = 8
+LONG_CHECKED = (0, 1)                # served requests held against the CPU
+LONG_DEADLINE_MS = 10000.0
 
 
 def fail(msg):
@@ -319,49 +347,56 @@ def burst(server, payloads, indices, n_threads):
     return results, wall
 
 
-def serve_burst(torch, server, payloads, kernel, per_forward, card, unit):
+def serve_burst(torch, server, payloads, per_forward, card, unit,
+                n_requests=N_REQUESTS, max_batch=BATCH):
     """Warm every batch bucket on the server's worker thread (it keeps
-    its own per-thread cuDNN and cuBLAS state), then serve N_REQUESTS
+    its own per-thread cuDNN and cuBLAS state), then serve ``n_requests``
     from 4 threads with the launch counts set to 0 just before and read
-    just after. ``kernel`` must run ``per_forward`` times per batch."""
+    just after. ``per_forward`` maps each kernel of the path to the
+    launches it must make per batch forward."""
     from mxnet_tpu_torch import kernels
-    for b in (8, 4, 2, 1):
+    b = max_batch
+    while b >= 1:
         burst(server, payloads, range(b), 1)
-    # one batch of 8 at a time: the predictor call on the worker thread
+        b //= 2
+    # one full batch at a time: the predictor call on the worker thread
     # with no other request in flight, beside the burst's below
     server.exec_ms.reset()
-    for k in range(4):
-        burst(server, payloads, range(8 * k, 8 * k + 8), 1)
+    for k in range(n_requests // max_batch):
+        burst(server, payloads, range(max_batch * k, max_batch * (k + 1)),
+              1)
     alone = server.exec_ms.summary()
     _sync(torch)
     before = server.stats()
     server.latency.reset()
     server.exec_ms.reset()
     kernels.reset_launch_counts()
-    results, wall = burst(server, payloads, range(N_REQUESTS), 4)
+    results, wall = burst(server, payloads, range(n_requests), 4)
     launches = kernels.launch_counts()
     after = server.stats()
     server.stop()
     batches = after["batches"] - before["batches"]
-    if after["served"] - before["served"] != N_REQUESTS:
-        fail(f"only {after['served'] - before['served']} of {N_REQUESTS} "
+    if after["served"] - before["served"] != n_requests:
+        fail(f"only {after['served'] - before['served']} of {n_requests} "
              "requests answered")
-    if launches[kernel] != per_forward * batches:
-        fail(f"{kernel} launched {launches[kernel]} times for {batches} "
-             f"batch forwards (want {per_forward} each)")
+    for kernel, n in per_forward.items():
+        if launches[kernel] != n * batches:
+            fail(f"{kernel} launched {launches[kernel]} times for {batches} "
+                 f"batch forwards (want {n} each)")
+    counted = ", ".join(f"{k} launches {launches[k]} (= {n} x {batches})"
+                        for k, n in per_forward.items())
     lat, ex = after["latency_ms"], after["exec_ms"]
-    log(f"serve: {N_REQUESTS} requests (4 threads, each submitting 8 at "
-        f"once) answered in {batches} batches, {kernel} launches "
-        f"{launches[kernel]} (= {per_forward} x {batches}); latency p50 "
-        f"{lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms; "
-        f"{N_REQUESTS / wall:.2f} {unit}/s ({wall * 1e3:.3f} ms wall) on "
-        f"{card}")
+    log(f"serve: {n_requests} requests (4 threads, each submitting "
+        f"{n_requests // 4} at once) answered in {batches} batches, "
+        f"{counted}; latency p50 {lat['p50']:.3f} ms, p99 "
+        f"{lat['p99']:.3f} ms; {n_requests / wall:.2f} {unit}/s "
+        f"({wall * 1e3:.3f} ms wall) on {card}")
     log(f"serve: predictor call per batch (worker thread): p50 "
         f"{ex['p50']:.3f} ms, max {ex['max']:.3f} ms over {ex['count']} "
         f"batches in the burst; one batch at a time p50 "
         f"{alone['p50']:.3f} ms, max {alone['max']:.3f} ms over "
         f"{alone['count']} batches")
-    return [results[i] for i in range(N_REQUESTS)], launches
+    return [results[i] for i in range(n_requests)], launches
 
 
 def check_against_cpu(name, served, ref):
@@ -410,8 +445,8 @@ def phase_serve_resnet(torch, mx, card, ctx, size=224):
     images = rng.randn(N_REQUESTS, 3, size, size).astype(np.float32)
 
     server = Server(net, ServerConfig(max_batch=8), ctx=ctx).start()
-    results, launches = serve_burst(torch, server, images, "conv_epilogue",
-                                    48, card, "images")
+    results, launches = serve_burst(torch, server, images,
+                                    {"conv_epilogue": 48}, card, "images")
     profile_forward(torch, net, torch.randn(BATCH, 3, size, size,
                                             device=ctx.torch_device),
                     "conv_epilogue")
@@ -573,19 +608,19 @@ def phase_kernel_k2(torch, me):
 
 
 # -- phase 6: serve BERT -----------------------------------------------------
-def phase_serve_bert(torch, mx, card, ctx):
-    """Serve full-width BERT-base (no MLM decoder) on ``ctx``."""
+def seeded_bert(torch, mx, ctx, seq, buckets, **kwargs):
+    """Full-width BERT-base without the MLM decoder on ``ctx``:
+    Normal(0.02) weights, every batch bucket materialized and warmed at
+    sequence ``seq``, then seeded biases and LayerNorms, all from one
+    generator seeded with SEED."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
-    from mxnet_tpu_torch.serving import Server, ServerConfig
-    import numpy as np
-
     dev = ctx.torch_device
     gen = mx.random.generator(SEED, device=dev)
-    net = bert_12_768_12(use_decoder=False)
+    net = bert_12_768_12(use_decoder=False, **kwargs)
     net.initialize(mx.init.Normal(0.02), ctx=ctx, generator=gen)
     with torch.inference_mode():        # materialize and warm every bucket
-        for b in (1, 2, 4, 8):
-            net(torch.zeros(b, BERT_SEQ, dtype=torch.int32, device=dev))
+        for b in buckets:
+            net(torch.zeros(b, seq, dtype=torch.int32, device=dev))
     with torch.no_grad():               # seeded biases and LayerNorms too
         for name, t in net.collect_params().items():
             if name.endswith(("bias", "beta")):
@@ -593,13 +628,25 @@ def phase_serve_bert(torch, mx, card, ctx):
             elif name.endswith("gamma"):
                 t.normal_(1.0, 0.02, generator=gen)
     _sync(torch)
+    return net
+
+
+def phase_serve_bert(torch, mx, card, ctx):
+    """Serve full-width BERT-base (no MLM decoder) on ``ctx``."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    import numpy as np
+
+    dev = ctx.torch_device
+    net = seeded_bert(torch, mx, ctx, BERT_SEQ, (1, 2, 4, 8))
     ids = np.random.RandomState(SEED).randint(
         0, BERT_VOCAB, (N_REQUESTS, BERT_SEQ)).astype(np.int32)
 
     server = Server(net, ServerConfig(max_batch=8, dtype="int32"),
                     ctx=ctx).start()
-    results, launches = serve_burst(torch, server, ids, "matmul_epilogue",
-                                    BERT_K2_PER_FORWARD, card, "sequences")
+    results, launches = serve_burst(
+        torch, server, ids, {"matmul_epilogue": BERT_K2_PER_FORWARD}, card,
+        "sequences")
     profile_forward(torch, net, torch.from_numpy(ids[:BATCH]).to(dev),
                     "matmul_epilogue")
     torch.cuda.reset_peak_memory_stats()
@@ -694,9 +741,235 @@ def profile_forward(torch, net, x, kernel, reps=10):
         f"{reps}), kernels {device_ms:.3f} ms on the device "
         f"({sum(c for c, _ in dev.values()):.0f} launches), device busy "
         f"{device_ms / wall:.3f} of the wall time; {kernel} "
-        f"{k_ms:.3f} ms in {k_calls:.0f} launches")
+        f"{k_ms:.3f} ms in {k_calls:.0f} launches, "
+        f"{k_ms / device_ms:.3f} of the device time")
     for key, (calls, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  {ms:9.4f} ms {calls:5.0f}x  {key[:90]}")
+
+
+# -- phase 7: kernel K3 ------------------------------------------------------
+def flash_cases():
+    """(name, B, H, S_q, S_kv, D, causal, form). ``form`` "qkv" reads
+    strided (B, S, H, D) views of one fused (B, S, 3HD) tensor, as
+    fused_self_attention passes them; "bhsd" is contiguous [B, H, S, D];
+    "3d" is [B, S, D] (H = 1)."""
+    return [
+        ("slice", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64, False,
+         "qkv"),
+        ("slice_causal", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64,
+         True, "qkv"),
+        ("bhsd", 2, 12, 2048, 2048, 64, False, "bhsd"),
+        ("bhsd_causal", 2, 3, 1100, 1100, 64, True, "bhsd"),
+        ("q_shorter_causal", 2, 3, 200, 1100, 64, True, "bhsd"),
+        ("q_shorter", 2, 3, 200, 1100, 64, False, "bhsd"),
+        ("q_longer_causal", 2, 3, 1100, 200, 64, True, "bhsd"),
+        ("q_longer", 2, 3, 1100, 200, 64, False, "bhsd"),
+        ("ragged_1025_qkv", 1, 4, 1025, 1025, 64, True, "qkv"),
+        ("ragged_1100_d16", 2, 2, 1100, 1100, 16, False, "bhsd"),
+        ("ragged_1_d128", 1, 2, 1, 1100, 128, False, "bhsd"),
+        ("ragged_7_d128", 1, 2, 7, 7, 128, True, "bhsd"),
+        ("d16_causal", 2, 3, 1100, 1100, 16, True, "bhsd"),
+        ("d128", 1, 4, 2048, 2048, 128, False, "bhsd"),
+        ("d80_ragged_causal", 2, 2, 300, 1030, 80, True, "bhsd"),
+        ("d256", 1, 2, 130, 1100, 256, False, "bhsd"),
+        ("3d_causal", 3, 1, 1100, 1100, 16, True, "3d"),
+        ("3d_short_keys", 3, 1, 1025, 7, 64, False, "3d"),
+    ]
+
+
+def flash_inputs(torch, case, dtype):
+    _, b, h, s_q, s_kv, d, _, form = case
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    if form == "qkv":
+        qkv = rnd(b, s_q, 3 * h * d)
+        return tuple(qkv[:, :, i * h * d:(i + 1) * h * d]
+                     .reshape(b, s_q, h, d) for i in range(3))
+    lead = (b,) if form == "3d" else (b, h)
+    return rnd(*lead, s_q, d), rnd(*lead, s_kv, d), rnd(*lead, s_kv, d)
+
+
+def k3_bound_ms(case, dtype_size):
+    """The larger of operations / fp32 rate (4 B H S_q S_kv D, half under
+    causal) and bytes / HBM rate (q, k, v read once, out written once),
+    in ms; returns (ms, "bytes" or "operations")."""
+    _, b, h, s_q, s_kv, d, causal, _ = case
+    ops = 4 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
+    by = dtype_size * b * h * d * (2 * s_q + 2 * s_kv)
+    ops_s, by_s = ops / FP32_OPS_PER_S, by / HBM_BYTES_PER_S
+    return (by_s * 1e3, "bytes") if by_s > ops_s else (ops_s * 1e3,
+                                                       "operations")
+
+
+def event_ms(torch, fn, reps):
+    """Device time of one ``fn()`` from CUDA events around ``reps`` calls,
+    after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sdpa_ms(torch, q, k, v):
+    """Time of torch's scaled_dot_product_attention on [B, H, S, D]
+    inputs (a yardstick; the port never calls it) and the name of the
+    device kernel it ran."""
+    from torch.profiler import ProfilerActivity, profile
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = event_ms(torch, lambda: sdpa(q, k, v), 5)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        sdpa(q, k, v)
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    return ms, (rows[0].key if rows else "not seen by the profiler")
+
+
+def run_case_k3(torch, fa, case, dtype, timed=False):
+    name, b, h, s_q, s_kv, d, causal, form = case
+    q, k, v = flash_inputs(torch, case, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    with torch.inference_mode():
+        if form == "qkv":
+            def kernel():
+                return fa.flash_attention_bshd(q, k, v, causal=causal)
+
+            def plain():
+                return fa.flash_attention_plain(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal).transpose(1, 2)
+        else:
+            def kernel():
+                return fa.flash_attention(q, k, v, causal=causal)
+
+            def plain():
+                return fa.flash_attention_plain(q, k, v, causal=causal)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        scale = float(want.float().abs().max())
+        ok = err <= tol * scale and got.shape == want.shape \
+            and got.dtype == want.dtype and bool(torch.isfinite(got).all())
+        if causal and s_q > s_kv:       # rows with no allowed key: zeros
+            ok = ok and not bool(got[..., :s_q - s_kv, :].any())
+        del got, want, diff
+        res = {"err": err}
+        if timed:
+            res["ms"] = event_ms(torch, kernel, 5)
+            res["plain_ms"] = event_ms(torch, plain, 2)
+            qh, kh, vh = (t.transpose(1, 2).contiguous() if form == "qkv"
+                          else t for t in (q, k, v))
+            res["library_ms"], res["library_kernel"] = sdpa_ms(
+                torch, qh, kh, vh)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    res["bound_ms"], res["bound_by"] = k3_bound_ms(case, esize)
+    times = (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+             f"sdpa_ms={res['library_ms']:.4f}" if timed else "")
+    log(f"  {name:18s} B={b} H={h} S_q={s_q} S_kv={s_kv} D={d} "
+        f"causal={int(causal)} {form:4s} {str(dtype)[6:]:8s} "
+        f"max_err={err:.3e} max|out|={scale:.3e} tol={tol:g} of max|out|"
+        f"{times} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"flash_attention disagrees with its plain version on {name} "
+             f"{dtype}: max_err {err} > {tol} x {scale}")
+    return res
+
+
+def phase_kernel_k3(torch, fa):
+    log("kernel: flash_attention vs its plain version on the card")
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timed = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in flash_cases():
+            want_times = dtype == torch.float32 and case[0] == "slice"
+            r = run_case_k3(torch, fa, case, dtype, timed=want_times)
+            errs[dtype] = max(errs[dtype], r["err"])
+            if want_times:
+                timed = r
+    n = LONG_K3_PER_FORWARD
+    results = {"ms": n * timed["ms"], "plain_ms": n * timed["plain_ms"],
+               "bound_ms": n * timed["bound_ms"],
+               "bound_by": timed["bound_by"],
+               "library_ms": n * timed["library_ms"],
+               "library_kernel": timed["library_kernel"],
+               "max_abs_err": errs[torch.float32],
+               "max_abs_err_bf16": errs[torch.bfloat16]}
+    log(f"kernel: one long-context BERT-base forward's attention (batch "
+        f"{LONG_BATCH}, S {LONG_SEQ}, 12 heads, D 64, float32, {n} "
+        f"launches): kernel {results['ms']:.3f} ms, plain "
+        f"{results['plain_ms']:.3f} ms, bound {results['bound_ms']:.3f} ms "
+        f"({results['bound_by']} at 67 TFLOP/s), scaled_dot_product_"
+        f"attention {results['library_ms']:.3f} ms (its kernel: "
+        f"{results['library_kernel'][:80]})")
+    return results
+
+
+# -- phase 8: serve long-context BERT ----------------------------------------
+def phase_serve_long_bert(torch, mx, card, ctx):
+    """Serve full-width BERT-base at S 4096 on ``ctx``."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    import numpy as np
+
+    dev = ctx.torch_device
+    net = seeded_bert(torch, mx, ctx, LONG_SEQ, (1, 2, LONG_BATCH),
+                      max_length=LONG_SEQ)
+    ids = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (LONG_REQUESTS, LONG_SEQ)).astype(np.int32)
+    log(f"serve: default_deadline_ms set to {LONG_DEADLINE_MS:g} for this "
+        "phase (the server's default is 2000)")
+    server = Server(net, ServerConfig(max_batch=LONG_BATCH, dtype="int32",
+                                      default_deadline_ms=LONG_DEADLINE_MS),
+                    ctx=ctx).start()
+    results, launches = serve_burst(
+        torch, server, ids, {"flash_attention": LONG_K3_PER_FORWARD,
+                             "matmul_epilogue": BERT_K2_PER_FORWARD},
+        card, "sequences", n_requests=LONG_REQUESTS, max_batch=LONG_BATCH)
+    x = torch.from_numpy(ids[:LONG_BATCH]).to(dev)
+    profile_forward(torch, net, x, "flash_attention", reps=3)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        net(x)
+    dense_gb = LONG_BATCH * LONG_HEADS * LONG_SEQ ** 2 * 4 / 1e9
+    log(f"serve: peak device memory of a batch-{LONG_BATCH} forward "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; dense "
+        f"attention's fp32 score tensor alone would be {dense_gb:.2f} GB "
+        "per layer")
+
+    # the same model and weights on the CPU: the plain versions
+    cpu_net = bert_12_768_12(use_decoder=False, max_length=LONG_SEQ)
+    cpu_net.load_dict({k: v.detach().cpu().numpy()
+                       for k, v in net.collect_params().items()},
+                      ctx=mx.cpu())
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu_net(torch.from_numpy(ids[list(LONG_CHECKED)]))
+    log(f"serve: CPU forward of requests {list(LONG_CHECKED)} took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, (name, shape) in enumerate([
+            ("seq_out", (LONG_SEQ, 768)), ("pooled", (768,)),
+            ("nsp", (2,))]):
+        want = ref[k].numpy()
+        if want.shape != (len(LONG_CHECKED),) + shape:
+            fail(f"CPU {name} has shape {want.shape}")
+        check_against_cpu(name, np.stack([results[i][k]
+                                          for i in LONG_CHECKED]), want)
+    return launches
 
 
 def main():
@@ -708,12 +981,27 @@ def main():
     card = phase_card(torch)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import conv_epilogue as ce
+    from mxnet_tpu_torch.kernels import flash_attention as fa
     from mxnet_tpu_torch.kernels import matmul_epilogue as me
-    phase_build()
-    k1 = phase_kernel_k1(torch, ce)
-    k1_launches = phase_serve_resnet(torch, mx, card, mx.gpu(0))
-    k2 = phase_kernel_k2(torch, me)
-    k2_launches = phase_serve_bert(torch, mx, card, mx.gpu(0))
+    out = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+    run("build", phase_build)
+    run("kernel K1", lambda: phase_kernel_k1(torch, ce))
+    run("serve ResNet", lambda: phase_serve_resnet(torch, mx, card,
+                                                   mx.gpu(0)))
+    run("kernel K2", lambda: phase_kernel_k2(torch, me))
+    run("serve BERT", lambda: phase_serve_bert(torch, mx, card, mx.gpu(0)))
+    run("kernel K3", lambda: phase_kernel_k3(torch, fa))
+    run("serve long BERT", lambda: phase_serve_long_bert(torch, mx, card,
+                                                         mx.gpu(0)))
+    k1, k1_launches = out["kernel K1"], out["serve ResNet"]
+    k2, k2_launches = out["kernel K2"], out["serve BERT"]
+    k3, k3_launches = out["kernel K3"], out["serve long BERT"]
     line = {"kernels": [{
         "name": "conv_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/conv_epilogue.cu",
@@ -742,7 +1030,22 @@ def main():
                           "computes the gelu and tanh epilogues",
         "ms_identity": k2["ms_identity"],
         "max_abs_err_p0_fp32": k2["max_abs_err_p0_fp32"],
-        "max_abs_err_bf16": k2["max_abs_err_bf16"]}]}
+        "max_abs_err_bf16": k2["max_abs_err_bf16"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "
+                    "mxnet_tpu/pallas/kernels.py:483 (K3')",
+        "launches": k3_launches["flash_attention"],
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "status": "ok",
+        "per": f"one BERT-base forward at batch {LONG_BATCH}, sequence "
+               f"{LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} launches)",
+        "library_covers": "torch.nn.functional.scaled_dot_product_attention"
+                          " on the same inputs as [B, H, S, D]; its kernel: "
+                          + k3["library_kernel"][:80],
+        "max_abs_err_bf16": k3["max_abs_err_bf16"]}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,12 @@ alias).
 
 Per encoder cell the feed-forward block runs the matmul-epilogue kernel
 (K2) twice: ``ffn_1``'s bias + gelu and ``ffn_2``'s bias (+ dropout in
-training); the pooler's bias + tanh is one more launch. Attention is the
-dense (B, S, H, D) path of :func:`ops.contrib.fused_self_attention`; the
-model carries no attention mask, as in the JAX package.
+training); the pooler's bias + tanh is one more launch. Attention is
+:func:`ops.contrib.fused_self_attention`: the dense (B, S, H, D) path up
+to 1024 tokens, above that one flash-attention launch (K3/K3') per cell
+on strided views of the fused QKV, so ``max_length=4096`` serves S 4096
+in O(S) attention memory. The model carries no attention mask, as in the
+JAX package.
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
-SOURCES = ("conv_epilogue", "matmul_epilogue")
+SOURCES = ("conv_epilogue", "matmul_epilogue", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

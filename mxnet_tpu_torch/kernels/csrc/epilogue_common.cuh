@@ -1,6 +1,8 @@
 // Device helpers shared by the epilogue kernels (K1 conv_epilogue.cu, K2
 // matmul_epilogue.cu): the codes the Python wrappers pass, fp32 loads and
-// stores of the three element types, and the five activations.
+// stores of the three element types, and the five activations. The
+// flash-attention kernel (flash_attention.cu) uses the dtype codes and the
+// loads and stores.
 //
 // Every activation is evaluated in fp32 with the same formula PyTorch's
 // CUDA kernels use, so a kernel equals its plain PyTorch version bit for

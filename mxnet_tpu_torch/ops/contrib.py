@@ -5,13 +5,15 @@ import torch
 
 from ..base import MXNetError
 from ..kernels import fused_conv_epilogue, fused_matmul_epilogue
+from ..kernels.flash_attention import flash_attention_bshd
+from ..parallel.ring_attention import attention_reference, blockwise_attention
 from .tensor import shifted_expsum
 
-__all__ = ["arange_like", "conv_epilogue", "fused_self_attention",
-           "matmul_epilogue"]
+__all__ = ["arange_like", "conv_epilogue", "flash_attention",
+           "fused_self_attention", "matmul_epilogue"]
 
-# above this many keys the JAX package streams attention through its
-# flash-attention kernels (K3 / K3'), which the port does not have yet
+# above this many keys attention streams through the flash-attention
+# kernel (K3/K3'); at or below it one dense softmax(QK^T)V is computed
 DENSE_ATTENTION_MAX_KV = 1024
 
 
@@ -42,25 +44,42 @@ def arange_like(x, start=0.0, step=1.0, repeat=1, axis=None):
     return out.reshape(x.shape) if axis is None else out
 
 
+def flash_attention(q, k, v, block_size=512, causal=False, sm_scale=None):
+    """ref: ``_contrib_flash_attention`` — attention on [B, H, S, D]
+    inputs (3-D inputs ride as H = 1), scale ``D ** -0.5`` unless
+    ``sm_scale`` is given, causal bottom-right. Up to
+    ``DENSE_ATTENTION_MAX_KV`` keys it is the dense
+    :func:`~..parallel.ring_attention.attention_reference`; above, the
+    streaming :func:`~..parallel.ring_attention.blockwise_attention`
+    (the flash-attention kernel on a CUDA tensor)."""
+    scale = float(q.shape[-1]) ** -0.5 if sm_scale is None else sm_scale
+    if k.shape[-2] <= DENSE_ATTENTION_MAX_KV:
+        return attention_reference(q, k, v, causal=causal, scale=scale)
+    return blockwise_attention(q, k, v, block_size=block_size,
+                               causal=causal, scale=scale)
+
+
 def fused_self_attention(qkv, heads=None, causal=False, block_size=512):
     """ref: ``_contrib_fused_self_attention`` — self-attention straight
     off the fused QKV projection (B, S, 3C), q-major column blocks, in
-    the (B, S, H, D) einsum layout: ``softmax(Q K^T / sqrt(D)) V`` with
-    the max-shifted exp and its row sum accumulated in fp32, then a
-    divide. For S above 1024 the JAX package streams through its flash
-    attention kernel (K3), which is not ported yet: that raises."""
+    the (B, S, H, D) einsum layout. Up to ``DENSE_ATTENTION_MAX_KV``
+    tokens: ``softmax(Q K^T / sqrt(D)) V`` with the max-shifted exp and
+    its row sum accumulated in fp32, then a divide. Above: the
+    flash-attention kernel reads the three column blocks of ``qkv`` in
+    place as strided (B, S, H, D) views and writes (B, S, H, D), which is
+    (B, S, C) without a copy (the JAX package transposes to [B, H, S, D]
+    and back)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    if s > DENSE_ATTENTION_MAX_KV:
-        raise MXNetError(
-            f"fused_self_attention: S={s} > {DENSE_ATTENTION_MAX_KV} needs "
-            "the flash-attention kernel K3 (mxnet_tpu/ops/contrib.py "
-            "_flash_attention), which is not ported yet")
     q = qkv[:, :, :c].reshape(b, s, heads, d)
     k = qkv[:, :, c:2 * c].reshape(b, s, heads, d)
     v = qkv[:, :, 2 * c:].reshape(b, s, heads, d)
     scale = float(d) ** -0.5
+    if s > DENSE_ATTENTION_MAX_KV:
+        out = flash_attention_bshd(q, k, v, block_size=block_size,
+                                   causal=causal, scale=scale)
+        return out.reshape(b, s, c)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         qi = torch.arange(s, device=qkv.device)[:, None]

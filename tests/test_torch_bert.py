@@ -233,11 +233,52 @@ def test_fused_self_attention_matches_jax(causal):
 
 
 def test_attention_above_1024_raises_naming_k3():
-    with pytest.raises(MXNetError, match="K3"):
-        tcontrib.fused_self_attention(torch.zeros(1, 1025, 12), heads=2)
+    """Above 1024 tokens the port no longer raises naming K3: it streams
+    through the flash-attention path, here at S 1025 (its plain version
+    on the CPU) against the JAX package. ``seq_parallel`` still raises."""
+    qkv = np.random.RandomState(15).randn(1, 1025, 3 * 12) \
+        .astype(np.float32)
+    want = nd.contrib.fused_self_attention(nd.array(qkv), heads=2).asnumpy()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = tcontrib.fused_self_attention(torch.from_numpy(qkv), heads=2)
+    assert kernels.launch_counts()["flash_attention"] == 0      # CPU path
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     tcontrib.fused_self_attention(torch.zeros(1, 1024, 6), heads=2)
     with pytest.raises(MXNetError, match="seq_parallel"):
         torch_bert.MultiHeadAttention(8, 2, seq_parallel="ring")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1100, 1536])
+def test_long_fused_self_attention_matches_jax(s, causal):
+    """The streaming branch (S > 1024) against JAX
+    ``_fused_self_attention``, which transposes to [B, H, S, D] for its
+    flash path; the port reads the fused QKV as strided views."""
+    from mxnet_tpu.ops.contrib import _fused_self_attention
+    qkv = np.random.RandomState(s).randn(2, s, 3 * 32).astype(np.float32)
+    want = np.asarray(_fused_self_attention(qkv, heads=2, causal=causal,
+                                            block_size=256))
+    with torch.inference_mode():
+        got = tcontrib.fused_self_attention(
+            torch.from_numpy(qkv), heads=2, causal=causal, block_size=256)
+    assert got.shape == (2, s, 32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_long_context_narrow_bert_matches_jax():
+    """The narrow BERT with a 2048-row position table, weights carried by
+    convert.py, at S 1536: every encoder cell takes the streaming
+    attention branch. Outputs within 1e-4 of max |value|."""
+    jnet, tnet, arrays = bert_pair(seed=16, max_length=2048)
+    assert arrays["position_weight"].shape == (2048, 64)
+    assert tuple(tnet.position_weight.shape) == (2048, 64)
+    got, want = bert_outputs(jnet, tnet, _ids(17, batch=1, seq=1536),
+                             _ids(18, batch=1, seq=1536, high=2))
+    assert [g.shape for g in got] == [(1, 1536, 64), (1, 64), (1, 2),
+                                      (1, 1536, 100)]
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
 
 
 def test_tensor_ops_match_jax():

@@ -148,4 +148,5 @@ def test_cpu_path_never_counts_a_launch():
     ce.fused_conv_epilogue(x, res=x)
     ce.conv_epilogue_plain(x, act_type="tanh")
     assert kernels.launch_counts() == {"conv_epilogue": 0,
-                                       "matmul_epilogue": 0}
+                                       "matmul_epilogue": 0,
+                                       "flash_attention": 0}

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA card (marker ``cuda``): the
-hand-written conv-epilogue (K1) and matmul-epilogue (K2) kernels against
-their plain versions on CUDA tensors, their launch counts, and their
-refusals. Without a card they skip;
+hand-written conv-epilogue (K1), matmul-epilogue (K2) and flash-attention
+(K3/K3') kernels against their plain versions on CUDA tensors, their
+launch counts, and their refusals. Without a card they skip;
 on the card run them with ``python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py`` (the suite's conftest imports the JAX
 package)."""
@@ -11,6 +11,7 @@ import torch
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import conv_epilogue as ce
+from mxnet_tpu_torch.kernels import flash_attention as fa
 from mxnet_tpu_torch.kernels import matmul_epilogue as me
 
 pytestmark = pytest.mark.cuda
@@ -48,7 +49,8 @@ def test_kernel_matches_plain(cuda, shape, axis, vectors, with_res, act,
     got = ce.fused_conv_epilogue(x, s, b, r, channel_axis=axis,
                                  act_type=act)
     assert kernels.launch_counts() == {"conv_epilogue": 1,
-                                       "matmul_epilogue": 0}
+                                       "matmul_epilogue": 0,
+                                       "flash_attention": 0}
     want = ce.fused_conv_epilogue_plain(x, s, b, r, channel_axis=axis,
                                         act_type=act)
     torch.cuda.synchronize()
@@ -89,7 +91,8 @@ def test_matmul_epilogue_kernel_matches_plain(cuda, shape, vec, p, act,
     kernels.reset_launch_counts()
     got = me.matmul_epilogue_2d(y, b, bits, act_type=act, p=p)
     assert kernels.launch_counts() == {"conv_epilogue": 0,
-                                       "matmul_epilogue": 1}
+                                       "matmul_epilogue": 1,
+                                       "flash_attention": 0}
     want = me.matmul_epilogue_plain(y, b, bits, act_type=act, p=p)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == y.shape
@@ -123,3 +126,107 @@ def test_matmul_epilogue_refuses_what_it_does_not_take(cuda):
         me.matmul_epilogue_2d(y, b.half())
     with pytest.raises(MXNetError, match="requires grad"):
         me.matmul_epilogue_2d(y.requires_grad_(), b)
+
+
+# (B, H, S_q, S_kv, D, causal, form): "qkv" reads strided (B, S, H, D)
+# views of one fused (B, S, 3HD) tensor, "bhsd" contiguous [B, H, S, D],
+# "3d" [B, S, D]
+FLASH_CASES = [
+    (4, 12, 4096, 4096, 64, False, "qkv"),
+    (2, 3, 1100, 1100, 64, False, "bhsd"),
+    (2, 3, 1100, 1100, 64, True, "bhsd"),
+    (2, 3, 200, 1100, 64, True, "bhsd"),
+    (2, 3, 1100, 200, 64, True, "bhsd"),
+    (2, 3, 1100, 200, 64, False, "bhsd"),
+    (1, 2, 1025, 1025, 16, True, "qkv"),
+    (1, 2, 1, 1100, 128, False, "bhsd"),
+    (1, 2, 7, 7, 128, True, "bhsd"),
+    (2, 2, 300, 1030, 80, True, "bhsd"),
+    (1, 2, 130, 257, 256, False, "bhsd"),
+    (3, 1, 1100, 1100, 16, True, "3d"),
+]
+
+
+def flash_inputs(case, dtype, device, seed=0):
+    b, h, s_q, s_kv, d, _, form = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    if form == "qkv":
+        assert s_q == s_kv
+        qkv = rnd(b, s_q, 3 * h * d)
+        return tuple(qkv[:, :, i * h * d:(i + 1) * h * d]
+                     .reshape(b, s_q, h, d) for i in range(3))
+    lead = (b,) if form == "3d" else (b, h)
+    return rnd(*lead, s_q, d), rnd(*lead, s_kv, d), rnd(*lead, s_kv, d)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
+    q, k, v = flash_inputs(case, dtype, cuda)
+    causal, form = case[5], case[6]
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        if form == "qkv":
+            got = fa.flash_attention_bshd(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal).transpose(1, 2)
+        else:
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert kernels.launch_counts() == {"conv_epilogue": 0,
+                                       "matmul_epilogue": 0,
+                                       "flash_attention": 1}
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= tol * scale, (err, scale)
+    s_q, s_kv = case[2], case[3]
+    if causal and s_q > s_kv:            # rows with no allowed key: zeros
+        assert not got[..., :s_q - s_kv, :].any()
+
+
+def test_fused_self_attention_launches_one_flash_attention(cuda):
+    from mxnet_tpu_torch.ops import contrib
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    qkv = torch.randn(2, 1100, 3 * 96, generator=gen, device=cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = contrib.fused_self_attention(qkv, heads=3)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    q, k, v = (qkv[:, :, i * 96:(i + 1) * 96].reshape(2, 1100, 3, 32)
+               .transpose(1, 2) for i in range(3))
+    want = fa.flash_attention_plain(q, k, v).transpose(1, 2) \
+        .reshape(2, 1100, 96)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1100, 96)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(1, 2, 1100, 64, device=cuda)
+    with pytest.raises(MXNetError, match="CPU or all on"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(MXNetError, match="256"):
+        big = torch.randn(1, 1, 8, 320, device=cuda)
+        fa.flash_attention(big, big, big)
+    with pytest.raises(MXNetError, match="float16|dtype"):
+        fa.flash_attention(q, q.half(), q)
+    with pytest.raises(MXNetError, match="contiguous"):
+        w = torch.randn(1, 2, 64, 1100, device=cuda).transpose(2, 3)
+        fa.flash_attention(w, w, w)
+    with pytest.raises(MXNetError, match="dtype"):
+        fa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(MXNetError, match="do not match|share"):
+        fa.flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(MXNetError, match="requires grad"):
+        fa.flash_attention(q.requires_grad_(), q, q)

@@ -161,13 +161,15 @@ def test_cpu_path_never_counts_a_launch():
     me.matmul_epilogue_2d(y, torch.ones(4, 1), act_type="tanh")
     me.matmul_epilogue_plain(y, torch.ones(1, 6))
     assert kernels.launch_counts() == {"conv_epilogue": 0,
-                                       "matmul_epilogue": 0}
+                                       "matmul_epilogue": 0,
+                                       "flash_attention": 0}
 
 
 def test_library_name_hashes_the_source_and_every_header(tmp_path,
                                                          monkeypatch):
     from mxnet_tpu_torch.kernels import _build
-    assert _build.SOURCES == ("conv_epilogue", "matmul_epilogue")
+    assert _build.SOURCES == ("conv_epilogue", "matmul_epilogue",
+                              "flash_attention")
     (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
     (tmp_path / "shared.cuh").write_text("// v1\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
