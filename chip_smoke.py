@@ -61,12 +61,47 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                default deadline is raised to 10 s for this phase: a batch-4
                forward here takes about 160 ms on an H100 at 700 W, and a
                request may wait behind two of them.
+9. kernel K3 — hold the flash-attention backward kernels (dK/dV and dQ)
+   backward    against flash_attention_bwd_plain on the card, fed the
+               kernel forward's out and row log-sum-exp: the slice's own
+               call (gradients written into one fused (4, 4096, 2304)
+               buffer), causal and not, S_q > S_kv (empty rows get zero
+               gradients) and S_q < S_kv, ragged S, D 16, 32, 64, 128 and
+               256, 3-D inputs, float32 and bfloat16; tolerance 1e-4
+               (fp32) and 2e-2 (bf16) of each gradient's max |value|; the
+               forward's lse against the plain forward's. Times of the
+               slice's call (CUDA events after warm-up) for each kernel,
+               the delta reduction, the plain version and the backward of
+               scaled_dot_product_attention (kernel printed), beside the
+               operations bound at 67 TFLOP/s.
+10. kernel K2 — ffn_2's training call at (16384, 768) with dropout bits
+    training    drawn on the card: bit-equal to the plain version on the
+               same bits, keeping 1 - p within 1%; K2's backward against
+               the plain version's autograd at ffn_1's and ffn_2's shapes
+               (1e-5 of max |grad|).
+11. train     — full-width BERT-base masked LM (bert_12_768_12 with
+    long BERT   max_length 4096, no pooler or NSP classifier: the decoder
+               over every position, vocab 30522, dropout 0.1) at batch 4,
+               S 4096, fp32, through record -> SoftmaxCrossEntropyLoss ->
+               autograd.backward -> Trainer("adam", lr 1e-4).step(4): 6
+               steps on one seeded batch (labels = the ids, as
+               examples/pretrain_bert.py), the first a warm-up. Per step
+               flash_attention and each backward kernel must run 12
+               times and K2 24 times; the losses must be finite and fall.
+               Step time, sequences/s, tokens/s, peak memory, and one
+               profiled step's device busy share and top kernels. Gate:
+               one batch-1 step from the same weights on the card and on
+               the CPU with the card's dropout bits replayed; the loss
+               and the gradients of word_embed, the first and last
+               cell's qkv and ffn_1 weights and the decoder's last Dense
+               within 1e-3 of each one's max |value|.
 
 Each serve phase sets the launch counts to 0 just before its burst and
-reads them just after. The line before the last lists every kernel as
-JSON; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device, or without the repository beside this file, the script exits
-non-zero and prints no result.
+reads them just after, and the training phase just before its steps.
+The line before the last lists every kernel as JSON; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or without the
+repository beside this file, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -972,6 +1007,433 @@ def phase_serve_long_bert(torch, mx, card, ctx):
     return launches
 
 
+# -- phase 9: kernel K3 backward ---------------------------------------------
+def bwd_cases():
+    """(name, B, H, S_q, S_kv, D, causal, form) of the backward check, in
+    flash_cases' forms: the slice's own call (gradients written into one
+    fused (4, 4096, 2304) buffer), causal, S_q > S_kv with empty rows,
+    S_q < S_kv, ragged S, D 16, 32, 128 and 256, 3-D inputs."""
+    return [
+        ("slice", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64, False,
+         "qkv"),
+        ("slice_causal", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64,
+         True, "qkv"),
+        ("q_longer_causal", 2, 3, 1100, 200, 64, True, "bhsd"),
+        ("q_shorter_causal", 2, 3, 200, 1100, 64, True, "bhsd"),
+        ("ragged_1025_qkv", 1, 4, 1025, 1025, 64, True, "qkv"),
+        ("d32", 2, 4, 1100, 1100, 32, False, "bhsd"),
+        ("d128_causal", 1, 4, 2048, 2048, 128, True, "bhsd"),
+        ("d256", 1, 2, 130, 1100, 256, False, "bhsd"),
+        ("d256_q_longer_causal", 1, 2, 1100, 300, 256, True, "bhsd"),
+        ("3d_causal", 3, 1, 1100, 1100, 16, True, "3d"),
+    ]
+
+
+def k3_bwd_bound_ms(case, dtype_size, which):
+    """The larger of operations / fp32 rate and bytes / HBM rate of one
+    backward kernel, in ms. ``which`` "dkv": s, dp, dv and dk, four
+    products of 2 B H S_q S_kv D flops (half under causal), reading q, k,
+    v, dout, lse and delta and writing dk, dv; "dq": s, dp and dq, three
+    products, writing dq; "both": the five products the three gradients
+    need at least, every input read and every gradient written once.
+    Returns (ms, "bytes" or "operations")."""
+    _, b, h, s_q, s_kv, d, causal, _ = case
+    products = {"dkv": 4, "dq": 3, "both": 5}[which]
+    ops = products * 2 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
+    written = {"dkv": 2 * s_kv, "dq": s_q, "both": s_q + 2 * s_kv}[which]
+    by = b * h * (dtype_size * d * (2 * s_q + 2 * s_kv + written)
+                  + 8 * s_q)
+    ops_s, by_s = ops / FP32_OPS_PER_S, by / HBM_BYTES_PER_S
+    return (by_s * 1e3, "bytes") if by_s > ops_s else (ops_s * 1e3,
+                                                       "operations")
+
+
+def sdpa_bwd_ms(torch, q, k, v, dout):
+    """Time of the backward of torch's scaled_dot_product_attention on
+    [B, H, S, D] inputs (a yardstick; the port never calls it) and the
+    name of the device kernel that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+
+    def bwd():
+        torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    ms = event_ms(torch, bwd, 3)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        bwd()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    return ms, (rows[0].key if rows else "not seen by the profiler")
+
+
+def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
+    """The backward kernels against flash_attention_bwd_plain on the
+    same q, k, v, dout and the kernel forward's out and lse; the forward's
+    lse against the plain forward's."""
+    name, b, h, s_q, s_kv, d, causal, form = case
+    q, k, v = flash_inputs(torch, case, dtype)
+    bshd = form == "qkv"
+    if timed and not bshd:
+        fail(f"{name}: only the fused-QKV form is timed")
+    scale = fa.default_scale(d, dtype)
+    gen = torch.Generator(device=q.device)
+    gen.manual_seed(SEED + 1)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+    def plain_layout(t):
+        return t.transpose(1, 2) if bshd else t
+
+    res = {}
+    with torch.no_grad():
+        out, lse = fa._attend(q, k, v, causal, scale, 512, True, bshd)
+        _, want_lse = fa.flash_attention_plain(
+            *(plain_layout(t) for t in (q, k, v)), causal=causal,
+            scale=scale, return_lse=True)
+        lse = lse.view(want_lse.shape)
+        finite = torch.isfinite(want_lse)
+        lse_err = float((lse[finite] - want_lse[finite]).abs().max())
+        lse_ok = torch.equal(finite, torch.isfinite(lse)) \
+            and bool((lse[~finite] > 0).all()) \
+            and lse_err <= 1e-5 * float(want_lse[finite].abs().max())
+        if bshd:
+            fused = torch.empty(b, s_q, 3 * h * d, dtype=dtype,
+                                device=q.device)
+            grads = fa._split_qkv(fused, h)
+        else:
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+        fa._attend_bwd(q, k, v, out, lse, dout, grads, causal, scale, 512,
+                       bshd)
+        want = fa.flash_attention_bwd_plain(
+            *(plain_layout(t) for t in (q, k, v, out)), lse,
+            plain_layout(dout), causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        errs, rels, ok = [], [], lse_ok
+        for g, w in zip(grads, want):
+            g = plain_layout(g)
+            diff = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            errs.append(diff)
+            rels.append(diff / top)
+            ok = ok and diff <= tol * top and g.dtype == dtype \
+                and bool(torch.isfinite(g).all())
+        if causal and s_q > s_kv:       # rows with no allowed key: zeros
+            ok = ok and not bool(plain_layout(grads[0])[
+                ..., :s_q - s_kv, :].any())
+        res.update(err_dq=errs[0], err_dkv=max(errs[1:]), rel=max(rels),
+                   lse_err=lse_err)
+        if timed:                       # the slice's fused-QKV call
+            delta = fa._bwd_delta(out, dout)
+            lse4 = lse.view(b, h, s_q)
+            res["dkv_ms"] = event_ms(torch, lambda: fa._launch_bwd_kernel(
+                "dkv", q, k, v, dout, lse4, delta, grads[1:], causal,
+                scale), 3)
+            res["dq_ms"] = event_ms(torch, lambda: fa._launch_bwd_kernel(
+                "dq", q, k, v, dout, lse4, delta, grads[:1], causal,
+                scale), 3)
+            res["delta_ms"] = event_ms(
+                torch, lambda: fa._bwd_delta(out, dout), 5)
+            res["plain_ms"] = event_ms(
+                torch, lambda: fa.flash_attention_bwd_plain(
+                    *(plain_layout(t) for t in (q, k, v, out)), lse,
+                    plain_layout(dout), causal=causal, scale=scale), 2)
+    if timed:
+        res["library_ms"], res["library_kernel"] = sdpa_bwd_ms(
+            torch, *(plain_layout(t).contiguous() for t in (q, k, v, dout)))
+    esize = torch.tensor([], dtype=dtype).element_size()
+    for which in ("dkv", "dq", "both"):
+        res[f"bound_{which}"], res["bound_by"] = k3_bwd_bound_ms(
+            case, esize, which)
+    times = (f" dkv_ms={res['dkv_ms']:.4f} dq_ms={res['dq_ms']:.4f} "
+             f"delta_ms={res['delta_ms']:.4f} plain_ms="
+             f"{res['plain_ms']:.4f} sdpa_bwd_ms={res['library_ms']:.4f}"
+             if timed else "")
+    log(f"  {name:20s} B={b} H={h} S_q={s_q} S_kv={s_kv} D={d} "
+        f"causal={int(causal)} {form:4s} {str(dtype)[6:]:8s} "
+        f"max_err dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} "
+        f"rel={res['rel']:.3e} tol={tol:g} of max|grad|; lse_err="
+        f"{lse_err:.3e}{times} bound_ms={res['bound_both']:.4f} "
+        f"({res['bound_by']}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"flash attention backward disagrees with its plain version "
+             f"on {name} {dtype}: relative {res['rel']} > {tol}, or lse "
+             f"error {lse_err}")
+    return res
+
+
+def phase_kernel_k3_bwd(torch, fa):
+    log("kernel: flash attention backward (dK/dV and dQ kernels) vs "
+        "flash_attention_bwd_plain on the card")
+    errs = {torch.float32: [0.0, 0.0, 0.0], torch.bfloat16: [0.0, 0.0, 0.0]}
+    timed, lse_err = None, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in bwd_cases():
+            want_times = dtype == torch.float32 and case[0] == "slice"
+            r = run_case_k3_bwd(torch, fa, case, dtype, timed=want_times)
+            e = errs[dtype]
+            e[0] = max(e[0], r["err_dq"])
+            e[1] = max(e[1], r["err_dkv"])
+            e[2] = max(e[2], r["rel"])
+            lse_err = max(lse_err, r["lse_err"])
+            if want_times:
+                timed = r
+    n = LONG_K3_PER_FORWARD
+    f32, bf16 = errs[torch.float32], errs[torch.bfloat16]
+    results = {
+        "dkv_ms": n * timed["dkv_ms"], "dq_ms": n * timed["dq_ms"],
+        "delta_ms": n * timed["delta_ms"],
+        "plain_ms": n * timed["plain_ms"],
+        "library_ms": n * timed["library_ms"],
+        "library_kernel": timed["library_kernel"],
+        "bound_dkv": n * timed["bound_dkv"], "bound_dq": n * timed["bound_dq"],
+        "bound_both": n * timed["bound_both"], "bound_by": timed["bound_by"],
+        "err_dq": f32[0], "err_dkv": f32[1], "rel": f32[2],
+        "err_dq_bf16": bf16[0], "err_dkv_bf16": bf16[1],
+        "rel_bf16": bf16[2], "lse_err": lse_err}
+    log(f"kernel: one long-context BERT-base training step's attention "
+        f"backward (batch {LONG_BATCH}, S {LONG_SEQ}, 12 heads, D 64, "
+        f"float32, {n} launches of each kernel): dK/dV "
+        f"{results['dkv_ms']:.3f} ms (bound {results['bound_dkv']:.3f}), "
+        f"dQ {results['dq_ms']:.3f} ms (bound {results['bound_dq']:.3f}), "
+        f"together {results['dkv_ms'] + results['dq_ms']:.3f} ms against "
+        f"the five-product bound {results['bound_both']:.3f} ms "
+        f"({results['bound_by']} at 67 TFLOP/s); delta reduction "
+        f"{results['delta_ms']:.3f} ms; plain {results['plain_ms']:.3f} ms; "
+        f"scaled_dot_product_attention backward "
+        f"{results['library_ms']:.3f} ms (its kernel: "
+        f"{results['library_kernel'][:80]})")
+    return results
+
+
+# -- phase 10: kernel K2 training --------------------------------------------
+def phase_kernel_k2_train(torch, mx, me):
+    """ffn_2's training call with bits drawn on the card, bit-equal to the
+    plain version on the same bits, keeping 1 - p; and K2's backward
+    against the plain version's autograd at the slice's two shapes."""
+    from mxnet_tpu_torch.ops import contrib
+    log("kernel: matmul_epilogue in training on the card")
+    dev = torch.device("cuda", 0)
+    gen = mx.random.generator(SEED, device=dev)
+    rows = LONG_BATCH * LONG_SEQ
+    y = torch.randn(rows, 768, generator=gen, device=dev)
+    b = torch.randn(768, generator=gen, device=dev) * 0.1
+    with torch.no_grad(), mx.random.bits_tape() as tape:
+        out = contrib.matmul_epilogue(y, b, act_type="identity", p=0.1,
+                                      training=True, generator=gen)
+    (bits,) = tape.drawn
+    want = me.matmul_epilogue_plain(y, b.reshape(1, -1), bits, "identity",
+                                    0.1)
+    bit_equal = torch.equal(out, want)
+    keep = float((bits >= me.keep_threshold(0.1)).float().mean())
+    zeros = float((out == 0).float().mean())
+    log(f"  ffn_2 ({rows}, 768) identity p=0.1, bits drawn on the card: "
+        f"bit-equal to the plain version {bit_equal}; kept {keep:.6f} "
+        f"(1 - p = 0.9, keep_threshold {me.keep_threshold(0.1)}/256); "
+        f"zeros in the output {zeros:.6f}")
+    if not bit_equal or abs(keep - 0.9) > 0.009:
+        fail(f"matmul_epilogue training: bit-equal {bit_equal}, kept share "
+             f"{keep} not within 1% of 0.9")
+    worst = 0.0
+    for shape, act, p in (((rows, 3072), "gelu", 0.0),
+                          ((rows, 768), "identity", 0.1)):
+        y = torch.randn(*shape, generator=gen, device=dev)
+        bb = torch.randn(1, shape[1], generator=gen, device=dev) * 0.1
+        bits = mx.random.bits(shape, dev, gen)
+        g = torch.randn(*shape, generator=gen, device=dev)
+        grads = []
+        for fn in (me.matmul_epilogue_2d, me.matmul_epilogue_plain):
+            ty, tb = y.clone().requires_grad_(), bb.clone().requires_grad_()
+            out = fn(ty, tb, bits, act_type=act, p=p)
+            grads.append(torch.autograd.grad(out, (ty, tb), g))
+        torch.cuda.synchronize()
+        for name, got, ref in zip(("dy", "dbias"), *grads):
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            worst = max(worst, rel)
+            log(f"  backward {str(shape):14s} {act:8s} p={p:<4g} {name:5s} "
+                f"max err {rel:.3e} of max |grad| (tolerance 1e-5)")
+    if worst > 1e-5:
+        fail(f"matmul_epilogue backward differs from the plain version's "
+             f"autograd by {worst} of max |grad|")
+    return {"keep": keep, "grad_rel": worst}
+
+
+# -- phase 11: train long BERT -----------------------------------------------
+TRAIN_STEPS = 6                      # 1 warm-up + 5 timed
+TRAIN_LR = 1e-4
+TRAIN_PER_STEP = {"flash_attention": 12, "flash_attention_bwd_dkv": 12,
+                  "flash_attention_bwd_dq": 12, "matmul_epilogue": 24}
+GATE_RTOL = 1e-3                     # of max |value|, TF32 off
+GATE_PARAMS = ("word_embed.weight",
+               "encoder.transformer_cells.0.attention.qkv.weight",
+               "encoder.transformer_cells.11.attention.qkv.weight",
+               "encoder.transformer_cells.0.ffn.ffn_1.weight",
+               "encoder.transformer_cells.11.ffn.ffn_1.weight",
+               "decoder.3.weight")
+
+
+def seeded_mlm(torch, mx, ctx):
+    """Full-width BERT-base masked LM at max_length 4096 (the MLM decoder
+    over every position, no pooler, no NSP classifier) on ``ctx``:
+    Normal(0.02) weights, then seeded biases and LayerNorms, all from one
+    generator seeded with SEED."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    dev = ctx.torch_device
+    gen = mx.random.generator(SEED, device=dev)
+    net = bert_12_768_12(max_length=LONG_SEQ, use_pooler=False,
+                         use_classifier=False)
+    net.initialize(mx.init.Normal(0.02), ctx=ctx, generator=gen)
+    with torch.no_grad():               # materialize the deferred shapes
+        net(torch.zeros(1, 8, dtype=torch.int32, device=dev))
+        for name, t in net.collect_params().items():
+            if name.endswith(("bias", "beta")):
+                t.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("gamma"):
+                t.normal_(1.0, 0.02, generator=gen)
+    _sync(torch)
+    return net
+
+
+def train_step(mx, net, loss_fn, trainer, tokens, labels):
+    """One step of the canonical loop: record, per-sample loss, backward,
+    Trainer.step(batch size). Returns the per-sample loss."""
+    with mx.autograd.record():
+        mlm = net(tokens)[1]                    # (B, S, V) logits
+        loss = loss_fn(mlm, labels)
+    mx.autograd.backward(loss)
+    trainer.step(tokens.shape[0])
+    return loss
+
+
+def profile_step(torch, step, wall_ms):
+    """Device time of one training step by kernel (torch.profiler) and the
+    device's busy share of ``wall_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    dev = {e.key: (e.count, e.self_device_time_total / 1e3) for e in rows}
+    device_ms = sum(ms for _, ms in dev.values())
+    if device_ms <= 0:
+        log("profile: device time not measured (the profiler saw no "
+            "kernels)")
+        return None
+    log(f"profile: one training step: kernels {device_ms:.3f} ms on the "
+        f"device ({sum(c for c, _ in dev.values()):.0f} launches), busy "
+        f"{device_ms / wall_ms:.3f} of the median step's {wall_ms:.3f} ms")
+    for key, (calls, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"  {ms:9.4f} ms {calls:5.0f}x  {key[:90]}")
+    return device_ms
+
+
+def phase_train_long_bert(torch, mx, card, ctx):
+    """Train full-width BERT-base MLM at batch 4, S 4096 on ``ctx``, then
+    hold one batch-1 step's loss and gradients against the CPU."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    import numpy as np
+
+    dev = ctx.torch_device
+    net = seeded_mlm(torch, mx, ctx)
+    ids = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (LONG_BATCH, LONG_SEQ)).astype(np.int32)
+    tokens = torch.from_numpy(ids).to(dev)
+    labels = tokens          # examples/pretrain_bert.py: every position's id
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": TRAIN_LR})
+    n_params = sum(t.numel() for t in trainer._params)
+    mx.random.seed(SEED)
+
+    def step():
+        return train_step(mx, net, loss_fn, trainer, tokens, labels)
+
+    losses, times = [], []
+    _sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach().mean()))
+        del loss
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for kernel, n in TRAIN_PER_STEP.items():
+        if launches[kernel] != n * TRAIN_STEPS:
+            fail(f"{kernel} launched {launches[kernel]} times in "
+                 f"{TRAIN_STEPS} training steps (want {n} each)")
+    if launches["conv_epilogue"]:
+        fail("conv_epilogue launched on the BERT training path")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"training losses {losses} are not finite or did not fall")
+    step_ms = _median(times[1:])
+    counted = ", ".join(f"{k} {launches[k]} (= {n} x {TRAIN_STEPS})"
+                        for k, n in TRAIN_PER_STEP.items())
+    log(f"train: BERT-base MLM, batch {LONG_BATCH}, S {LONG_SEQ}, fp32, "
+        f"Adam lr {TRAIN_LR:g}, {n_params} trained parameters, on {card}")
+    log(f"train: mean per-sample loss by step "
+        f"{[round(x, 6) for x in losses]}")
+    log(f"train: step ms {[round(t, 3) for t in times]} (the first warms "
+        f"up); median of the last {TRAIN_STEPS - 1} {step_ms:.3f} ms, "
+        f"{LONG_BATCH * 1e3 / step_ms:.3f} sequences/s, "
+        f"{LONG_BATCH * LONG_SEQ * 1e3 / step_ms:.1f} tokens/s")
+    log(f"train: launches in {TRAIN_STEPS} steps: {counted}")
+    log(f"train: peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak / 2**20:.1f} MiB) over the {TRAIN_STEPS} steps")
+    device_ms = profile_step(torch, step, step_ms)
+
+    # the gate: one batch-1 step on the card and on the CPU (plain
+    # versions) from the same weights with the same dropout bits
+    weights = {k: v.detach().cpu().numpy()
+               for k, v in net.collect_params().items()}
+    with mx.random.bits_tape() as tape:
+        with mx.autograd.record():
+            card_loss = loss_fn(net(tokens[:1])[1], labels[:1])
+        mx.autograd.backward(card_loss)
+    params = net.collect_params()
+    card = {k: params[k].grad.detach().cpu().numpy() for k in GATE_PARAMS}
+    card["loss"] = card_loss.detach().cpu().numpy()
+    del card_loss, params
+    cpu_net = bert_12_768_12(max_length=LONG_SEQ, use_pooler=False,
+                             use_classifier=False)
+    cpu_net.load_dict(weights, ctx=mx.cpu())
+    t0 = time.perf_counter()
+    with mx.random.bits_tape(replay=tape.drawn):
+        with mx.autograd.record():
+            cpu_loss = loss_fn(cpu_net(tokens[:1].cpu())[1],
+                               labels[:1].cpu())
+        mx.autograd.backward(cpu_loss)
+    log(f"train: the CPU step at batch 1 took "
+        f"{time.perf_counter() - t0:.1f} s ({len(tape.drawn)} dropout "
+        "draws replayed from the card)")
+    cpu_params = cpu_net.collect_params()
+    ref = {k: cpu_params[k].grad.numpy() for k in GATE_PARAMS}
+    ref["loss"] = cpu_loss.detach().numpy()
+    worst = 0.0
+    for name, want in ref.items():
+        got = card[name]
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        rel = err / scale
+        worst = max(worst, rel)
+        log(f"train: gate {name}: max abs err {err:.6e}, max |value| "
+            f"{scale:.6e}, relative {rel:.3e} (tolerance {GATE_RTOL:g})")
+        if not (np.isfinite(got).all() and rel <= GATE_RTOL):
+            fail(f"training step on the card differs from the CPU in "
+                 f"{name}: {rel} > {GATE_RTOL} of max |value|")
+    return {"launches": launches, "step_ms": step_ms, "losses": losses,
+            "peak_bytes": peak, "device_ms": device_ms, "gate_rel": worst}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
         fail(f"no mxnet_tpu_torch package beside {__file__}: run from the "
@@ -999,9 +1461,30 @@ def main():
     run("kernel K3", lambda: phase_kernel_k3(torch, fa))
     run("serve long BERT", lambda: phase_serve_long_bert(torch, mx, card,
                                                          mx.gpu(0)))
+    run("kernel K3 backward", lambda: phase_kernel_k3_bwd(torch, fa))
+    run("kernel K2 training", lambda: phase_kernel_k2_train(torch, mx, me))
+    run("train long BERT", lambda: phase_train_long_bert(torch, mx, card,
+                                                         mx.gpu(0)))
     k1, k1_launches = out["kernel K1"], out["serve ResNet"]
     k2, k2_launches = out["kernel K2"], out["serve BERT"]
     k3, k3_launches = out["kernel K3"], out["serve long BERT"]
+    k3b, train = out["kernel K3 backward"], out["train long BERT"]
+    bwd_per = (f"one BERT-base training step at batch {LONG_BATCH}, "
+               f"sequence {LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} "
+               "launches)")
+    bwd_common = {
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+        "plain_ms": k3b["plain_ms"], "bound_by": k3b["bound_by"],
+        "library_ms": k3b["library_ms"], "status": "ok", "per": bwd_per,
+        "plain_covers": "flash_attention_bwd_plain computes dq, dk and dv "
+                        "together: the same time on both backward rows",
+        "library_covers": "the backward of torch.nn.functional.scaled_dot_"
+                          "product_attention on the same inputs as [B, H, "
+                          "S, D], dq, dk and dv together; its kernel: "
+                          + k3b["library_kernel"][:80],
+        "bound_ms_both_kernels": k3b["bound_both"],
+        "delta_ms": k3b["delta_ms"]}
     line = {"kernels": [{
         "name": "conv_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/conv_epilogue.cu",
@@ -1045,7 +1528,25 @@ def main():
         "library_covers": "torch.nn.functional.scaled_dot_product_attention"
                           " on the same inputs as [B, H, S, D]; its kernel: "
                           + k3["library_kernel"][:80],
-        "max_abs_err_bf16": k3["max_abs_err_bf16"]}]}
+        "max_abs_err_bf16": k3["max_abs_err_bf16"]}, {
+        "name": "flash_attention_bwd_dkv",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                    "1121 (_flash_attention_bwd_dkv) via "
+                    "mxnet_tpu/ops/contrib.py:316",
+        "launches": train["launches"]["flash_attention_bwd_dkv"],
+        "max_abs_err": k3b["err_dkv"], "ms": k3b["dkv_ms"],
+        "bound_ms": k3b["bound_dkv"], **bwd_common,
+        "max_rel_err": k3b["rel"],
+        "max_abs_err_bf16": k3b["err_dkv_bf16"]}, {
+        "name": "flash_attention_bwd_dq",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                    "1456 (_flash_attention_bwd_dq) via "
+                    "mxnet_tpu/ops/contrib.py:316",
+        "launches": train["launches"]["flash_attention_bwd_dq"],
+        "max_abs_err": k3b["err_dq"], "ms": k3b["dq_ms"],
+        "bound_ms": k3b["bound_dq"], **bwd_common,
+        "max_rel_err": k3b["rel"],
+        "max_abs_err_bf16": k3b["err_dq_bf16"]}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

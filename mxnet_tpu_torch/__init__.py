@@ -12,14 +12,14 @@ This package imports ``torch`` and numpy, never ``jax`` and nothing of
 """
 from __future__ import annotations
 
-from . import (convert, gluon, initializer, kernels, ops, random,
-               serving)
+from . import (autograd, convert, gluon, initializer, kernels, ops,
+               optimizer, random, serving)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 init = initializer
 
-__all__ = ["Context", "MXNetError", "convert", "cpu", "current_context",
-           "gluon", "gpu", "init", "initializer", "kernels", "ops",
-           "random", "serving"]
+__all__ = ["Context", "MXNetError", "autograd", "convert", "cpu",
+           "current_context", "gluon", "gpu", "init", "initializer",
+           "kernels", "ops", "optimizer", "random", "serving"]
 __version__ = "0.1.0"

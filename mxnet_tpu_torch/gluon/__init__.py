@@ -1,9 +1,10 @@
 """Gluon for the port (counterpart of ``mxnet_tpu/gluon``)."""
 from __future__ import annotations
 
-from . import model_zoo, nn
+from . import loss, model_zoo, nn
 from .block import Block, HybridBlock
 from .parameter import DeferredInitializationError
+from .trainer import Trainer
 
-__all__ = ["Block", "DeferredInitializationError", "HybridBlock",
-           "model_zoo", "nn"]
+__all__ = ["Block", "DeferredInitializationError", "HybridBlock", "Trainer",
+           "loss", "model_zoo", "nn"]

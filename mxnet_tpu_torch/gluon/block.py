@@ -4,9 +4,12 @@ A Block is a ``torch.nn.Module`` whose ``forward(x)`` calls the port's
 plain operator functions on tensors. Children and parameters keep the
 JAX package's *structural* names (``features.4.0.body.1.gamma``, see
 ``Block._structural_names`` there), so ``state_dict()`` keys equal the
-JAX checkpoint keys. Blocks start in predict mode, as Gluon runs outside
-``autograd.record(train_mode=True)``; ``.train()`` switches a block to
-training mode.
+JAX checkpoint keys. A block's mode (``Block.training``) is that of the
+innermost ``autograd`` scope: training inside ``autograd.record()`` or
+``train_mode()``, predict inside ``record(train_mode=False)``, ``pause()``
+or ``predict_mode()``. Outside every scope a block keeps its own mode:
+predict, as Gluon runs outside ``autograd.record``, unless ``.train()``
+switched it.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 from torch.nn.parameter import is_lazy
 
+from .. import autograd as _autograd
 from .. import initializer as _init_mod
 from ..base import MXNetError
 from ..context import resolve_device
@@ -32,6 +36,18 @@ class Block(nn.Module):
     def __init__(self):
         super().__init__()
         self.training = False          # Gluon's default: predict mode
+
+    @property
+    def training(self):
+        """Training mode: the innermost ``autograd`` scope's, else the
+        block's own (``.train()`` / ``.eval()``)."""
+        mode = _autograd.scope_training()
+        return self.__dict__.get("_own_training", False) if mode is None \
+            else mode
+
+    @training.setter
+    def training(self, value):
+        self.__dict__["_own_training"] = bool(value)
 
     def initialize(self, init=None, ctx=None, generator=None,
                    force_reinit=False):

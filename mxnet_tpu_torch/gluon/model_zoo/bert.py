@@ -16,7 +16,10 @@ training); the pooler's bias + tanh is one more launch. Attention is
 to 1024 tokens, above that one flash-attention launch (K3/K3') per cell
 on strided views of the fused QKV, so ``max_length=4096`` serves S 4096
 in O(S) attention memory. The model carries no attention mask, as in the
-JAX package.
+JAX package. Under ``autograd.record()`` the model trains: the 25
+Dropout sites and ffn_2's epilogue dropout draw their masks, and the
+flash-attention launches save the row log-sum-exp for their backward
+kernels.
 """
 from __future__ import annotations
 

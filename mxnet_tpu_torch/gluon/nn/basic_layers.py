@@ -109,7 +109,8 @@ class Dense(DeferredParams, HybridBlock):
 
 class Dropout(HybridBlock):
     """Inverted dropout (ref: nn.Dropout): the identity in predict mode;
-    training mode raises until the training slice."""
+    in training (e.g. inside ``autograd.record()``) a mask drawn on the
+    input's device, see :func:`ops.nn.dropout`."""
 
     def __init__(self, rate, axes=()):
         super().__init__()

@@ -29,7 +29,8 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
-SOURCES = ("conv_epilogue", "matmul_epilogue", "flash_attention")
+SOURCES = ("conv_epilogue", "matmul_epilogue", "flash_attention",
+           "flash_attention_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -70,7 +70,6 @@ def check_cuda_inputs(what, y, named):
     if y.device.index != torch.cuda.current_device():
         raise MXNetError(f"{what}: input on {y.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    tensors = [t for _, t, _ in named if t is not None]
     for name, t, dtype in (("y", y, None), *named):
         if t is None:
             continue
@@ -82,8 +81,3 @@ def check_cuda_inputs(what, y, named):
             raise MXNetError(f"{what}: {name} is {t.dtype}, want {want}")
         if not t.is_contiguous():
             raise MXNetError(f"{what}: {name} is not contiguous")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (y, *tensors)):
-        raise MXNetError(f"{what}: an input requires grad; the kernel has "
-                         "no backward yet (run under torch.inference_mode() "
-                         "or torch.no_grad())")

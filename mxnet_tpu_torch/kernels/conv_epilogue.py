@@ -68,6 +68,12 @@ def _launch(y, scale, bias, res, act_type, mode, c, inner):
     check_cuda_inputs("conv epilogue kernel", y,
                       (("scale", scale, None), ("bias", bias, None),
                        ("res", res, None)))
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (y, scale, bias, res)):
+        raise MXNetError("conv epilogue kernel: an input requires grad; the "
+                         "kernel has no backward yet (it comes with the "
+                         "ResNet-50 training slice; run under "
+                         "torch.inference_mode() or torch.no_grad())")
     out = torch.empty_like(y, memory_format=torch.contiguous_format)
     n = y.numel()
     if n == 0:

@@ -49,9 +49,16 @@
 //   - Offsets are 64-bit: q, k, v and out are addressed through their own
 //     (batch, seq, head) strides in elements with a contiguous D, so
 //     strided views of a fused QKV projection are read in place.
+//   - When a gradient is wanted the wrapper passes an fp32 (B * H, S_q)
+//     buffer and the kernel also writes each row's log-sum-exp m + log l,
+//     which the backward kernels (flash_attention_bwd.cu) recompute the
+//     probabilities from; a row with no allowed key gets +inf there, so
+//     exp(s - lse) is 0 for every key. Serving passes no buffer and writes
+//     nothing more.
 //
 // C interface for ctypes: flash_attention_launch returns the cudaError_t of
-// the launch (0 on success); flash_attention_error_string names it.
+// the launch (0 on success); flash_attention_error_string names it. lse may
+// be null.
 
 #include "epilogue_common.cuh"
 
@@ -71,6 +78,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                     // (bh, s_q) row log-sum-exp, or null
   int64_t heads, bh, s_q, s_kv;
   int d;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -255,6 +263,9 @@ flash_attention_kernel(Params p) {
     const int64_t row = m0 + 4 * ty + i;
     if (row >= p.s_q) continue;
     const bool empty = CAUSAL && row + offset < 0;
+    if (p.lse != nullptr && tx == 0) {
+      p.lse[bh * p.s_q + row] = empty ? INFINITY : m_i[i] + logf(l_i[i]);
+    }
     T* o = out + row * p.o_ss;
 #pragma unroll
     for (int nc = 0; nc < NC; ++nc) {
@@ -305,7 +316,8 @@ cudaError_t launch_dim(const Params& p, bool causal, cudaStream_t s) {
 }  // namespace
 
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, long long batch,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    long long batch,
     long long heads, long long s_q, long long s_kv, int d, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -316,7 +328,8 @@ extern "C" int flash_attention_launch(
       d > 256) {
     return cudaErrorInvalidValue;
   }
-  Params p{q, k, v, out, heads, batch * heads, s_q, s_kv, d,
+  Params p{q, k, v, out, static_cast<float*>(lse), heads, batch * heads,
+           s_q, s_kv, d,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            o_sb, o_ss, o_sh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

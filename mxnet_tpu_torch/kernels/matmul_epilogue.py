@@ -18,8 +18,16 @@ least :func:`keep_threshold` of ``p`` and scales it by ``1 / (1 - p)``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the
 hand-written kernel in ``csrc/matmul_epilogue.cu`` or the call raises.
-There is no fallback. The dropout bits are always explicit here: drawing
-them belongs to the training slice.
+There is no fallback. The dropout bits are always explicit here
+(``ops.contrib.matmul_epilogue`` draws them in training).
+
+Both entries are differentiable: a ``torch.autograd.Function`` whose
+forward is the kernel (the plain version on the CPU) and whose backward
+is the counterpart of ``_me_drop_bwd`` / ``_me_nodrop_bwd``: the VJP of
+the plain version with the same bits, ``dy = g * keep / (1 - p) *
+act'(y + bias)`` and ``dbias`` its fp32 sum over the broadcast rows,
+cast back. Like the JAX package, which leaves that VJP to XLA, the port
+computes it with PyTorch ops.
 """
 from __future__ import annotations
 
@@ -122,16 +130,43 @@ def _launch(y, bias, bits, act_type, p, mode):
     return out
 
 
+class _MatmulEpilogue(torch.autograd.Function):
+    """K2 under autograd: the kernel (plain version on the CPU) forward;
+    the backward is the VJP of the plain version with the same bits."""
+
+    @staticmethod
+    def forward(ctx, y, bias, bits, act_type, p, mode):
+        if y.device.type == "cpu":
+            out = matmul_epilogue_plain(y, bias, bits, act_type, p)
+        elif y.device.type == "cuda":
+            out = _launch(y, bias, bits, act_type, p, mode)
+        else:
+            raise MXNetError(f"matmul epilogue: unsupported device "
+                             f"{y.device}")
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(y, bias, bits)
+            ctx.args = (act_type, p)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, bias, bits = ctx.saved_tensors
+        act_type, p = ctx.args
+        with torch.enable_grad():
+            yy = y.detach().requires_grad_()
+            bb = bias.detach().requires_grad_()
+            out = matmul_epilogue_plain(yy, bb, bits, act_type, p)
+            dy, dbias = torch.autograd.grad(out, (yy, bb), g)
+        return dy, dbias, None, None, None, None
+
+
 def matmul_epilogue_2d(y, bias, bits=None, act_type="gelu", p=0.0):
     """2-D entry: ``y`` (R, C), ``bias`` (1, C) (column mode) or (R, 1)
     (row mode), optional uint8 ``bits`` of ``y``'s shape, dropout rate
-    ``p`` in [0, 1) (applied only with ``bits`` and ``p > 0``)."""
+    ``p`` in [0, 1) (applied only with ``bits`` and ``p > 0``).
+    Differentiable in ``y`` and ``bias``."""
     mode = _check(y, bias, bits, act_type, p)
-    if y.device.type == "cpu":
-        return matmul_epilogue_plain(y, bias, bits, act_type, p)
-    if y.device.type != "cuda":
-        raise MXNetError(f"matmul epilogue: unsupported device {y.device}")
-    return _launch(y, bias, bits, act_type, float(p), mode)
+    return _MatmulEpilogue.apply(y, bias, bits, act_type, float(p), mode)
 
 
 def fused_matmul_epilogue(y, bias, act_type=None, p=0.0, bits=None):

@@ -2,6 +2,6 @@
 functions on tensors, named after the JAX package's registered ops."""
 from __future__ import annotations
 
-from . import contrib, nn, tensor
+from . import contrib, nn, optimizer_op, tensor
 
-__all__ = ["contrib", "nn", "tensor"]
+__all__ = ["contrib", "nn", "optimizer_op", "tensor"]

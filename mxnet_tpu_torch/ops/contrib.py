@@ -3,9 +3,9 @@ from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError
+from .. import random as _random
 from ..kernels import fused_conv_epilogue, fused_matmul_epilogue
-from ..kernels.flash_attention import flash_attention_bshd
+from ..kernels.flash_attention import flash_attention_qkv
 from ..parallel.ring_attention import attention_reference, blockwise_attention
 from .tensor import shifted_expsum
 
@@ -24,16 +24,19 @@ def conv_epilogue(x, res, act_type="relu"):
     return fused_conv_epilogue(x, res=res, act_type=act_type)
 
 
-def matmul_epilogue(y, bias, act_type=None, p=0.0, training=False):
+def matmul_epilogue(y, bias, act_type=None, p=0.0, training=False,
+                    generator=None):
     """ref: ``_contrib_matmul_epilogue`` — ``dropout(act(y + bias))`` in
     one pass over a matrix product's output, ``bias`` along the last
     axis: the matmul-epilogue kernel on a CUDA tensor, its plain version
-    on a CPU tensor. Dropout engages only in training, whose mask the
-    port does not draw yet, so training with ``p > 0`` raises."""
-    if training and p > 0:
-        raise MXNetError("matmul_epilogue: dropout in training (a random "
-                         "mask) is not ported yet; run in predict mode")
-    return fused_matmul_epilogue(y, bias, act_type=act_type)
+    on a CPU tensor. Dropout engages only in training with ``p > 0``:
+    one uint8 per element drawn on ``y``'s device from ``generator`` (the
+    device's dropout generator when None), the counterpart of
+    ``dropout_bits``. Differentiable."""
+    if not training or p <= 0:
+        return fused_matmul_epilogue(y, bias, act_type=act_type)
+    bits = _random.bits(y.shape, y.device, generator)
+    return fused_matmul_epilogue(y, bias, act_type=act_type, p=p, bits=bits)
 
 
 def arange_like(x, start=0.0, step=1.0, repeat=1, axis=None):
@@ -51,7 +54,7 @@ def flash_attention(q, k, v, block_size=512, causal=False, sm_scale=None):
     ``DENSE_ATTENTION_MAX_KV`` keys it is the dense
     :func:`~..parallel.ring_attention.attention_reference`; above, the
     streaming :func:`~..parallel.ring_attention.blockwise_attention`
-    (the flash-attention kernel on a CUDA tensor)."""
+    (the flash-attention kernel on a CUDA tensor). Differentiable."""
     scale = float(q.shape[-1]) ** -0.5 if sm_scale is None else sm_scale
     if k.shape[-2] <= DENSE_ATTENTION_MAX_KV:
         return attention_reference(q, k, v, causal=causal, scale=scale)
@@ -68,18 +71,19 @@ def fused_self_attention(qkv, heads=None, causal=False, block_size=512):
     flash-attention kernel reads the three column blocks of ``qkv`` in
     place as strided (B, S, H, D) views and writes (B, S, H, D), which is
     (B, S, C) without a copy (the JAX package transposes to [B, H, S, D]
-    and back)."""
+    and back); its backward writes the gradient of ``qkv`` as one (B, S,
+    3C) tensor through the same strides. The dense path is plain
+    autograd."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
+    scale = float(d) ** -0.5
+    if s > DENSE_ATTENTION_MAX_KV:
+        return flash_attention_qkv(qkv, heads, block_size=block_size,
+                                   causal=causal, scale=scale)
     q = qkv[:, :, :c].reshape(b, s, heads, d)
     k = qkv[:, :, c:2 * c].reshape(b, s, heads, d)
     v = qkv[:, :, 2 * c:].reshape(b, s, heads, d)
-    scale = float(d) ** -0.5
-    if s > DENSE_ATTENTION_MAX_KV:
-        out = flash_attention_bshd(q, k, v, block_size=block_size,
-                                   causal=causal, scale=scale)
-        return out.reshape(b, s, c)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         qi = torch.arange(s, device=qkv.device)[:, None]

@@ -4,8 +4,8 @@ Plain functions on tensors with the JAX package's op names, arguments
 and NCHW/OIHW layouts. Convolution, pooling and the matrix product go to
 PyTorch, as the JAX package leaves them to XLA; the BatchNorm + activation
 epilogue goes to the hand-written conv-epilogue kernel. Only the predict
-branches of BatchNorm and Dropout are ported; their training branches
-raise until the training slice.
+branch of BatchNorm is ported; its training branch raises until the
+ResNet-50 training slice. Dropout has both branches.
 """
 from __future__ import annotations
 
@@ -14,8 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
-from ..kernels import fused_conv_epilogue
+from ..kernels import fused_conv_epilogue, keep_threshold
 
 __all__ = ["activation", "batch_norm", "convolution", "dropout", "embedding",
            "fully_connected", "layer_norm", "leaky_relu", "pooling"]
@@ -187,14 +188,28 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
 
 
-def dropout(x, p=0.5, mode="training", axes=(), training=False):
-    """ref: Dropout. Outside training (and without ``mode="always"``) or
-    with ``p <= 0`` it is the identity; drawing a mask belongs to the
-    training slice and raises until then."""
+def dropout(x, p=0.5, mode="training", axes=(), training=False,
+            bits=None, generator=None):
+    """ref: Dropout, inverted. Outside training (and without
+    ``mode="always"``) or with ``p <= 0`` it is the identity. Otherwise,
+    as the JAX op: one uint8 per element (size 1 along ``axes``, which
+    broadcast), kept where ``bits >= keep_threshold(p)``, and ``x / (1 -
+    p)`` where kept, 0 elsewhere. ``bits`` are drawn on ``x``'s device
+    from ``generator`` (the device's dropout generator when None) unless
+    given."""
     if p <= 0 or (not training and mode != "always"):
         return x
-    raise MXNetError("Dropout: the training branch (a random mask) is not "
-                     "ported yet; run in predict mode")
+    shape = list(x.shape)
+    for a in axes:
+        shape[a] = 1
+    if bits is None:
+        bits = _random.bits(shape, x.device, generator)
+    elif list(bits.shape) != shape or bits.dtype != torch.uint8:
+        raise MXNetError(f"Dropout: bits {tuple(bits.shape)} {bits.dtype} "
+                         f"must be uint8 of {tuple(shape)}")
+    keep = bits >= keep_threshold(p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def embedding(indices, weight, input_dim=None, output_dim=None):

@@ -4,7 +4,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["broadcast_like", "expand_dims", "flatten", "gather_nd",
-           "shifted_expsum", "slice_like", "squeeze", "stack"]
+           "log_softmax", "logsumexp", "pick", "shifted_expsum",
+           "slice_like", "squeeze", "stack"]
 
 
 def flatten(x):
@@ -52,6 +53,31 @@ def shifted_expsum(x, axis=-1):
     shifted = x - m
     se32 = torch.sum(torch.exp(shifted).to(acc), dim=axis, keepdim=True)
     return m, shifted, se32
+
+
+def logsumexp(x, axis=-1, keepdims=False):
+    """ref: logsumexp — ``max + log(sum(exp(x - max)))`` with the sum in
+    at least fp32 (the result is fp32 for lower-precision inputs); its
+    gradient is the softmax. Backs the fused sparse softmax-CE loss."""
+    m, _, se32 = shifted_expsum(x, axis=axis)
+    out = m.to(se32.dtype) + torch.log(se32)
+    return out if keepdims else torch.squeeze(out, axis)
+
+
+def log_softmax(x, axis=-1):
+    """ref: log_softmax — ``(x - max) - log(sum(exp(x - max)))``, the sum
+    in at least fp32, the result in ``x``'s dtype."""
+    _, shifted, se32 = shifted_expsum(x, axis=axis)
+    return shifted - torch.log(se32).to(x.dtype)
+
+
+def pick(x, index, axis=-1, keepdims=False):
+    """ref: pick — one element per row along ``axis`` at ``index`` (cast
+    to int32, clipped into the axis, as the JAX op clips)."""
+    n = x.shape[axis]
+    idx = index.to(torch.int32).long().clamp(0, n - 1).unsqueeze(axis)
+    picked = torch.gather(x, axis, idx)
+    return picked if keepdims else torch.squeeze(picked, axis)
 
 
 def gather_nd(data, indices):

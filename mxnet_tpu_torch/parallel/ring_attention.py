@@ -10,7 +10,10 @@
 
 Causal masking is bottom-right aligned in both (query i attends keys
 j <= i + S_kv - S_q); rows whose allowed set is empty come out as
-zeros. Ring and Ulysses attention over a mesh are not ported yet.
+zeros. Both are differentiable: the oracle by plain autograd, as JAX
+differentiates it, and the blockwise path through the flash-attention
+backward kernels (their plain version on a CPU tensor). Ring and Ulysses
+attention over a mesh are not ported yet.
 """
 from __future__ import annotations
 

@@ -1,16 +1,32 @@
-"""``mx.random`` seeding (counterpart of ``mxnet_tpu/random.py`` and
-``_rng.py``).
+"""``mx.random`` seeding and dropout bits (counterpart of
+``mxnet_tpu/random.py`` and ``_rng.py``).
 
 The JAX package threads stateless keys; the port draws from explicit
-``torch.Generator`` objects instead. The same seed gives different
-numbers in the two packages (threefry vs. Philox / Mersenne Twister), so
-tests that compare them make their inputs with numpy.
+``torch.Generator`` objects instead: one per device, seeded by
+:func:`seed`, that the dropout sites draw from unless a caller passes its
+own ``generator=``. The same seed gives different numbers in the two
+packages (threefry vs. Philox / Mersenne Twister), so tests that compare
+them make their inputs, and their dropout bits, with numpy.
+
+Dropout draws one uint8 per element (:func:`bits`, the counterpart of
+``jax.random.bits(key, shape, jnp.uint8)``) and keeps where the bits are
+at least ``keep_threshold(p)``. :func:`bits_tape` records the bits a
+forward draws, or hands recorded bits back in the same order, so one
+forward on the card and one on the CPU can use the same masks.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
-__all__ = ["generator", "seed"]
+__all__ = ["bits", "bits_tape", "device_generator", "generator", "seed"]
+
+_lock = threading.Lock()
+_seed = 0
+_generators: dict = {}          # torch.device -> torch.Generator
+_tape = threading.local()
 
 
 def generator(seed_state: int, device="cpu") -> torch.Generator:
@@ -24,6 +40,67 @@ def generator(seed_state: int, device="cpu") -> torch.Generator:
 
 
 def seed(seed_state: int) -> None:
-    """ref: mx.random.seed — seeds PyTorch's default generators, which
-    initializers use when they are given no generator."""
+    """ref: mx.random.seed — seeds PyTorch's default generators (which
+    initializers use when they are given no generator) and every
+    device's dropout generator."""
+    global _seed
     torch.manual_seed(int(seed_state))
+    with _lock:
+        _seed = int(seed_state)
+        for g in _generators.values():
+            g.manual_seed(_seed)
+
+
+def device_generator(device) -> torch.Generator:
+    """The dropout generator of ``device``, made at first use and seeded
+    with the last :func:`seed` (0 before any)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        g = _generators.get(device)
+        if g is None:
+            g = _generators[device] = generator(_seed, device)
+        return g
+
+
+def bits(shape, device, generator=None) -> torch.Tensor:
+    """uint8 random bits of ``shape`` on ``device``, drawn from
+    ``generator`` (the device's dropout generator when None) — or, inside
+    :func:`bits_tape` with recorded bits, the next recorded tensor."""
+    tape = getattr(_tape, "active", None)
+    if tape is not None and tape.replay is not None:
+        out = tape.replay[tape.pos].to(device)
+        tape.pos += 1
+        if tuple(out.shape) != tuple(shape) or out.dtype != torch.uint8:
+            raise ValueError(f"recorded bits {tuple(out.shape)} "
+                             f"{out.dtype} do not fit a draw of "
+                             f"{tuple(shape)} uint8")
+        return out
+    g = device_generator(device) if generator is None else generator
+    out = torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
+                        device=device, generator=g)
+    if tape is not None:
+        tape.drawn.append(out)
+    return out
+
+
+class _Tape:
+    def __init__(self, replay):
+        self.replay = None if replay is None else list(replay)
+        self.pos = 0
+        self.drawn = []
+
+
+@contextlib.contextmanager
+def bits_tape(replay=None):
+    """Within the scope, every :func:`bits` draw is recorded in
+    ``tape.drawn``; with ``replay`` (a list of uint8 tensors, e.g. an
+    earlier tape's ``drawn``) the draws return those tensors in order,
+    moved to the drawing device, instead."""
+    prev = getattr(_tape, "active", None)
+    _tape.active = tape = _Tape(replay)
+    try:
+        yield tape
+    finally:
+        _tape.active = prev

@@ -119,19 +119,32 @@ def test_alias_must_equal_its_canonical_array(pair):
 
 
 def test_dropout_is_identity_in_predict_mode_and_raises_in_training():
+    """Predict mode is the identity. Training draws a mask: a layer put
+    in training mode, and the narrow BERT under ``autograd.record()``,
+    whose forward draws once per dropout site (the embedding's, two per
+    cell) and once per cell for ffn_2's epilogue dropout. In training the
+    op raises on explicit bits that do not fit its input."""
     x = torch.randn(3, 5)
     layer = tnn.Dropout(0.1)
     assert layer(x) is x
     assert tops.dropout(x, p=0.5) is x
     layer.train()
-    with pytest.raises(MXNetError, match="training"):
-        layer(x)
-    with pytest.raises(MXNetError, match="training"):
-        tops.dropout(x, p=0.5, mode="always")
+    out = layer(torch.ones(64, 64))
+    assert (out == 0).any() and (out != 0).any()
+    with pytest.raises(MXNetError, match="bits"):
+        tops.dropout(x, p=0.5, mode="always",
+                     bits=torch.zeros(3, 4, dtype=torch.uint8))
+    with pytest.raises(MXNetError, match="bits"):
+        tops.dropout(x, p=0.5, training=True, bits=torch.zeros(3, 5))
     _, tnet, _ = bert_pair(seed=6)
-    tnet.train()
-    with pytest.raises(MXNetError, match="training"):
-        tnet(torch.from_numpy(_ids(7)))
+    ids = torch.from_numpy(_ids(7))
+    with torch.inference_mode():
+        predict = tnet(ids)[0]
+    with tmx.autograd.record(), tmx.random.bits_tape() as tape:
+        train = tnet(ids)[0]
+    assert len(tape.drawn) == 1 + 3 * NARROW_BERT["num_layers"]
+    assert torch.isfinite(train).all()
+    assert not torch.allclose(train.detach(), predict)
 
 
 def _dense_pair(act, use_bias, epilogue_dropout=0.0, in_units=6):

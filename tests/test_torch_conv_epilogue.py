@@ -149,4 +149,6 @@ def test_cpu_path_never_counts_a_launch():
     ce.conv_epilogue_plain(x, act_type="tanh")
     assert kernels.launch_counts() == {"conv_epilogue": 0,
                                        "matmul_epilogue": 0,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0,
+                                       "flash_attention_bwd_dkv": 0,
+                                       "flash_attention_bwd_dq": 0}

@@ -1,10 +1,11 @@
 """Tests of the port that need an NVIDIA card (marker ``cuda``): the
 hand-written conv-epilogue (K1), matmul-epilogue (K2) and flash-attention
-(K3/K3') kernels against their plain versions on CUDA tensors, their
-launch counts, and their refusals. Without a card they skip;
-on the card run them with ``python -m pytest -m cuda --noconftest
-tests/test_torch_cuda.py`` (the suite's conftest imports the JAX
-package)."""
+(K3/K3', forward and backward) kernels against their plain versions on
+CUDA tensors, the gradients of K2 and K3 against their plain versions'
+autograd and plain backward, their launch counts, and their refusals.
+Without a card they skip; on the card run them with ``python -m pytest
+-m cuda --noconftest tests/test_torch_cuda.py`` (the suite's conftest
+imports the JAX package)."""
 import pytest
 import torch
 
@@ -15,6 +16,9 @@ from mxnet_tpu_torch.kernels import flash_attention as fa
 from mxnet_tpu_torch.kernels import matmul_epilogue as me
 
 pytestmark = pytest.mark.cuda
+_NONE = dict.fromkeys(("conv_epilogue", "matmul_epilogue", "flash_attention",
+                       "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+                      0)
 
 
 @pytest.fixture
@@ -48,9 +52,7 @@ def test_kernel_matches_plain(cuda, shape, axis, vectors, with_res, act,
     kernels.reset_launch_counts()
     got = ce.fused_conv_epilogue(x, s, b, r, channel_axis=axis,
                                  act_type=act)
-    assert kernels.launch_counts() == {"conv_epilogue": 1,
-                                       "matmul_epilogue": 0,
-                                       "flash_attention": 0}
+    assert kernels.launch_counts() == dict(_NONE, conv_epilogue=1)
     want = ce.fused_conv_epilogue_plain(x, s, b, r, channel_axis=axis,
                                         act_type=act)
     torch.cuda.synchronize()
@@ -90,9 +92,7 @@ def test_matmul_epilogue_kernel_matches_plain(cuda, shape, vec, p, act,
                          dtype=torch.uint8)
     kernels.reset_launch_counts()
     got = me.matmul_epilogue_2d(y, b, bits, act_type=act, p=p)
-    assert kernels.launch_counts() == {"conv_epilogue": 0,
-                                       "matmul_epilogue": 1,
-                                       "flash_attention": 0}
+    assert kernels.launch_counts() == dict(_NONE, matmul_epilogue=1)
     want = me.matmul_epilogue_plain(y, b, bits, act_type=act, p=p)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == y.shape
@@ -124,8 +124,33 @@ def test_matmul_epilogue_refuses_what_it_does_not_take(cuda):
         me.matmul_epilogue_2d(y.double(), b.double())
     with pytest.raises(MXNetError, match="bias"):
         me.matmul_epilogue_2d(y, b.half())
-    with pytest.raises(MXNetError, match="requires grad"):
-        me.matmul_epilogue_2d(y.requires_grad_(), b)
+
+
+@pytest.mark.parametrize("act", me.EPILOGUE_ACTS)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_matmul_epilogue_gradients_match_plain(cuda, act, p):
+    """K2 under autograd on the card: the kernel's forward, then dy and
+    dbias against the plain version's autograd on the same bits, float32
+    within 1e-5 of each gradient's max |value|."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    y = torch.randn(1024, 768, generator=gen, device=cuda)
+    b = torch.randn(1, 768, generator=gen, device=cuda) * 0.5
+    bits = torch.randint(0, 256, y.shape, generator=gen, device=cuda,
+                         dtype=torch.uint8)
+    g = torch.randn(y.shape, generator=gen, device=cuda)
+    grads = []
+    for fn in (me.matmul_epilogue_2d, me.matmul_epilogue_plain):
+        ty, tb = y.clone().requires_grad_(), b.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        out = fn(ty, tb, bits, act_type=act, p=p)
+        grads.append(torch.autograd.grad(out, (ty, tb), g))
+        launched = kernels.launch_counts()["matmul_epilogue"]
+        assert launched == (1 if fn is me.matmul_epilogue_2d else 0)
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() \
+            <= 1e-5 * want.abs().max().item()
 
 
 # (B, H, S_q, S_kv, D, causal, form): "qkv" reads strided (B, S, H, D)
@@ -180,9 +205,7 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
         else:
             got = fa.flash_attention(q, k, v, causal=causal)
             want = fa.flash_attention_plain(q, k, v, causal=causal)
-    assert kernels.launch_counts() == {"conv_epilogue": 0,
-                                       "matmul_epilogue": 0,
-                                       "flash_attention": 1}
+    assert kernels.launch_counts() == dict(_NONE, flash_attention=1)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
@@ -228,5 +251,68 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(MXNetError, match="do not match|share"):
         fa.flash_attention(q, q[:, :1], q[:, :1])
-    with pytest.raises(MXNetError, match="requires grad"):
-        fa.flash_attention(q.requires_grad_(), q, q)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_backward_kernels_match_plain(cuda, case, dtype,
+                                                      tol):
+    """dq, dk and dv of the backward kernels (one launch each of dK/dV
+    and dQ) against ``flash_attention_bwd_plain`` on the forward's lse,
+    within ``tol`` of each gradient's max |value|; the lse against the
+    plain forward's."""
+    q, k, v = flash_inputs(case, dtype, cuda)
+    causal, form = case[5], case[6]
+    if form == "qkv":
+        qkv = q.as_strided(q.shape[:2] + (3 * q.shape[2] * q.shape[3],),
+                           (q.stride(0), q.stride(1), 1)).clone()
+        leaf = qkv.requires_grad_()
+        out = fa.flash_attention_qkv(leaf, case[1], causal=causal)
+        inputs = (leaf,)
+        nd = [t.transpose(1, 2) for t in fa._split_qkv(qkv.detach(),
+                                                        case[1])]
+    else:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=causal)
+        inputs = leaves
+        nd = [t.detach() for t in leaves]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(out, inputs, dout)
+    assert kernels.launch_counts() == dict(
+        _NONE, flash_attention_bwd_dkv=1, flash_attention_bwd_dq=1)
+    if form == "qkv":
+        got = [g.transpose(1, 2) for g in fa._split_qkv(got[0], case[1])]
+        plain_dout = dout.view(out.shape[:2] + (case[1], -1)).transpose(
+            1, 2)
+    else:
+        plain_dout = dout
+    p_out, lse = fa.flash_attention_plain(*nd, causal=causal,
+                                          return_lse=True)
+    want = fa.flash_attention_bwd_plain(*nd, p_out, lse, plain_dout,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item(), err
+    s_q, s_kv = case[2], case[3]
+    if causal and s_q > s_kv:            # rows with no allowed key: zeros
+        assert not got[0][..., :s_q - s_kv, :].any()
+
+
+def test_flash_attention_forward_writes_lse_only_for_a_gradient(cuda):
+    q, k, v = flash_inputs((1, 2, 300, 1100, 64, True, "bhsd"),
+                           torch.float32, cuda)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                                  return_lse=True)
+    out, lse = fa._attend(q, k, v, True, fa.default_scale(64, q.dtype),
+                          512, True, False)
+    assert lse.shape == (1, 2, 300) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    _, none = fa._attend(q, k, v, True, 0.125, 512, False, False)
+    assert none is None

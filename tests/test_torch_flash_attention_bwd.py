@@ -1,0 +1,227 @@
+"""The gradient of flash attention in the port (K3/K3''s backward:
+mxnet_tpu_torch/kernels/flash_attention.py ``flash_attention_bwd_plain``
+behind the ``autograd.Function`` of every entry) against the JAX package
+on the CPU.
+
+The JAX side is differentiated directly: ``jax.vjp`` of
+``_blockwise_impl`` (K3', the ``lax.scan`` under ``jax.checkpoint``) and
+of ``attention_reference``, ``jax.grad`` through ``_flash_attention``
+(K3's op) and ``jax.vjp`` of ``_fused_self_attention``, never through the
+Pallas tier's mode or environment. Inputs and the output cotangent are
+seeded numpy arrays of shape (2, 3, S, D) unless a case says otherwise.
+Tolerances, of each gradient's max |value|: float32 1e-4 (the port sums
+the key blocks of dK/dV and dQ in another order than JAX's reverse scan;
+the registered tolerance of K3' is 2e-4), bfloat16 2e-2 (bf16 inputs and
+outputs on both sides, fp32 math inside). With one key (S_kv 1) dq and
+dk are zero analytically (a softmax over one key is constant) and both
+sides give the rounding noise of ``dp - delta``; there the scale is
+floored at 0.1 (1e-5 absolute in fp32)."""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops.contrib import _flash_attention, _fused_self_attention
+from mxnet_tpu_torch import kernels
+from mxnet_tpu_torch.kernels import flash_attention as fa
+from mxnet_tpu_torch.ops import contrib as tcontrib
+from mxnet_tpu_torch.parallel import ring_attention as tra
+
+jra = importlib.import_module("mxnet_tpu.parallel.ring_attention")
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _arrays(seed, s_q, s_kv, lead=(2, 3), d=16):
+    """q, k, v and the output cotangent, as float32 numpy."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*lead, s_q, d).astype(np.float32),
+            rng.randn(*lead, s_kv, d).astype(np.float32),
+            rng.randn(*lead, s_kv, d).astype(np.float32),
+            rng.randn(*lead, s_q, d).astype(np.float32))
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _torch(arrays, dtype, grad=True):
+    return [torch.from_numpy(a).to(getattr(torch, dtype))
+            .requires_grad_(grad) for a in arrays]
+
+
+def _jax_vjp(fn, arrays, dtype):
+    """(out, (dq, dk, dv)) of ``fn(q, k, v)`` with the cotangent of
+    ``arrays[3]``."""
+    q, k, v, do = _jax(arrays, dtype)
+    out, pull = jax.vjp(fn, q, k, v)
+    return out, pull(do)
+
+
+def _port_grads(fn, arrays, dtype):
+    q, k, v = _torch(arrays[:3], dtype)
+    do = torch.from_numpy(arrays[3]).to(getattr(torch, dtype))
+    out = fn(q, k, v)
+    return out, torch.autograd.grad(out, (q, k, v), do)
+
+
+def _check_grads(got, want, tol, floor=0.0):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        g = g.float().numpy()
+        assert g.shape == w.shape and np.isfinite(g).all(), name
+        scale = max(float(np.abs(w).max()), floor)
+        err = float(np.abs(g - w).max())
+        assert err <= tol * scale, f"{name}: {err} > {tol} x {scale}"
+
+
+CASES = [(64, 64, 16), (200, 200, 16), (37, 200, 16), (200, 37, 16),
+         (1, 200, 16), (200, 1, 16), (130, 130, 64)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_kv,d", CASES)
+def test_blockwise_grads_match_jax_vjp(s_q, s_kv, d, causal):
+    """S_q = S_kv, S_q < S_kv and S_q > S_kv (causal: empty rows), S not
+    a multiple of the block (48), D 16 and 64."""
+    arrays = _arrays(s_q * 7 + s_kv + d, s_q, s_kv, d=d)
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, block_size=48, causal=causal), arrays, "float32")
+    kernels.reset_launch_counts()
+    _, got = _port_grads(lambda q, k, v: tra.blockwise_attention(
+        q, k, v, block_size=48, causal=causal), arrays, "float32")
+    _check_grads(got, want, TOL["float32"], floor=0.1 if s_kv == 1 else 0.0)
+    assert not any(kernels.launch_counts().values())      # CPU path
+    if causal and s_q > s_kv:           # rows with no allowed key: zeros
+        assert not got[0][..., :s_q - s_kv, :].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", [(64, 64), (200, 37), (37, 200)])
+def test_blockwise_grads_match_jax_vjp_bf16(s_q, s_kv, causal):
+    arrays = _arrays(s_q + s_kv, s_q, s_kv)
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, block_size=32, causal=causal), arrays, "bfloat16")
+    _, got = _port_grads(lambda q, k, v: tra.blockwise_attention(
+        q, k, v, block_size=32, causal=causal), arrays, "bfloat16")
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _check_grads(got, want, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", [(7, 7), (64, 64), (37, 90),
+                                      (90, 37)])
+def test_attention_reference_grads_match_jax_vjp(s_q, s_kv, causal):
+    """The dense oracle differentiates by plain autograd, as JAX
+    differentiates it."""
+    arrays = _arrays(s_q + 3 * s_kv, s_q, s_kv)
+    _, want = _jax_vjp(lambda q, k, v: jra.attention_reference(
+        q, k, v, causal=causal), arrays, "float32")
+    _, got = _port_grads(lambda q, k, v: tra.attention_reference(
+        q, k, v, causal=causal), arrays, "float32")
+    _check_grads(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", [(1024, 1024), (1100, 1100),
+                                      (64, 1100)])
+def test_contrib_flash_attention_grads_match_jax_grad(s_q, s_kv, causal):
+    """Both sides of the dense/streaming threshold (S_kv 1024 is dense,
+    1100 streams) against ``jax.grad`` through ``_flash_attention``."""
+    arrays = _arrays(s_kv + s_q, s_q, s_kv, lead=(1, 2))
+    jq, jk, jv, jdo = _jax(arrays, "float32")
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        _flash_attention(q, k, v, causal=causal) * jdo),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    _, got = _port_grads(lambda q, k, v: tcontrib.flash_attention(
+        q, k, v, causal=causal), arrays, "float32")
+    _check_grads(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_jax_vjp(causal):
+    """``flash_attention_bwd_plain`` itself, fed the forward's lse."""
+    arrays = _arrays(21, 90, 70)
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, block_size=16, causal=causal), arrays, "float32")
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    out, lse = fa.flash_attention_plain(q, k, v, block_size=16,
+                                        causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, 90)
+    if causal:                          # 20 rows with no allowed key
+        assert torch.isinf(lse[..., :20]).all()
+        assert torch.isfinite(lse[..., 20:]).all()
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                       causal=causal, block_size=16)
+    _check_grads(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_three_d_entry_grads(causal):
+    """``[B, S, D]`` inputs ride as one head through the same Function."""
+    arrays = _arrays(31, 50, 90, lead=(3,))
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, block_size=32, causal=causal), arrays, "float32")
+    out, got = _port_grads(lambda q, k, v: fa.flash_attention(
+        q, k, v, block_size=32, causal=causal), arrays, "float32")
+    assert out.shape == (3, 50, 16)
+    _check_grads(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bshd_entry_grads_through_strided_views(causal):
+    """(B, S, H, D) views of one fused tensor: the gradient reaches the
+    fused tensor as the JAX gradient on the transposed copies."""
+    rng = np.random.RandomState(9)
+    qkv = rng.randn(2, 70, 3 * 24).astype(np.float32)
+    do = rng.randn(2, 70, 3, 8).astype(np.float32)
+    split = [qkv[:, :, i * 24:(i + 1) * 24].reshape(2, 70, 3, 8)
+             .transpose(0, 2, 1, 3) for i in range(3)]
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, block_size=16, causal=causal),
+        split + [do.transpose(0, 2, 1, 3)], "float32")
+    tqkv = torch.from_numpy(qkv).requires_grad_()
+    q, k, v = (tqkv[:, :, i * 24:(i + 1) * 24].reshape(2, 70, 3, 8)
+               for i in range(3))
+    out = fa.flash_attention_bshd(q, k, v, block_size=16, causal=causal)
+    assert out.shape == (2, 70, 3, 8) and out.is_contiguous()
+    (g,) = torch.autograd.grad(out, tqkv, torch.from_numpy(do))
+    got = [g[:, :, i * 24:(i + 1) * 24].reshape(2, 70, 3, 8)
+           .transpose(1, 2) for i in range(3)]
+    _check_grads(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1100, 64])
+def test_fused_self_attention_grad_into_fused_qkv(s, causal):
+    """The gradient of ``fused_self_attention`` reaches the fused (B, S,
+    3C) QKV as JAX's ``_fused_self_attention`` gives it: S 1100 takes the
+    flash path's Function (one (B, S, 3C) gradient written through the
+    column-block strides), S 64 the dense path's plain autograd."""
+    rng = np.random.RandomState(s)
+    qkv = rng.randn(2, s, 3 * 32).astype(np.float32)
+    do = rng.randn(2, s, 32).astype(np.float32)
+    _, pull = jax.vjp(lambda x: _fused_self_attention(
+        x, heads=4, causal=causal), jnp.asarray(qkv))
+    (want,) = pull(jnp.asarray(do))
+    tqkv = torch.from_numpy(qkv).requires_grad_()
+    out = tcontrib.fused_self_attention(tqkv, heads=4, causal=causal)
+    assert out.shape == (2, s, 32)
+    (got,) = torch.autograd.grad(out, tqkv, torch.from_numpy(do))
+    assert got.shape == tqkv.shape and got.is_contiguous()
+    want = np.asarray(want)
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= TOL["float32"] * float(np.abs(want).max())
+
+
+def test_no_grad_wanted_saves_nothing():
+    """Inference through the Function keeps no lse and no graph."""
+    q, k, v = _torch(_arrays(2, 20, 20)[:3], "float32", grad=False)
+    with torch.inference_mode():
+        out = fa.flash_attention(q, k, v, block_size=8)
+    assert out.grad_fn is None
+    q.requires_grad_()
+    out = fa.flash_attention(q, k, v, block_size=8)
+    assert out.grad_fn is not None
