@@ -10,7 +10,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 1. card      — require CUDA; print the card's name and power limit
                (nvidia-smi) and switch TF32 off for matmul and cuDNN.
 2. build     — compile every CUDA kernel of the port from its source with
-               nvcc for sm_90a, all sources at once; print the seconds.
+               nvcc for sm_90a, all sources at once; print the seconds and,
+               per instance of the backward kernels, ptxas's registers,
+               stack and spill bytes and the dynamic shared memory of a CTA.
 3. kernel K1 — hold the conv-epilogue kernel against its plain PyTorch
                version on the card: ResNet-50 v1's own epilogue shapes at
                batch 8 and ragged ones; row, column and none modes; with
@@ -66,14 +68,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                kernel forward's out and row log-sum-exp: the slice's own
                call (gradients written into one fused (4, 4096, 2304)
                buffer), causal and not, S_q > S_kv (empty rows get zero
-               gradients) and S_q < S_kv, ragged S, D 16, 32, 64, 128 and
-               256, 3-D inputs, float32 and bfloat16; tolerance 1e-4
-               (fp32) and 2e-2 (bf16) of each gradient's max |value|; the
-               forward's lse against the plain forward's. Times of the
-               slice's call (CUDA events after warm-up) for each kernel,
-               the delta reduction, the plain version and the backward of
-               scaled_dot_product_attention (kernel printed), beside the
-               operations bound at 67 TFLOP/s.
+               gradients) and S_q < S_kv, ragged S, D 16, 32, 40, 64, 100,
+               128 and 256 (40 and 100 causal and not), 3-D inputs, float32
+               and bfloat16; tolerance 1e-4 (fp32) and 2e-2 (bf16) of each
+               gradient's max |value|; the forward's lse against the plain
+               forward's. Times of the slice's call (CUDA events after
+               warm-up) for each kernel, the delta reduction, the plain
+               version and the backward of scaled_dot_product_attention
+               (kernel printed), beside two operations bounds: fp32 on CUDA
+               cores at 67 TFLOP/s, and 3xTF32 (three tf32 passes per
+               product) at 495 TFLOP/s; the achieved TFLOP/s of the
+               kernels' 7 products and each kernel's share of both bounds.
 10. kernel K2 — ffn_2's training call at (16384, 768) with dropout bits
     training    drawn on the card: bit-equal to the plain version on the
                same bits, keeping 1 - p within 1%; K2's backward against
@@ -108,6 +113,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -116,6 +122,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 FP32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
+TF32_OPS_PER_S = 495e12              # H100 SXM TF32 tensor cores, dense
 BATCH = 8
 SEED = 0
 N_REQUESTS = 32
@@ -183,7 +190,50 @@ def phase_build():
         f"{os.path.basename(_build.nvcc_path())} (sm_90a); kernels "
         f"compiled {len(regs)}, max registers {max(regs, default=0)}, "
         f"spill-store bytes {spills}")
+    bwd_ptxas_report(outputs.get("flash_attention_bwd", ""))
     return secs
+
+
+_BWD_KERNEL = re.compile(r"flash_attention_bwd_(dkv|dq)_kernelI"
+                         r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E")
+_BWD_DTYPES = {"f": ("float32", 0), "13__nv_bfloat16": ("bfloat16", 1),
+               "6__half": ("float16", 2)}
+
+
+def bwd_ptxas_report(text):
+    """One line per instance of the backward kernels: ptxas's registers
+    and spill bytes, and the dynamic shared memory of one CTA from the
+    library's own size query."""
+    if not text:
+        log("ptxas: flash_attention_bwd was not rebuilt in this run")
+        return
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    size = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    found, current = {}, None
+    for line in text.splitlines():
+        m = _BWD_KERNEL.search(line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            current = m.groups()
+            found.setdefault(current, {})
+        elif current is None:
+            continue
+        elif "spill stores" in line:
+            found[current]["stack"] = int(line.split()[0])
+            found[current]["spills"] = int(
+                line.split("bytes spill stores")[0].split()[-1])
+        elif "Used" in line and "registers" in line:
+            found[current]["regs"] = int(line.split("Used")[1].split()[0])
+    for (which, dt, dp, causal), info in sorted(found.items()):
+        name, code = _BWD_DTYPES[dt]
+        smem = size(0 if which == "dkv" else 1, code, int(dp))
+        log(f"ptxas: flash_attention_bwd_{which}_kernel<{name}, D {dp}, "
+            f"causal {causal}>: {info.get('regs')} registers, "
+            f"{info.get('stack')} bytes stack frame, {info.get('spills')} "
+            f"spill-store bytes, {smem} bytes of "
+            "dynamic shared memory per CTA")
 
 
 # -- phase 3: kernel K1 ------------------------------------------------------
@@ -1012,7 +1062,8 @@ def bwd_cases():
     """(name, B, H, S_q, S_kv, D, causal, form) of the backward check, in
     flash_cases' forms: the slice's own call (gradients written into one
     fused (4, 4096, 2304) buffer), causal, S_q > S_kv with empty rows,
-    S_q < S_kv, ragged S, D 16, 32, 128 and 256, 3-D inputs."""
+    S_q < S_kv, ragged S, D 16, 32, 128 and 256, D 40 and 100 (not
+    multiples of 8; 16-bit rows of 200 bytes), 3-D inputs."""
     return [
         ("slice", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64, False,
          "qkv"),
@@ -1026,24 +1077,37 @@ def bwd_cases():
         ("d256", 1, 2, 130, 1100, 256, False, "bhsd"),
         ("d256_q_longer_causal", 1, 2, 1100, 300, 256, True, "bhsd"),
         ("3d_causal", 3, 1, 1100, 1100, 16, True, "3d"),
+        ("d40", 2, 3, 1100, 1100, 40, False, "bhsd"),
+        ("d40_causal", 2, 3, 1100, 1100, 40, True, "bhsd"),
+        ("d100", 1, 2, 1100, 1100, 100, False, "bhsd"),
+        ("d100_causal", 1, 2, 1100, 1100, 100, True, "bhsd"),
     ]
 
 
-def k3_bwd_bound_ms(case, dtype_size, which):
-    """The larger of operations / fp32 rate and bytes / HBM rate of one
-    backward kernel, in ms. ``which`` "dkv": s, dp, dv and dk, four
-    products of 2 B H S_q S_kv D flops (half under causal), reading q, k,
-    v, dout, lse and delta and writing dk, dv; "dq": s, dp and dq, three
-    products, writing dq; "both": the five products the three gradients
-    need at least, every input read and every gradient written once.
-    Returns (ms, "bytes" or "operations")."""
+def product_flops(case):
+    """Flops of one product of the backward: 2 B H S_q S_kv D, half under
+    causal."""
     _, b, h, s_q, s_kv, d, causal, _ = case
+    return 2 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
+
+
+def k3_bwd_bound_ms(case, dtype_size, which, tf32=False):
+    """The larger of operations / peak rate and bytes / HBM rate of one
+    backward kernel, in ms. ``which`` "dkv": s, dp, dv and dk, four
+    products, reading q, k, v, dout, lse and delta and writing dk, dv;
+    "dq": s, dp and dq, three products, writing dq; "both": the five
+    products the three gradients need at least, every input read and
+    every gradient written once. The rate is fp32 on CUDA cores (67
+    TFLOP/s), or with ``tf32`` three tf32 passes per product (3xTF32) at
+    495 TFLOP/s. Returns (ms, "bytes" or "operations")."""
+    _, b, h, s_q, s_kv, d, _, _ = case
     products = {"dkv": 4, "dq": 3, "both": 5}[which]
-    ops = products * 2 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
+    ops = products * product_flops(case)
+    rate = TF32_OPS_PER_S / 3 if tf32 else FP32_OPS_PER_S
     written = {"dkv": 2 * s_kv, "dq": s_q, "both": s_q + 2 * s_kv}[which]
     by = b * h * (dtype_size * d * (2 * s_q + 2 * s_kv + written)
                   + 8 * s_q)
-    ops_s, by_s = ops / FP32_OPS_PER_S, by / HBM_BYTES_PER_S
+    ops_s, by_s = ops / rate, by / HBM_BYTES_PER_S
     return (by_s * 1e3, "bytes") if by_s > ops_s else (ops_s * 1e3,
                                                        "operations")
 
@@ -1147,6 +1211,9 @@ def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
     for which in ("dkv", "dq", "both"):
         res[f"bound_{which}"], res["bound_by"] = k3_bwd_bound_ms(
             case, esize, which)
+        res[f"bound_{which}_3xtf32"], res["bound_by_3xtf32"] = \
+            k3_bwd_bound_ms(case, esize, which, tf32=True)
+    res["flops_7"] = 7 * product_flops(case)
     times = (f" dkv_ms={res['dkv_ms']:.4f} dq_ms={res['dq_ms']:.4f} "
              f"delta_ms={res['delta_ms']:.4f} plain_ms="
              f"{res['plain_ms']:.4f} sdpa_bwd_ms={res['library_ms']:.4f}"
@@ -1190,9 +1257,20 @@ def phase_kernel_k3_bwd(torch, fa):
         "library_kernel": timed["library_kernel"],
         "bound_dkv": n * timed["bound_dkv"], "bound_dq": n * timed["bound_dq"],
         "bound_both": n * timed["bound_both"], "bound_by": timed["bound_by"],
+        "bound_dkv_3xtf32": n * timed["bound_dkv_3xtf32"],
+        "bound_dq_3xtf32": n * timed["bound_dq_3xtf32"],
+        "bound_both_3xtf32": n * timed["bound_both_3xtf32"],
+        "bound_by_3xtf32": timed["bound_by_3xtf32"],
         "err_dq": f32[0], "err_dkv": f32[1], "rel": f32[2],
         "err_dq_bf16": bf16[0], "err_dkv_bf16": bf16[1],
         "rel_bf16": bf16[2], "lse_err": lse_err}
+    pair_ms = results["dkv_ms"] + results["dq_ms"]
+    results["tflops_7"] = n * timed["flops_7"] / (pair_ms * 1e-3) / 1e12
+    for which in ("dkv", "dq"):
+        ms = results[f"{which}_ms"]
+        results[f"share_{which}"] = results[f"bound_{which}"] / ms
+        results[f"share_{which}_3xtf32"] = \
+            results[f"bound_{which}_3xtf32"] / ms
     log(f"kernel: one long-context BERT-base training step's attention "
         f"backward (batch {LONG_BATCH}, S {LONG_SEQ}, 12 heads, D 64, "
         f"float32, {n} launches of each kernel): dK/dV "
@@ -1205,6 +1283,19 @@ def phase_kernel_k3_bwd(torch, fa):
         f"scaled_dot_product_attention backward "
         f"{results['library_ms']:.3f} ms (its kernel: "
         f"{results['library_kernel'][:80]})")
+    log(f"kernel: the pair's 7 products ({n * timed['flops_7'] / 1e12:.3f} "
+        f"TFLOP, s and dp in both kernels) at {results['tflops_7']:.2f} "
+        f"TFLOP/s; 3xTF32 bounds (3 tf32 passes per product at 495 "
+        f"TFLOP/s): dK/dV {results['bound_dkv_3xtf32']:.3f} ms, dQ "
+        f"{results['bound_dq_3xtf32']:.3f} ms, five products "
+        f"{results['bound_both_3xtf32']:.3f} ms "
+        f"({results['bound_by_3xtf32']}); share of the fp32 / 3xTF32 "
+        f"bound: dK/dV {results['share_dkv']:.3f} / "
+        f"{results['share_dkv_3xtf32']:.3f}, dQ {results['share_dq']:.3f} / "
+        f"{results['share_dq_3xtf32']:.3f}; the pair "
+        f"{results['bound_both'] / pair_ms:.3f} / "
+        f"{results['bound_both_3xtf32'] / pair_ms:.3f} of the five-product "
+        "bounds")
     return results
 
 
@@ -1484,6 +1575,8 @@ def main():
                           "S, D], dq, dk and dv together; its kernel: "
                           + k3b["library_kernel"][:80],
         "bound_ms_both_kernels": k3b["bound_both"],
+        "bound_ms_3xtf32_both_kernels": k3b["bound_both_3xtf32"],
+        "tflops_7_products": k3b["tflops_7"],
         "delta_ms": k3b["delta_ms"]}
     line = {"kernels": [{
         "name": "conv_epilogue", "route": "cuda",
@@ -1536,6 +1629,9 @@ def main():
         "launches": train["launches"]["flash_attention_bwd_dkv"],
         "max_abs_err": k3b["err_dkv"], "ms": k3b["dkv_ms"],
         "bound_ms": k3b["bound_dkv"], **bwd_common,
+        "bound_ms_3xtf32": k3b["bound_dkv_3xtf32"],
+        "bound_share": k3b["share_dkv"],
+        "bound_share_3xtf32": k3b["share_dkv_3xtf32"],
         "max_rel_err": k3b["rel"],
         "max_abs_err_bf16": k3b["err_dkv_bf16"]}, {
         "name": "flash_attention_bwd_dq",
@@ -1545,6 +1641,9 @@ def main():
         "launches": train["launches"]["flash_attention_bwd_dq"],
         "max_abs_err": k3b["err_dq"], "ms": k3b["dq_ms"],
         "bound_ms": k3b["bound_dq"], **bwd_common,
+        "bound_ms_3xtf32": k3b["bound_dq_3xtf32"],
+        "bound_share": k3b["share_dq"],
+        "bound_share_3xtf32": k3b["share_dq_3xtf32"],
         "max_rel_err": k3b["rel"],
         "max_abs_err_bf16": k3b["err_dq_bf16"]}]}
     log(json.dumps(line))

@@ -1,6 +1,7 @@
 // K3's backward, flash attention: dq, dk and dv of out = softmax(scale *
 // q k^T, masked) v, given dout, the forward's row log-sum-exp lse and the
-// row sums delta = sum_d dout * out. All math in fp32; dq, dk and dv are
+// row sums delta = sum_d dout * out. fp32-accurate (products in 3xTF32 on
+// the tensor cores, fp32 accumulation, exact expf); dq, dk and dv are
 // stored in q's dtype (f32, bf16 or f16).
 //
 // Replaces the two Pallas TPU kernels that the JAX library's flash
@@ -24,34 +25,59 @@
 //   dq_i += scale ds_ij k_j  dk_j += scale ds_ij q_i
 //
 // Bound on an H100: operations. The two kernels do 7 products of
-// 2 * B * H * S_q * S_kv * D flops (s and dp twice, dv, dk, dq; half under
-// causal) against about 8 * B * H * S * D * 4 bytes of q, k, v, dout and
-// the three gradients; the least time of the 5 products the gradients need
-// is 10 * B * H * S_q * S_kv * D / 67 TFLOP/s (fp32 FMA, no tensor cores,
-// no TF32, as every fp32 path of the port).
+// 2 * B * H * S_q * S_kv * D flops (s and dp in both, dv, dk, dq; half
+// under causal) against about 8 * B * H * S * D * 4 bytes of q, k, v, dout
+// and the three gradients. The 5 products the gradients need take at least
+// 10 * B * H * S_q * S_kv * D / 67 TFLOP/s on fp32 CUDA cores; in 3xTF32
+// (three tf32 passes per product) 3 * 10 * B * H * S_q * S_kv * D / 495
+// TFLOP/s on the tensor cores.
 //
-// Design (a first version that is right and simple; tensor-core tiles,
-// TMA staging and bf16 operands come later). Two kernels, as the TPU splits
-// it, deterministic, with no atomics:
-//   - dkv: one CTA of 256 threads owns a tile of BK keys of one (batch,
-//     head) and loops over the 64-row query tiles (from the first query
-//     that may attend it under causal). K and V stay in shared memory; dk
-//     and dv accumulate in registers.
-//   - dq: one CTA owns a tile of 64 query rows and loops over the BK-key
-//     tiles (up to the diagonal under causal); q and dout stay in shared
-//     memory, dq accumulates in registers.
-//   - BK is 64 keys for D <= 128 and 32 for D <= 256, so shared memory
-//     stays within the 227 KB a CTA may use (set with cudaFuncSetAttribute
-//     at each launch, as the forward does).
-//   - Every operand is staged as fp32 rows [row][D + 4]: a thread of the
-//     16 x 16 grid owns rows ty + 16 i of one operand and tx + 16 j of the
-//     other, so a product reads one float4 of each row per 4 columns; the
-//     16 distinct rows a warp reads are 4 banks apart (conflict-free), the
-//     rows the two half-warps share are broadcasts.
-//   - p and ds go to shared memory [row][BK + 16 or 80] (the two
-//     half-warps' stores land on different banks) and feed the accumulation
-//     of dv, dk or dq, each thread owning 4 columns of every 64 of D.
-//   - Exact expf, as in the forward and the plain version.
+// Design. Two kernels, as the TPU splits it, deterministic, no atomics:
+// each gradient is written once.
+//   - dkv: a CTA owns R keys of one (batch, head): K and V stay in shared
+//     memory, split once into tf32 hi and lo; it streams tiles of C query
+//     rows (q, dout, lse, delta), from the first query that may attend the
+//     keys under causal. dk and dv accumulate in registers.
+//   - dq: a CTA owns R queries (q and dout resident, split once; lse and
+//     delta of its rows in registers) and streams tiles of C keys (k, v)
+//     up to the diagonal under causal. dq accumulates in registers.
+//   - Every product is mma.sync m16n8k8 tf32 with fp32 accumulators in
+//     3xTF32 (mma_tf32.cuh): lo*hi and hi*lo, then hi*hi. In s and dp
+//     (contracted over D) the lo terms go to an accumulator of their own;
+//     the gradient products sum each tile into a zeroed accumulator that
+//     is then added to dk, dv or dq with fp32 adds: the tensor cores do not
+//     round their accumulation to nearest, and over the 4096 rows of one
+//     accumulator that bias reached 5e-5 of max |grad| on an H100 (D 64).
+//     bf16 and f16 inputs are exact in tf32: s and dp take one
+//     pass, the p and ds products two. Resident tiles are split at staging;
+//     streamed elements are split in registers as fragments are built
+//     (splitting each streamed tile once in shared memory was slower).
+//   - The k index of a product contracted over the tile's rows is read
+//     permuted, k = t <-> row 2t and k = t + 4 <-> row 2t + 1 (the same in
+//     A and B, so the sum is the same). Then the accumulator of s or dp,
+//     which holds columns (2t, 2t + 1) of rows g and g + 8, is the A
+//     fragment of p or ds as it stands, and the streamed operand's column
+//     reads X[2t][g], X[2t + 1][g] hit banks 8t + g (+ 4) with the same row
+//     stride D + 4 that keeps the D-contracting reads X[g][t] on banks
+//     4g + t: no swizzle and no second copy (16-bit tiles: D + 8 elements).
+//   - D <= 64: R x C = 128 x 64, 8 warps, a warp owns 16 rows and every
+//     column, so p and ds never leave its registers and a tile step has
+//     one barrier (the ring's). D <= 128: 64 x 32, a warp owns 32 rows and
+//     a quarter of the columns; D <= 256: 32 x 16, 4 warps, 16 rows and
+//     half the columns. There p and ds go through shared memory [R][C + 8]
+//     (a second barrier) and are split as they are read. So the hi/lo
+//     copies and the ring stay within the 227 KB a CTA may use (set with
+//     cudaFuncSetAttribute at each launch).
+//   - Streamed tiles go through a two-stage ring in shared memory with
+//     cp.async (tile t + 1 copies while tile t computes); the copy width
+//     (16, 8 or 4 bytes) is the widest every row's address allows, chosen
+//     per launch from the pointers and strides, so a 16-bit head dim of
+//     100 (200-byte rows) copies 8 bytes at a time; a 16-bit row at an odd
+//     element offset is loaded by plain loads. Rows past the sequence and
+//     columns past d are zero-filled by the copy itself: s and dp contract
+//     over D padded to a multiple of 8 with zeros. Masks (ragged rows,
+//     bottom-right causal) are applied per accumulator element in tile
+//     coordinates; a masked pair gives p = 0 whatever its row's lse.
 //   - Offsets are 64-bit: q, k, v, dout, dq, dk and dv are addressed
 //     through their own (batch, seq, head) strides with a contiguous D, so
 //     the gradient of a fused QKV projection is written in place through
@@ -59,19 +85,20 @@
 //
 // C interface for ctypes: flash_attention_bwd_dkv_launch and
 // flash_attention_bwd_dq_launch return the cudaError_t of the launch (0 on
-// success); flash_attention_bwd_error_string names it.
+// success); flash_attention_bwd_error_string names it;
+// flash_attention_bwd_smem_bytes gives a kernel's shared memory per CTA.
 
 #include <math.h>
 
 #include "epilogue_common.cuh"
+#include "mma_tf32.cuh"
 
 using namespace mxtt;
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per tile
-constexpr int kThreadsBwd = 256;   // 16 x 16 threads
-constexpr int kPadP = 80;          // row stride of the dkv kernel's p, ds
+enum Which { DKV = 0, DQ = 1 };
+constexpr size_t kMaxSmem = 232448;   // bytes a CTA may use on an H100
 
 struct BwdParams {
   const void* q;
@@ -89,132 +116,225 @@ struct BwdParams {
   int64_t do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh;
   int64_t dv_sb, dv_ss, dv_sh;
   float scale;
+  int width;             // cp.async bytes of the streamed rows, 0: plain
 };
 
+// tiles of head dim DP (64, 128 or 256): R resident rows, C rows per
+// streamed tile; a warp owns MT m-tiles of 16 rows and 1 / WN of the
+// columns of each product
 template <int DP>
-__host__ __device__ constexpr int key_tile() { return DP <= 128 ? 64 : 32; }
+struct Tiles {
+  static constexpr bool kRegP = DP <= 64;     // p, ds stay in registers
+  static constexpr int kRes = DP <= 64 ? 128 : (DP <= 128 ? 64 : 32);
+  static constexpr int kStream = DP <= 64 ? 64 : (DP <= 128 ? 32 : 16);
+  static constexpr int kMT = DP == 128 ? 2 : 1;
+  static constexpr int kWN = DP <= 64 ? 1 : (DP <= 128 ? 4 : 2);
+  static constexpr int kThreads = 32 * kWN * kRes / (16 * kMT);
+  static constexpr int kN1 = kStream / (8 * kWN);  // n-tiles of s, dp
+  static constexpr int kN2 = DP / (8 * kWN);       // n-tiles of a gradient
+  static constexpr int kRS = DP + 4;               // resident row, words
+  static constexpr int kSS = kStream + 8;          // p, ds row, floats
+};
 
-template <int DP>
-constexpr int dq_smem_floats() {
-  // q, dout [kBQ][DP + 4]; K, V [BK][DP + 4]; ds [kBQ][BK + 16]
-  return 2 * kBQ * (DP + 4) + 2 * key_tile<DP>() * (DP + 4) +
-         kBQ * (key_tile<DP>() + 16);
+// row stride of a streamed tile in elements: 16 bytes of padding
+template <typename T, int DP>
+__host__ __device__ constexpr int stream_stride() {
+  return DP + 16 / static_cast<int>(sizeof(T));
 }
 
+// p and ds arrays of a CTA in shared memory: 2 in dkv (p, ds), 1 in dq
+// (ds), none where they stay in registers
 template <int DP>
-constexpr int dkv_smem_floats() {
-  // K, V [BK][DP + 4]; q, dout [kBQ][DP + 4]; p, ds [BK][kPadP]; lse, delta
-  return 2 * key_tile<DP>() * (DP + 4) + 2 * kBQ * (DP + 4) +
-         2 * key_tile<DP>() * kPadP + 2 * kBQ;
+__host__ __device__ constexpr int p_arrays(int which) {
+  return Tiles<DP>::kRegP ? 0 : (which == DKV ? 2 : 1);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+template <typename T, int DP, int WHICH>
+__host__ __device__ constexpr size_t smem_bytes() {
+  using C = Tiles<DP>;
+  return 2 * 2 * C::kStream * stream_stride<T, DP>() * sizeof(T)  // ring
+         + (WHICH == DKV ? 2 * 2 * C::kStream * 4 : 0)          // lse, delta
+         + (sizeof(T) < 4 ? 2 : 4) * C::kRes * C::kRS * 4       // hi (, lo)
+         + p_arrays<DP>(WHICH) * C::kRes * C::kSS * 4;          // p, ds
 }
 
 // rows [r0, r0 + ROWS) of a (seq, D) operand with sequence stride ss into
-// dst [ROWS][DP + 4] as fp32; rows past n and columns past d are zeros
-template <typename T, int DP, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           int64_t ss, int64_t r0,
-                                           int64_t n, int d) {
-  for (int idx = threadIdx.x; idx < ROWS * DP; idx += kThreadsBwd) {
+// hi (and lo) [ROWS][DP + 4] as tf32 words; rows past n and columns past
+// d are zeros
+template <typename T, int DP, int ROWS, int NT>
+__device__ __forceinline__ void stage_split(uint32_t* hi, uint32_t* lo,
+                                            const T* src, int64_t ss,
+                                            int64_t r0, int64_t n, int d) {
+  constexpr bool EXACT = sizeof(T) < 4;
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
     const int r = idx / DP;
     const int c = idx - r * DP;
     const int64_t row = r0 + r;
-    dst[r * (DP + 4) + c] =
-        (row < n && c < d) ? to_f32(src[row * ss + c]) : 0.0f;
+    const float x = (row < n && c < d) ? to_f32(src[row * ss + c]) : 0.0f;
+    uint32_t h, l;
+    split_tf32<EXACT>(x, h, l);
+    hi[r * (DP + 4) + c] = h;
+    if (!EXACT) lo[r * (DP + 4) + c] = l;
   }
 }
 
-// acc[i][j] = A[ty + 16 i] . B[tx + 16 j] over DP columns
-template <int DP, int NA, int NB>
-__device__ __forceinline__ void rows_dot(float (&acc)[NA][NB],
-                                         const float* A, const float* B,
-                                         int ty, int tx) {
-  constexpr int RS = DP + 4;
-#pragma unroll
-  for (int i = 0; i < NA; ++i) {
-#pragma unroll
-    for (int j = 0; j < NB; ++j) acc[i][j] = 0.0f;
+// start copying rows [r0, r0 + ROWS) of a (seq, D) operand into dst
+// [ROWS][stream_stride] with cp.async of `width` bytes (zero-filling rows
+// past n and bytes past d), or with plain loads when width is 0
+template <typename T, int DP, int ROWS, int NT>
+__device__ __forceinline__ void issue_rows(T* dst, const T* src, int64_t ss,
+                                           int64_t r0, int64_t n, int d,
+                                           int width) {
+  constexpr int RT = stream_stride<T, DP>();
+  if (width == 0) {
+    for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
+      const int r = idx / DP;
+      const int c = idx - r * DP;
+      const int64_t row = r0 + r;
+      dst[r * RT + c] = (row < n && c < d) ? src[row * ss + c]
+                                           : from_f32<T>(0.0f);
+    }
+    return;
   }
-#pragma unroll 4
-  for (int c = 0; c < DP; c += 4) {
-    float4 a[NA], b[NB];
-#pragma unroll
-    for (int i = 0; i < NA; ++i) a[i] = ld4(A + (ty + 16 * i) * RS + c);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) b[j] = ld4(B + (tx + 16 * j) * RS + c);
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
+  const int shift = width == 16 ? 4 : (width == 8 ? 3 : 2);
+  const int per_row = (DP * static_cast<int>(sizeof(T))) >> shift;
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  for (int idx = threadIdx.x; idx < ROWS * per_row; idx += NT) {
+    const int r = idx / per_row;
+    const int cb = (idx - r * per_row) << shift;    // byte in the row
+    const int64_t row = r0 + r;
+    int bytes = row < n ? row_bytes - cb : 0;
+    bytes = bytes < 0 ? 0 : (bytes > width ? width : bytes);
+    const char* s = reinterpret_cast<const char*>(src);
+    if (bytes > 0) s = reinterpret_cast<const char*>(src + row * ss) + cb;
+    char* o = reinterpret_cast<char*>(dst + r * RT) + cb;
+    if (width == 16) {
+      cp_async<16>(o, s, bytes);
+    } else if (width == 8) {
+      cp_async<8>(o, s, bytes);
+    } else {
+      cp_async<4>(o, s, bytes);
     }
   }
 }
 
-// acc[i][4 nc + e] += sum_r W[ty + 16 i][r] * M[r][64 nc + 4 tx + e] over
-// R rows of M ([R][DP + 4]); W has row stride WS
-template <int DP, int NA, int R, int WS>
-__device__ __forceinline__ void accum_rows(float (&acc)[NA][DP / 16],
-                                           const float* W, const float* M,
-                                           int ty, int tx) {
-  constexpr int RS = DP + 4;
-  constexpr int NC = DP / 64;
-#pragma unroll 2
-  for (int r0 = 0; r0 < R; r0 += 4) {
-    float w[NA][4];
+// start copying lse and delta of rows [r0, r0 + ROWS) (zeros past n)
+template <int ROWS>
+__device__ __forceinline__ void issue_stats(float* lse_d, float* delta_d,
+                                            const float* lse,
+                                            const float* delta, int64_t r0,
+                                            int64_t n) {
+  const int i = threadIdx.x;
+  if (i >= 2 * ROWS) return;
+  const bool second = i >= ROWS;
+  const int r = second ? i - ROWS : i;
+  const int64_t row = r0 + r;
+  const float* base = second ? delta : lse;
+  cp_async<4>((second ? delta_d : lse_d) + r, row < n ? base + row : base,
+              row < n ? 4 : 0);
+}
+
+// A fragment of a resident split operand [row][DP + 4], rows row..row+15,
+// columns k0..k0+7 (contracted over D)
+template <bool EXACT, int RS>
+__device__ __forceinline__ void load_a_res(uint32_t (&h)[4], uint32_t (&l)[4],
+                                           const uint32_t* H,
+                                           const uint32_t* L, int row,
+                                           int k0, int g, int t) {
+  const int i0 = (row + g) * RS + k0 + t;
+  const int i1 = i0 + 8 * RS;
+  h[0] = H[i0];
+  h[1] = H[i1];
+  h[2] = H[i0 + 4];
+  h[3] = H[i1 + 4];
 #pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const float4 x = ld4(W + (ty + 16 * i) * WS + r0);
-      w[i][0] = x.x;
-      w[i][1] = x.y;
-      w[i][2] = x.z;
-      w[i][3] = x.w;
-    }
+  for (int e = 0; e < 4; ++e) l[e] = 0u;
+  if (!EXACT) {
+    l[0] = L[i0];
+    l[1] = L[i1];
+    l[2] = L[i0 + 4];
+    l[3] = L[i1 + 4];
+  }
+}
+
+// B fragment contracted over D: rows n0..n0+7 of a streamed tile are the
+// n index, columns k0..k0+7 the k index: X[n0 + g][k0 + t], [.][k0 + t + 4]
+template <typename T, int RT>
+__device__ __forceinline__ void load_b_rows(uint32_t (&h)[2],
+                                            uint32_t (&l)[2], const T* X,
+                                            int n0, int k0, int g, int t) {
+  constexpr bool EXACT = sizeof(T) < 4;
+  const T* x = X + (n0 + g) * RT + k0 + t;
+  split_tf32<EXACT>(to_f32(x[0]), h[0], l[0]);
+  split_tf32<EXACT>(to_f32(x[4]), h[1], l[1]);
+}
+
+// B fragment contracted over the tile's rows, k permuted: k = t is row
+// k0 + 2t and k = t + 4 is row k0 + 2t + 1, column col is the n index
+template <typename T, int RT>
+__device__ __forceinline__ void load_b_cols(uint32_t (&h)[2],
+                                            uint32_t (&l)[2], const T* X,
+                                            int k0, int col, int t) {
+  constexpr bool EXACT = sizeof(T) < 4;
+  const T* x = X + (k0 + 2 * t) * RT + col;
+  split_tf32<EXACT>(to_f32(x[0]), h[0], l[0]);
+  split_tf32<EXACT>(to_f32(x[RT]), h[1], l[1]);
+}
+
+// A fragment of p or ds [row][SS] with the same permuted k: the pairs of
+// columns (k0 + 2t, k0 + 2t + 1) of rows row + g and row + g + 8
+template <int SS>
+__device__ __forceinline__ void load_a_pairs(uint32_t (&h)[4],
+                                             uint32_t (&l)[4], const float* W,
+                                             int row, int k0, int g, int t) {
+  const float2 x =
+      *reinterpret_cast<const float2*>(W + (row + g) * SS + k0 + 2 * t);
+  const float2 y =
+      *reinterpret_cast<const float2*>(W + (row + g + 8) * SS + k0 + 2 * t);
+  split_tf32<false>(x.x, h[0], l[0]);
+  split_tf32<false>(y.x, h[1], l[1]);
+  split_tf32<false>(x.y, h[2], l[2]);
+  split_tf32<false>(y.y, h[3], l[3]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
+  for (int j = 0; j < N; ++j) {
 #pragma unroll
-      for (int nc = 0; nc < NC; ++nc) {
-        const float4 m = ld4(M + (r0 + rr) * RS + 64 * nc + 4 * tx);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+}
+
+// acc += part with fp32 adds (rounded to nearest), then part = 0
+template <int N>
+__device__ __forceinline__ void promote(float (&acc)[N][4],
+                                       float (&part)[N][4]) {
 #pragma unroll
-        for (int i = 0; i < NA; ++i) {
-          acc[i][4 * nc + 0] = fmaf(w[i][rr], m.x, acc[i][4 * nc + 0]);
-          acc[i][4 * nc + 1] = fmaf(w[i][rr], m.y, acc[i][4 * nc + 1]);
-          acc[i][4 * nc + 2] = fmaf(w[i][rr], m.z, acc[i][4 * nc + 2]);
-          acc[i][4 * nc + 3] = fmaf(w[i][rr], m.w, acc[i][4 * nc + 3]);
-        }
-      }
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] += part[j][e];
+      part[j][e] = 0.0f;
     }
   }
 }
 
-// rows ty + 16 i of acc * mul into a (seq, D) gradient from row r0
-template <typename T, int DP, int NA>
-__device__ __forceinline__ void store_rows(T* dst, int64_t ss, int64_t r0,
-                                           int64_t n, int d,
-                                           const float (&acc)[NA][DP / 16],
-                                           float mul, int ty, int tx) {
-  constexpr int NC = DP / 64;
+// acc * mul into a (seq, D) gradient: accumulator i = m N2 + j has rows
+// row0 + 16 m + g (+ 8) and columns col0 + 8 j + 2t (+ 1); those below n
+// and d are stored
+template <typename T, int N2, int M>
+__device__ __forceinline__ void store_acc(T* dst, int64_t ss, int64_t row0,
+                                          int64_t n, int d, int col0,
+                                          const float (&acc)[M][4],
+                                          float mul, int g, int t) {
 #pragma unroll
-  for (int i = 0; i < NA; ++i) {
-    const int64_t row = r0 + ty + 16 * i;
-    if (row >= n) continue;
-    T* o = dst + row * ss;
+  for (int i = 0; i < M; ++i) {
 #pragma unroll
-    for (int nc = 0; nc < NC; ++nc) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 64 * nc + 4 * tx + e;
-        if (c < d) o[c] = from_f32<T>(acc[i][4 * nc + e] * mul);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int64_t row = row0 + 16 * (i / N2) + g + 8 * (e >> 1);
+      const int c = col0 + 8 * (i % N2) + 2 * t + (e & 1);
+      if (row < n && c < d) dst[row * ss + c] = from_f32<T>(acc[i][e] * mul);
     }
   }
 }
@@ -224,25 +344,132 @@ __device__ __forceinline__ int64_t bh_index() {
          static_cast<int64_t>(gridDim.y) * blockIdx.z;
 }
 
+// the contraction over D of one tile step, in 3xTF32: acc[m N + j] +=
+// A[row0 + 16 m ..][:] . X[n0 + 8 j ..][:] for a resident split A
+// (hi H, lo L) and a streamed X
+template <typename T, int DP, int MT, int N, int RS, int RT>
+__device__ __forceinline__ void product_over_d(float (&acc)[MT * N][4],
+                                               const uint32_t* H,
+                                               const uint32_t* L,
+                                               const T* X, int row0, int n0,
+                                               int g, int t) {
+  constexpr bool EXACT = sizeof(T) < 4;
+  float small[MT * N][4];         // the lo terms, added once at the end
+  zero(small);
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      load_a_res<EXACT, RS>(ah[m], al[m], H, L, row0 + 16 * m, 8 * kk, g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      uint32_t bh[2], bl[2];
+      load_b_rows<T, RT>(bh, bl, X, n0 + 8 * j, 8 * kk, g, t);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (!EXACT) {
+          mma_tf32(small[m * N + j], al[m], bh);
+          mma_tf32(small[m * N + j], ah[m], bl);
+        }
+        mma_tf32(acc[m * N + j], ah[m], bh);
+      }
+    }
+  }
+  if (!EXACT) promote(acc, small);
+}
+
+// the contraction over the K tile rows of one tile step, in 3xTF32, into
+// acc[m N + j]: W (p or ds, [row][SS]) rows row0 + 16 m .. times X's
+// columns col0 + 8 j .., summed into a zeroed part and then added
+template <typename T, int MT, int N, int K, int SS, int RT>
+__device__ __forceinline__ void product_over_rows(float (&acc)[MT * N][4],
+                                                  float (&part)[MT * N][4],
+                                                  const float* W, const T* X,
+                                                  int row0, int col0, int g,
+                                                  int t) {
+  constexpr bool EXACT = sizeof(T) < 4;
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      load_a_pairs<SS>(ah[m], al[m], W, row0 + 16 * m, 8 * kk, g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      uint32_t bh[2], bl[2];
+      load_b_cols<T, RT>(bh, bl, X, 8 * kk, col0 + 8 * j + g, t);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_3xtf32<true, !EXACT>(part[m * N + j], ah[m], al[m], bh, bl);
+      }
+    }
+  }
+  promote(acc, part);
+}
+
+// the contraction over the tile's rows with W (p or ds) still in this
+// warp's accumulators: n-tile kk of W holds columns (2t, 2t + 1) of rows
+// g, g + 8, which is the A fragment of k-step kk under the permuted k
+template <typename T, int N, int K, int RT>
+__device__ __forceinline__ void product_over_regs(float (&acc)[N][4],
+                                                  float (&part)[N][4],
+                                                  const float (&w)[K / 8][4],
+                                                  const T* X, int col0, int g,
+                                                  int t) {
+  constexpr bool EXACT = sizeof(T) < 4;
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_tf32<false>(w[kk][0], ah[0], al[0]);
+    split_tf32<false>(w[kk][2], ah[1], al[1]);
+    split_tf32<false>(w[kk][1], ah[2], al[2]);
+    split_tf32<false>(w[kk][3], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      uint32_t bh[2], bl[2];
+      load_b_cols<T, RT>(bh, bl, X, 8 * kk, col0 + 8 * j + g, t);
+      mma_3xtf32<true, !EXACT>(part[j], ah, al, bh, bl);
+    }
+  }
+  promote(acc, part);
+}
+
 template <typename T, int DP, bool CAUSAL>
-__global__ void __launch_bounds__(kThreadsBwd)
+__global__ void __launch_bounds__(Tiles<DP>::kThreads, 1)
 flash_attention_bwd_dkv_kernel(BwdParams p) {
-  constexpr int BK = key_tile<DP>();
-  constexpr int RK = BK / 16;     // keys per thread
-  constexpr int RS = DP + 4;
+  using C = Tiles<DP>;
+  constexpr bool EXACT = sizeof(T) < 4;
+  constexpr int BK = C::kRes;        // keys of the CTA
+  constexpr int BQ = C::kStream;     // query rows per tile
+  constexpr int MT = C::kMT;
+  constexpr int N1 = C::kN1;
+  constexpr int N2 = C::kN2;
+  constexpr int NT = C::kThreads;
+  constexpr int RS = C::kRS;
+  constexpr int SS = C::kSS;
+  constexpr int RT = stream_stride<T, DP>();
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);   // [BK][RS]
-  float* Vs = Ks + BK * RS;                      // [BK][RS]
-  float* Qs = Vs + BK * RS;                      // [kBQ][RS]
-  float* dOs = Qs + kBQ * RS;                    // [kBQ][RS]
-  float* Ps = dOs + kBQ * RS;                    // [BK][kPadP]
-  float* dSs = Ps + BK * kPadP;                  // [BK][kPadP]
-  float* lse_s = dSs + BK * kPadP;               // [kBQ]
-  float* delta_s = lse_s + kBQ;                  // [kBQ]
+  T* Qs = reinterpret_cast<T*>(smem4);                      // [2][BQ][RT]
+  T* dOs = Qs + 2 * BQ * RT;                                // [2][BQ][RT]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * RT);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                          // [2][BQ]
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(delta_s + 2 * BQ);  // [BK][RS]
+  uint32_t* Vh = Kh + BK * RS;
+  uint32_t* Kl = Vh + BK * RS;                              // fp32 only
+  uint32_t* Vl = Kl + (EXACT ? 0 : BK * RS);
+  float* Ps = reinterpret_cast<float*>(Vl + (EXACT ? 0 : BK * RS));
+  float* dSs = Ps + BK * SS;              // [BK][SS] each, unless kRegP
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int warp = tid >> 5;
+  const int r0 = 16 * MT * (warp / C::kWN);          // the warp's key rows
+  const int qofs = (warp % C::kWN) * (BQ / C::kWN);  // its s, dp columns
+  const int dofs = (warp % C::kWN) * (DP / C::kWN);  // its dk, dv columns
   const int64_t bh = bh_index();
   if (bh >= p.bh) return;                        // whole CTA: no barrier hit
   const int64_t b = bh / p.heads;
@@ -255,9 +482,6 @@ flash_attention_bwd_dkv_kernel(BwdParams p) {
   const float* lse = p.lse + bh * p.s_q;
   const float* delta = p.delta + bh * p.s_q;
 
-  stage_rows<T, DP, BK>(Ks, k, p.k_ss, n0, p.s_kv, p.d);
-  stage_rows<T, DP, BK>(Vs, v, p.v_ss, n0, p.s_kv, p.d);
-
   // query i may attend key j when j <= i + offset (bottom-right causal):
   // the first query tile that can reach this key tile
   const int64_t offset = p.s_kv - p.s_q;
@@ -266,170 +490,253 @@ flash_attention_bwd_dkv_kernel(BwdParams p) {
     q_begin = n0 - offset;
     if (q_begin < 0) q_begin = 0;
   }
-  const int64_t t_begin = q_begin / kBQ;
-  const int64_t t_end = (p.s_q + kBQ - 1) / kBQ;
+  const int64_t t_begin = q_begin / BQ;
+  const int64_t t_end = (p.s_q + BQ - 1) / BQ;
+  const int64_t nt = t_end > t_begin ? t_end - t_begin : 0;
 
-  float dk[RK][DP / 16], dv[RK][DP / 16];
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c) {
-      dk[i][c] = 0.0f;
-      dv[i][c] = 0.0f;
-    }
-  }
+  auto issue = [&](int64_t tile, int st) {
+    const int64_t m0 = tile * BQ;
+    issue_rows<T, DP, BQ, NT>(Qs + st * BQ * RT, q, p.q_ss, m0, p.s_q, p.d,
+                              p.width);
+    issue_rows<T, DP, BQ, NT>(dOs + st * BQ * RT, dout, p.do_ss, m0, p.s_q,
+                              p.d, p.width);
+    issue_stats<BQ>(lse_s + st * BQ, delta_s + st * BQ, lse, delta, m0,
+                    p.s_q);
+  };
+  if (nt > 0) issue(t_begin, 0);
+  cp_async_commit();
+  stage_split<T, DP, BK, NT>(Kh, Kl, k, p.k_ss, n0, p.s_kv, p.d);
+  stage_split<T, DP, BK, NT>(Vh, Vl, v, p.v_ss, n0, p.s_kv, p.d);
 
-  for (int64_t t = t_begin; t < t_end; ++t) {
-    const int64_t m0 = t * kBQ;
-    __syncthreads();              // the last tile's Qs, dOs, Ps, dSs are read
-    stage_rows<T, DP, kBQ>(Qs, q, p.q_ss, m0, p.s_q, p.d);
-    stage_rows<T, DP, kBQ>(dOs, dout, p.do_ss, m0, p.s_q, p.d);
-    if (tid < kBQ) {
-      const int64_t row = m0 + tid;
-      lse_s[tid] = row < p.s_q ? lse[row] : 0.0f;
-      delta_s[tid] = row < p.s_q ? delta[row] : 0.0f;
-    }
-    __syncthreads();
+  float dk[MT * N2][4], dv[MT * N2][4], part[MT * N2][4];
+  zero(dk);
+  zero(dv);
+  zero(part);
 
-    // keys ty + 16 i against queries tx + 16 j
-    float s[RK][4], dp[RK][4];
-    rows_dot<DP, RK, 4>(s, Ks, Qs, ty, tx);
-    rows_dot<DP, RK, 4>(dp, Vs, dOs, ty, tx);
+  for (int64_t it = 0; it < nt; ++it) {
+    const int st = static_cast<int>(it & 1);
+    cp_async_wait<0>();               // tile `it` has landed
+    __syncthreads();                  // ... for every thread; tile it - 1,
+                                      // its stage and p, ds are free
+    if (it + 1 < nt) issue(t_begin + it + 1, st ^ 1);
+    cp_async_commit();
+    const T* Qt = Qs + st * BQ * RT;
+    const T* dOt = dOs + st * BQ * RT;
+    const float* lse_t = lse_s + st * BQ;
+    const float* delta_t = delta_s + st * BQ;
+    const int64_t m0 = (t_begin + it) * BQ;
+    // masks in tile coordinates: key r, query c of the tile
+    const int lim_k = static_cast<int>(p.s_kv - n0 < BK ? p.s_kv - n0 : BK);
+    const int lim_q = static_cast<int>(p.s_q - m0 < BQ ? p.s_q - m0 : BQ);
+    const int64_t dg = m0 + offset - n0;      // allowed when r - c <= dg
+    const int diag = static_cast<int>(dg > BK ? BK : (dg < -BQ ? -BQ : dg));
+
+    // (1) s^T = K q^T and dp^T = V dout^T: keys r0.., queries qofs..
+    float s[MT * N1][4], dp[MT * N1][4];
+    zero(s);
+    zero(dp);
+    product_over_d<T, DP, MT, N1, RS, RT>(s, Kh, Kl, Qt, r0, qofs, g, t);
+    product_over_d<T, DP, MT, N1, RS, RT>(dp, Vh, Vl, dOt, r0, qofs, g, t);
+    // p and ds in place of s and dp
 #pragma unroll
-    for (int i = 0; i < RK; ++i) {
-      const int64_t key = n0 + ty + 16 * i;
+    for (int i = 0; i < MT * N1; ++i) {
+      const int c = qofs + 8 * (i % N1) + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = tx + 16 * j;
-        const int64_t row = m0 + qi;
-        bool ok = key < p.s_kv && row < p.s_q;
-        if (CAUSAL) ok = ok && key <= row + offset;
-        const float pr = ok ? expf(s[i][j] * p.scale - lse_s[qi]) : 0.0f;
-        Ps[(ty + 16 * i) * kPadP + qi] = pr;
-        dSs[(ty + 16 * i) * kPadP + qi] = pr * (dp[i][j] - delta_s[qi]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 16 * (i / N1) + g + 8 * hh;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bool ok = r < lim_k && c + e < lim_q;
+          if (CAUSAL) ok = ok && r - (c + e) <= diag;
+          const float pr =
+              ok ? expf(s[i][2 * hh + e] * p.scale - lse_t[c + e]) : 0.0f;
+          s[i][2 * hh + e] = pr;
+          dp[i][2 * hh + e] = pr * (dp[i][2 * hh + e] - delta_t[c + e]);
+        }
+        if constexpr (!C::kRegP) {
+          *reinterpret_cast<float2*>(Ps + r * SS + c) =
+              make_float2(s[i][2 * hh], s[i][2 * hh + 1]);
+          *reinterpret_cast<float2*>(dSs + r * SS + c) =
+              make_float2(dp[i][2 * hh], dp[i][2 * hh + 1]);
+        }
       }
     }
-    __syncthreads();
 
-    accum_rows<DP, RK, kBQ, kPadP>(dv, Ps, dOs, ty, tx);
-    accum_rows<DP, RK, kBQ, kPadP>(dk, dSs, Qs, ty, tx);
+    // (2) dv += p^T dout and dk += ds^T q over the tile's query rows
+    if constexpr (C::kRegP) {
+      product_over_regs<T, N2, BQ, RT>(dv, part, s, dOt, dofs, g, t);
+      product_over_regs<T, N2, BQ, RT>(dk, part, dp, Qt, dofs, g, t);
+    } else {
+      __syncthreads();                // p and ds of every warp are stored
+      product_over_rows<T, MT, N2, BQ, SS, RT>(dv, part, Ps, dOt, r0, dofs,
+                                               g, t);
+      product_over_rows<T, MT, N2, BQ, SS, RT>(dk, part, dSs, Qt, r0, dofs,
+                                               g, t);
+    }
   }
 
   T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
   T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  store_rows<T, DP, RK>(dkp, p.dk_ss, n0, p.s_kv, p.d, dk, p.scale, ty, tx);
-  store_rows<T, DP, RK>(dvp, p.dv_ss, n0, p.s_kv, p.d, dv, 1.0f, ty, tx);
+  store_acc<T, N2>(dkp, p.dk_ss, n0 + r0, p.s_kv, p.d, dofs, dk, p.scale, g,
+                   t);
+  store_acc<T, N2>(dvp, p.dv_ss, n0 + r0, p.s_kv, p.d, dofs, dv, 1.0f, g, t);
 }
 
 template <typename T, int DP, bool CAUSAL>
-__global__ void __launch_bounds__(kThreadsBwd)
+__global__ void __launch_bounds__(Tiles<DP>::kThreads, 1)
 flash_attention_bwd_dq_kernel(BwdParams p) {
-  constexpr int BK = key_tile<DP>();
-  constexpr int RK = BK / 16;     // keys per thread
-  constexpr int RS = DP + 4;
-  constexpr int SS = BK + 16;     // row stride of ds
+  using C = Tiles<DP>;
+  constexpr bool EXACT = sizeof(T) < 4;
+  constexpr int BQ = C::kRes;        // query rows of the CTA
+  constexpr int BK = C::kStream;     // keys per tile
+  constexpr int MT = C::kMT;
+  constexpr int N1 = C::kN1;
+  constexpr int N2 = C::kN2;
+  constexpr int NT = C::kThreads;
+  constexpr int RS = C::kRS;
+  constexpr int SS = C::kSS;
+  constexpr int RT = stream_stride<T, DP>();
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][RS]
-  float* dOs = Qs + kBQ * RS;                    // [kBQ][RS]
-  float* Ks = dOs + kBQ * RS;                    // [BK][RS]
-  float* Vs = Ks + BK * RS;                      // [BK][RS]
-  float* dSs = Vs + BK * RS;                     // [kBQ][SS]
+  T* Ks = reinterpret_cast<T*>(smem4);                      // [2][BK][RT]
+  T* Vs = Ks + 2 * BK * RT;                                 // [2][BK][RT]
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(Vs + 2 * BK * RT);  // [BQ][RS]
+  uint32_t* dOh = Qh + BQ * RS;
+  uint32_t* Ql = dOh + BQ * RS;                             // fp32 only
+  uint32_t* dOl = Ql + (EXACT ? 0 : BQ * RS);
+  float* dSs = reinterpret_cast<float*>(dOl + (EXACT ? 0 : BQ * RS));
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int warp = tid >> 5;
+  const int r0 = 16 * MT * (warp / C::kWN);          // the warp's query rows
+  const int kofs = (warp % C::kWN) * (BK / C::kWN);  // its s, dp columns
+  const int dofs = (warp % C::kWN) * (DP / C::kWN);  // its dq columns
   const int64_t bh = bh_index();
   if (bh >= p.bh) return;                        // whole CTA: no barrier hit
   const int64_t b = bh / p.heads;
   const int64_t h = bh % p.heads;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kBQ;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BQ;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
-  stage_rows<T, DP, kBQ>(Qs, q, p.q_ss, m0, p.s_q, p.d);
-  stage_rows<T, DP, kBQ>(dOs, dout, p.do_ss, m0, p.s_q, p.d);
-  float lse_i[4], delta_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = m0 + ty + 16 * i;
-    lse_i[i] = row < p.s_q ? p.lse[bh * p.s_q + row] : 0.0f;
-    delta_i[i] = row < p.s_q ? p.delta[bh * p.s_q + row] : 0.0f;
-  }
-
   // key j is allowed for query i when j <= i + offset (bottom-right causal)
   const int64_t offset = p.s_kv - p.s_q;
   int64_t kv_end = p.s_kv;
   if (CAUSAL) {
-    const int64_t last_row = (m0 + kBQ < p.s_q ? m0 + kBQ : p.s_q) - 1;
+    const int64_t last_row = (m0 + BQ < p.s_q ? m0 + BQ : p.s_q) - 1;
     const int64_t limit = last_row + offset + 1;
     kv_end = limit < kv_end ? limit : kv_end;
   }
-  const int64_t n_tiles = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  const int64_t nt = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
 
-  float acc[4][DP / 16];
+  auto issue = [&](int64_t tile, int st) {
+    const int64_t n0 = tile * BK;
+    issue_rows<T, DP, BK, NT>(Ks + st * BK * RT, k, p.k_ss, n0, p.s_kv, p.d,
+                              p.width);
+    issue_rows<T, DP, BK, NT>(Vs + st * BK * RT, v, p.v_ss, n0, p.s_kv, p.d,
+                              p.width);
+  };
+  if (nt > 0) issue(0, 0);
+  cp_async_commit();
+  stage_split<T, DP, BQ, NT>(Qh, Ql, q, p.q_ss, m0, p.s_q, p.d);
+  stage_split<T, DP, BQ, NT>(dOh, dOl, dout, p.do_ss, m0, p.s_q, p.d);
+  float lse_r[MT][2], delta_r[MT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int c = 0; c < DP / 16; ++c) acc[i][c] = 0.0f;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t row = m0 + r0 + 16 * m + g + 8 * hh;
+      lse_r[m][hh] = row < p.s_q ? p.lse[bh * p.s_q + row] : 0.0f;
+      delta_r[m][hh] = row < p.s_q ? p.delta[bh * p.s_q + row] : 0.0f;
+    }
   }
 
-  for (int64_t t = 0; t < n_tiles; ++t) {
-    const int64_t n0 = t * BK;
-    __syncthreads();              // the last tile's Ks, Vs and dSs are read
-    stage_rows<T, DP, BK>(Ks, k, p.k_ss, n0, p.s_kv, p.d);
-    stage_rows<T, DP, BK>(Vs, v, p.v_ss, n0, p.s_kv, p.d);
-    __syncthreads();
+  float acc[MT * N2][4], part[MT * N2][4];
+  zero(acc);
+  zero(part);
 
-    // queries ty + 16 i against keys tx + 16 j
-    float s[4][RK], dp[4][RK];
-    rows_dot<DP, 4, RK>(s, Qs, Ks, ty, tx);
-    rows_dot<DP, 4, RK>(dp, dOs, Vs, ty, tx);
+  for (int64_t it = 0; it < nt; ++it) {
+    const int st = static_cast<int>(it & 1);
+    cp_async_wait<0>();               // tile `it` has landed
+    __syncthreads();                  // ... for every thread; tile it - 1,
+                                      // its stage and ds are free
+    if (it + 1 < nt) issue(it + 1, st ^ 1);
+    cp_async_commit();
+    const T* Kt = Ks + st * BK * RT;
+    const T* Vt = Vs + st * BK * RT;
+    const int64_t n0 = it * BK;
+    // masks in tile coordinates: query r, key c of the tile
+    const int lim_k = static_cast<int>(p.s_kv - n0 < BK ? p.s_kv - n0 : BK);
+    const int lim_q = static_cast<int>(p.s_q - m0 < BQ ? p.s_q - m0 : BQ);
+    const int64_t dg = m0 + offset - n0;      // allowed when c - r <= dg
+    const int diag = static_cast<int>(dg > BK ? BK : (dg < -BQ ? -BQ : dg));
+
+    // (1) s = q K^T and dp = dout V^T: queries r0.., keys kofs..
+    float s[MT * N1][4], dp[MT * N1][4];
+    zero(s);
+    zero(dp);
+    product_over_d<T, DP, MT, N1, RS, RT>(s, Qh, Ql, Kt, r0, kofs, g, t);
+    product_over_d<T, DP, MT, N1, RS, RT>(dp, dOh, dOl, Vt, r0, kofs, g, t);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t row = m0 + ty + 16 * i;
+    for (int i = 0; i < MT * N1; ++i) {
+      const int c = kofs + 8 * (i % N1) + 2 * t;
+      const int m = i / N1;
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kj = tx + 16 * j;
-        const int64_t key = n0 + kj;
-        bool ok = key < p.s_kv && row < p.s_q;
-        if (CAUSAL) ok = ok && key <= row + offset;
-        const float pr = ok ? expf(s[i][j] * p.scale - lse_i[i]) : 0.0f;
-        dSs[(ty + 16 * i) * SS + kj] = pr * (dp[i][j] - delta_i[i]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 16 * m + g + 8 * hh;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bool ok = c + e < lim_k && r < lim_q;
+          if (CAUSAL) ok = ok && (c + e) - r <= diag;
+          const float pr =
+              ok ? expf(s[i][2 * hh + e] * p.scale - lse_r[m][hh]) : 0.0f;
+          dp[i][2 * hh + e] = pr * (dp[i][2 * hh + e] - delta_r[m][hh]);
+        }
+        if constexpr (!C::kRegP) {
+          *reinterpret_cast<float2*>(dSs + r * SS + c) =
+              make_float2(dp[i][2 * hh], dp[i][2 * hh + 1]);
+        }
       }
     }
-    __syncthreads();
 
-    accum_rows<DP, 4, BK, SS>(acc, dSs, Ks, ty, tx);
+    // (2) dq += ds K over the tile's keys
+    if constexpr (C::kRegP) {
+      product_over_regs<T, N2, BK, RT>(acc, part, dp, Kt, dofs, g, t);
+    } else {
+      __syncthreads();                // ds of every warp is stored
+      product_over_rows<T, MT, N2, BK, SS, RT>(acc, part, dSs, Kt, r0, dofs,
+                                               g, t);
+    }
   }
 
   T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows<T, DP, 4>(dqp, p.dq_ss, m0, p.s_q, p.d, acc, p.scale, ty, tx);
+  store_acc<T, N2>(dqp, p.dq_ss, m0 + r0, p.s_q, p.d, dofs, acc, p.scale, g,
+                   t);
 }
-
-enum Which { DKV = 0, DQ = 1 };
 
 template <typename T, int DP, bool CAUSAL, int WHICH>
 cudaError_t launch_kernel(const BwdParams& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (WHICH == DKV ? dkv_smem_floats<DP>()
-                                                    : dq_smem_floats<DP>());
+  using C = Tiles<DP>;
+  constexpr size_t smem = smem_bytes<T, DP, WHICH>();
+  static_assert(smem <= kMaxSmem, "tiles exceed the shared memory of a CTA");
   auto kernel = WHICH == DKV ? flash_attention_bwd_dkv_kernel<T, DP, CAUSAL>
                              : flash_attention_bwd_dq_kernel<T, DP, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int64_t tile = WHICH == DKV ? key_tile<DP>() : kBQ;
   const int64_t len = WHICH == DKV ? p.s_kv : p.s_q;
-  const int64_t tiles = (len + tile - 1) / tile;
+  const int64_t tiles = (len + C::kRes - 1) / C::kRes;
   const int64_t max_y = 65535;
   const int64_t grid_y = p.bh < max_y ? p.bh : max_y;
   const int64_t grid_z = (p.bh + grid_y - 1) / grid_y;
   if (tiles > 0x7fffffffLL || grid_z > max_y) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(grid_y),
                   static_cast<unsigned>(grid_z));
-  kernel<<<grid, kThreadsBwd, smem, stream>>>(p);
+  kernel<<<grid, C::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -439,11 +746,55 @@ cudaError_t launch_causal(const BwdParams& p, bool causal, cudaStream_t s) {
                 : launch_kernel<T, DP, false, WHICH>(p, s);
 }
 
+// the widest cp.async (16, 8 or 4 bytes) that every row of the streamed
+// operands allows (q and dout in dkv, k and v in dq), 0 when none does
+template <typename T, int WHICH>
+int copy_width(const BwdParams& p) {
+  const int64_t es = static_cast<int64_t>(sizeof(T));
+  const void* a = WHICH == DKV ? p.q : p.k;
+  const void* b = WHICH == DKV ? p.dout : p.v;
+  const int64_t st[6] = {
+      WHICH == DKV ? p.q_sb : p.k_sb, WHICH == DKV ? p.q_ss : p.k_ss,
+      WHICH == DKV ? p.q_sh : p.k_sh, WHICH == DKV ? p.do_sb : p.v_sb,
+      WHICH == DKV ? p.do_ss : p.v_ss, WHICH == DKV ? p.do_sh : p.v_sh};
+  uint64_t bits = reinterpret_cast<uintptr_t>(a) |
+                  reinterpret_cast<uintptr_t>(b);
+  for (int64_t s : st) bits |= static_cast<uint64_t>(s * es);
+  for (int w = 16; w >= 4; w >>= 1) {
+    if ((bits & static_cast<uint64_t>(w - 1)) == 0) return w;
+  }
+  return 0;
+}
+
 template <typename T, int WHICH>
 cudaError_t launch_dim(const BwdParams& p, bool causal, cudaStream_t s) {
-  if (p.d <= 64) return launch_causal<T, 64, WHICH>(p, causal, s);
-  if (p.d <= 128) return launch_causal<T, 128, WHICH>(p, causal, s);
-  return launch_causal<T, 256, WHICH>(p, causal, s);
+  BwdParams pw = p;
+  pw.width = copy_width<T, WHICH>(p);
+  if (p.d <= 64) return launch_causal<T, 64, WHICH>(pw, causal, s);
+  if (p.d <= 128) return launch_causal<T, 128, WHICH>(pw, causal, s);
+  return launch_causal<T, 256, WHICH>(pw, causal, s);
+}
+
+template <typename T, int WHICH>
+long long smem_for(int d) {
+  if (d <= 64) return static_cast<long long>(smem_bytes<T, 64, WHICH>());
+  if (d <= 128) return static_cast<long long>(smem_bytes<T, 128, WHICH>());
+  return static_cast<long long>(smem_bytes<T, 256, WHICH>());
+}
+
+template <int WHICH>
+long long smem_of(int dtype, int d) {
+  if (d <= 0 || d > 256) return -1;
+  switch (dtype) {
+    case DT_F32:
+      return smem_for<float, WHICH>(d);
+    case DT_BF16:
+      return smem_for<__nv_bfloat16, WHICH>(d);
+    case DT_F16:
+      return smem_for<__half, WHICH>(d);
+    default:
+      return -1;
+  }
 }
 
 template <int WHICH>
@@ -479,7 +830,7 @@ BwdParams make_params(
                    s_q, s_kv, d,
                    st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                    st[8], st[9], st[10], st[11], st[12], st[13], st[14],
-                   st[15], st[16], st[17], st[18], st[19], st[20], scale};
+                   st[15], st[16], st[17], st[18], st[19], st[20], scale, 0};
 }
 
 }  // namespace
@@ -508,6 +859,13 @@ extern "C" int flash_attention_bwd_dq_launch(
                                   delta, batch, heads, s_q, s_kv, d, strides,
                                   scale);
   return launch<DQ>(p, causal, dtype, stream);
+}
+
+// dynamic shared memory of one CTA of the dK/dV (which 0) or dQ (which 1)
+// kernel for a dtype code and head dim, in bytes; -1 for one not taken
+extern "C" long long flash_attention_bwd_smem_bytes(int which, int dtype,
+                                                    int d) {
+  return which == DKV ? smem_of<DKV>(dtype, d) : smem_of<DQ>(dtype, d);
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {

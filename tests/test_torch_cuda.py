@@ -169,6 +169,10 @@ FLASH_CASES = [
     (2, 2, 300, 1030, 80, True, "bhsd"),
     (1, 2, 130, 257, 256, False, "bhsd"),
     (3, 1, 1100, 1100, 16, True, "3d"),
+    (2, 3, 1100, 1100, 40, False, "bhsd"),
+    (2, 3, 1100, 1100, 40, True, "bhsd"),
+    (1, 2, 1100, 1100, 100, False, "bhsd"),
+    (1, 2, 1100, 1100, 100, True, "bhsd"),
 ]
 
 

@@ -15,7 +15,15 @@ the registered tolerance of K3' is 2e-4), bfloat16 2e-2 (bf16 inputs and
 outputs on both sides, fp32 math inside). With one key (S_kv 1) dq and
 dk are zero analytically (a softmax over one key is constant) and both
 sides give the rounding noise of ``dp - delta``; there the scale is
-floored at 0.1 (1e-5 absolute in fp32)."""
+floored at 0.1 (1e-5 absolute in fp32).
+
+The card's backward kernels compute every product in 3xTF32 on the tensor
+cores: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
+nearest with ties away from zero (cvt.rna.tf32.f32), and a b = a_lo b_hi +
+a_hi b_lo + a_hi b_hi. No CPU here converts to TF32, so this file emulates
+the rounding on fp32 bits (``_tf32_bits``) and the product (``_mm_3xtf32``),
+holds the backward built from those products against ``jax.vjp``, and pins
+the split down on hand-picked values whose expected bits are written out."""
 import importlib
 
 import jax
@@ -225,3 +233,114 @@ def test_no_grad_wanted_saves_nothing():
     q.requires_grad_()
     out = fa.flash_attention(q, k, v, block_size=8)
     assert out.grad_fn is not None
+
+
+def _tf32_bits(x):
+    """cvt.rna.tf32.f32 on the bits of fp32 ``x`` (finite values): half a
+    unit of the 13 dropped mantissa bits added to the magnitude, then those
+    bits cleared; returns the uint32 bits."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32)
+
+
+def _split_tf32(x):
+    """(hi, lo) as fp32: hi = tf32(x), lo = tf32(x - hi)."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = _tf32_bits(x).view(np.float32)
+    return hi, _tf32_bits(x - hi).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b in 3xTF32 with fp32 sums: the lo terms summed on their own,
+    then added to hi @ hi (as the kernels' s and dp)."""
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    return a_hi @ b_hi + (a_lo @ b_hi + a_hi @ b_lo)
+
+
+def _bwd_3xtf32(q, k, v, out, lse, do, causal, scale):
+    """The kernels' backward on numpy fp32 [..., S, D] inputs, every
+    product emulated in 3xTF32: p from the forward's lse (masked pairs and
+    empty rows give 0), delta = sum(dout * out) in fp32."""
+    s_q, s_kv = q.shape[-2], k.shape[-2]
+    allowed = np.ones((s_q, s_kv), dtype=bool)
+    if causal:                          # bottom-right: j <= i + S_kv - S_q
+        allowed = (np.arange(s_kv)[None, :]
+                   <= np.arange(s_q)[:, None] + s_kv - s_q)
+    with np.errstate(over="ignore", invalid="ignore"):
+        s = _mm_3xtf32(q, np.swapaxes(k, -1, -2))
+        p = np.where(allowed, np.exp(s * np.float32(scale) - lse[..., None]),
+                     np.float32(0))
+    dp = _mm_3xtf32(do, np.swapaxes(v, -1, -2))
+    delta = np.sum(do * out, axis=-1, dtype=np.float32)
+    ds = (p * (dp - delta[..., None])).astype(np.float32)
+    dv = _mm_3xtf32(np.swapaxes(p, -1, -2), do)
+    dk = _mm_3xtf32(np.swapaxes(ds, -1, -2), q) * np.float32(scale)
+    dq = _mm_3xtf32(ds, k) * np.float32(scale)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("s_q,s_kv,causal", [(1100, 1100, False),
+                                             (1100, 300, True)])
+def test_3xtf32_backward_matches_jax_vjp(s_q, s_kv, causal, d):
+    """The backward with every product in emulated 3xTF32 (the card
+    kernels' arithmetic) against ``jax.vjp`` of ``_blockwise_impl``: S_q =
+    S_kv = 1100, and S_q > S_kv causal (rows with no allowed key), D 64
+    and D 40 (not a multiple of 8); fp32 tolerance."""
+    arrays = _arrays(s_q + 5 * s_kv + d, s_q, s_kv, lead=(1, 2), d=d)
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, causal=causal), arrays, "float32")
+    q, k, v, do = arrays
+    out, lse = fa.flash_attention_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        return_lse=True)
+    got = _bwd_3xtf32(q, k, v, out.numpy(), lse.numpy(), do, causal,
+                      fa.default_scale(d, torch.float32))
+    _check_grads([torch.from_numpy(np.ascontiguousarray(g)) for g in got],
+                 want, TOL["float32"])
+    if causal and s_q > s_kv:           # rows with no allowed key: zeros
+        assert not got[0][..., :s_q - s_kv, :].any()
+
+
+# (x, hi = tf32(x), lo = tf32(x - hi)) as fp32 bit patterns: 1; the tie
+# 1 + 2^-11 of both signs (away from zero); 1 + 2^-11 - 2^-23, just below
+# the tie, whose lo is itself a tie; bits on both sides of the half unit;
+# a carry into the exponent (just below 2); -pi; the smallest normal plus
+# one unit (lo a subnormal rounded to 0); 1e38; -1/3
+SPLIT_CASES = [
+    (0x3F800000, 0x3F800000, 0x00000000),
+    (0x3F801000, 0x3F802000, 0xBA000000),
+    (0xBF801000, 0xBF802000, 0x3A000000),
+    (0x3F800FFF, 0x3F800000, 0x3A000000),
+    (0x3FABCDEF, 0x3FABC000, 0x39DF0000),
+    (0x3FFFFFFF, 0x40000000, 0xB4000000),
+    (0xC0490FDB, 0xC0490000, 0xBA7DC000),
+    (0x00800001, 0x00800000, 0x00000000),
+    (0x7E967699, 0x7E968000, 0xF8968000),
+    (0xBEAAAAAB, 0xBEAAA000, 0xB8AAC000),
+]
+
+
+@pytest.mark.parametrize("x_bits,hi_bits,lo_bits", SPLIT_CASES)
+def test_tf32_split_bits(x_bits, hi_bits, lo_bits):
+    """The split the kernels' comment describes: hi has its low 13
+    mantissa bits zero and rounds to nearest with ties away from zero (as
+    cvt.rna does); lo = tf32(x - hi) has its low 13 bits zero too; and
+    |x - (hi + lo)| <= 2^-22 |x|."""
+    x = np.array([x_bits], dtype=np.uint32).view(np.float32)
+    hi, lo = _split_tf32(x)
+    got_hi, got_lo = int(hi.view(np.uint32)[0]), int(lo.view(np.uint32)[0])
+    assert (got_hi, got_lo) == (hi_bits, lo_bits), (hex(got_hi), hex(got_lo))
+    assert got_hi & 0x1FFF == 0 and got_lo & 0x1FFF == 0
+    x64 = float(x[0])
+    err = abs(x64 - (float(hi[0]) + float(lo[0])))
+    assert err <= 2.0 ** -22 * abs(x64)
+    # round to nearest: hi is one of the two tf32 neighbours of x, the
+    # nearer one, and at a tie the one farther from zero
+    down = x_bits & 0xFFFFE000
+    up = down + 0x2000
+    assert got_hi in (down, up)
+    dropped = x_bits & 0x1FFF
+    assert got_hi == (up if dropped >= 0x1000 else down)
+
