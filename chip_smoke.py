@@ -11,8 +11,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                (nvidia-smi) and switch TF32 off for matmul and cuDNN.
 2. build     — compile every CUDA kernel of the port from its source with
                nvcc for sm_90a, all sources at once; print the seconds and,
-               per instance of the backward kernels, ptxas's registers,
-               stack and spill bytes and the dynamic shared memory of a CTA.
+               per instance of the flash-attention kernels (the forward,
+               dK/dV and dQ), ptxas's registers, stack and spill bytes and
+               the dynamic shared memory of a CTA.
 3. kernel K1 — hold the conv-epilogue kernel against its plain PyTorch
                version on the card: ResNet-50 v1's own epilogue shapes at
                batch 8 and ragged ones; row, column and none modes; with
@@ -46,13 +47,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                on the card: the long-context slice's own call (q, k, v as
                strided views of a (4, 4096, 2304) fused QKV, 12 heads, D
                64), the contiguous [B, H, S, D] form, causal and not, S_q
-               != S_kv both ways (causal S_q > S_kv gives zero rows),
-               ragged S (1025, 1100, 1, 7), D 16, 64, 80, 128 and 256, 3-D
-               inputs, float32 and bfloat16; tolerance 1e-5 (fp32) and
-               1e-2 (bf16) of max |out|. Times of the slice's call (CUDA
-               events after warm-up) for the kernel, the plain version and
-               torch's scaled_dot_product_attention (backend printed),
-               beside the operations bound at 67 TFLOP/s.
+               != S_kv both ways (causal S_q > S_kv gives zero rows, also
+               beside non-empty rows in one CTA), ragged S (1025, 1100, 1,
+               7; S_q 127, 128 and 129 against S_kv 1100, at the edge of a
+               128-row CTA), D 16, 40, 64, 80, 100, 128 and 256 (40 and
+               100 causal and not), 3-D inputs, float32 and bfloat16;
+               tolerance 1e-5 (fp32) and 1e-2 (bf16) of max |out|. Times
+               of the slice's call (CUDA events after warm-up) for the
+               kernel, the plain version and torch's
+               scaled_dot_product_attention (backend printed), beside two
+               operations bounds: fp32 on CUDA cores at 67 TFLOP/s, and
+               3xTF32 (three tf32 passes per product) at 495 TFLOP/s; the
+               achieved TFLOP/s of the two products and the kernel's share
+               of both bounds.
 8. serve     — full-width BERT-base at S 4096 (bert_12_768_12 without the
    long BERT   MLM decoder, max_length 4096, seeded as in phase 6) behind
                the Server on cuda:0, batch buckets 1/2/4, int32 ids. 8
@@ -190,46 +197,54 @@ def phase_build():
         f"{os.path.basename(_build.nvcc_path())} (sm_90a); kernels "
         f"compiled {len(regs)}, max registers {max(regs, default=0)}, "
         f"spill-store bytes {spills}")
-    bwd_ptxas_report(outputs.get("flash_attention_bwd", ""))
+    ptxas_report(outputs)
     return secs
 
 
-_BWD_KERNEL = re.compile(r"flash_attention_bwd_(dkv|dq)_kernelI"
-                         r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E")
-_BWD_DTYPES = {"f": ("float32", 0), "13__nv_bfloat16": ("bfloat16", 1),
-               "6__half": ("float16", 2)}
+_FA_KERNEL = re.compile(r"flash_attention_(bwd_dkv_|bwd_dq_|)kernelI"
+                        r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E")
+_FA_DTYPES = {"f": ("float32", 0), "13__nv_bfloat16": ("bfloat16", 1),
+              "6__half": ("float16", 2)}
 
 
-def bwd_ptxas_report(text):
-    """One line per instance of the backward kernels: ptxas's registers
-    and spill bytes, and the dynamic shared memory of one CTA from the
-    library's own size query."""
-    if not text:
-        log("ptxas: flash_attention_bwd was not rebuilt in this run")
-        return
+def ptxas_report(outputs):
+    """One line per instance of the flash-attention kernels (the forward,
+    dK/dV and dQ): ptxas's registers and spill bytes, and the dynamic
+    shared memory of one CTA from the libraries' own size queries."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
-    size = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
-    size.argtypes = [ctypes.c_int] * 3
-    size.restype = ctypes.c_longlong
-    found, current = {}, None
-    for line in text.splitlines():
-        m = _BWD_KERNEL.search(line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            current = m.groups()
-            found.setdefault(current, {})
-        elif current is None:
-            continue
-        elif "spill stores" in line:
-            found[current]["stack"] = int(line.split()[0])
-            found[current]["spills"] = int(
-                line.split("bytes spill stores")[0].split()[-1])
-        elif "Used" in line and "registers" in line:
-            found[current]["regs"] = int(line.split("Used")[1].split()[0])
+    fwd = _build.load("flash_attention").flash_attention_smem_bytes
+    fwd.argtypes = [ctypes.c_int] * 2
+    fwd.restype = ctypes.c_longlong
+    bwd = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    bwd.argtypes = [ctypes.c_int] * 3
+    bwd.restype = ctypes.c_longlong
+    found = {}
+    for source in ("flash_attention", "flash_attention_bwd"):
+        text = outputs.get(source, "")
+        if not text:
+            log(f"ptxas: {source} was not rebuilt in this run")
+        current = None
+        for line in text.splitlines():
+            m = _FA_KERNEL.search(line)
+            if m and ("Compiling entry" in line
+                      or "Function properties" in line):
+                current = m.groups()
+                found.setdefault(current, {})
+            elif current is None:
+                continue
+            elif "spill stores" in line:
+                found[current]["stack"] = int(line.split()[0])
+                found[current]["spills"] = int(
+                    line.split("bytes spill stores")[0].split()[-1])
+            elif "Used" in line and "registers" in line:
+                found[current]["regs"] = int(
+                    line.split("Used")[1].split()[0])
     for (which, dt, dp, causal), info in sorted(found.items()):
-        name, code = _BWD_DTYPES[dt]
-        smem = size(0 if which == "dkv" else 1, code, int(dp))
-        log(f"ptxas: flash_attention_bwd_{which}_kernel<{name}, D {dp}, "
+        name, code = _FA_DTYPES[dt]
+        smem = fwd(code, int(dp)) if not which else bwd(
+            0 if which == "bwd_dkv_" else 1, code, int(dp))
+        log(f"ptxas: flash_attention_{which}kernel<{name}, D {dp}, "
             f"causal {causal}>: {info.get('regs')} registers, "
             f"{info.get('stack')} bytes stack frame, {info.get('spills')} "
             f"spill-store bytes, {smem} bytes of "
@@ -837,7 +852,10 @@ def flash_cases():
     """(name, B, H, S_q, S_kv, D, causal, form). ``form`` "qkv" reads
     strided (B, S, H, D) views of one fused (B, S, 3HD) tensor, as
     fused_self_attention passes them; "bhsd" is contiguous [B, H, S, D];
-    "3d" is [B, S, D] (H = 1)."""
+    "3d" is [B, S, D] (H = 1). S_q 127, 128 and 129 sit at the edge of a
+    128-row CTA; S_q 300 against S_kv 200 under causal puts empty and
+    non-empty rows in one CTA; D 40 and 100 are not multiples of 8 (16-bit
+    rows of 80 and 200 bytes)."""
     return [
         ("slice", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64, False,
          "qkv"),
@@ -859,6 +877,17 @@ def flash_cases():
         ("d256", 1, 2, 130, 1100, 256, False, "bhsd"),
         ("3d_causal", 3, 1, 1100, 1100, 16, True, "3d"),
         ("3d_short_keys", 3, 1, 1025, 7, 64, False, "3d"),
+        ("d40", 2, 3, 1100, 1100, 40, False, "bhsd"),
+        ("d40_causal", 2, 3, 1100, 1100, 40, True, "bhsd"),
+        ("d100", 1, 2, 1100, 1100, 100, False, "bhsd"),
+        ("d100_causal", 1, 2, 1100, 1100, 100, True, "bhsd"),
+        ("q127", 1, 2, 127, 1100, 64, False, "bhsd"),
+        ("q127_causal", 1, 2, 127, 1100, 64, True, "bhsd"),
+        ("q128", 1, 2, 128, 1100, 64, False, "bhsd"),
+        ("q128_causal", 1, 2, 128, 1100, 64, True, "bhsd"),
+        ("q129", 1, 2, 129, 1100, 64, False, "bhsd"),
+        ("q129_causal", 1, 2, 129, 1100, 64, True, "bhsd"),
+        ("q_longer_straddle", 1, 2, 300, 200, 64, True, "bhsd"),
     ]
 
 
@@ -879,14 +908,24 @@ def flash_inputs(torch, case, dtype):
     return rnd(*lead, s_q, d), rnd(*lead, s_kv, d), rnd(*lead, s_kv, d)
 
 
-def k3_bound_ms(case, dtype_size):
-    """The larger of operations / fp32 rate (4 B H S_q S_kv D, half under
-    causal) and bytes / HBM rate (q, k, v read once, out written once),
-    in ms; returns (ms, "bytes" or "operations")."""
+def product_flops(case):
+    """Flops of one product of the forward or the backward: 2 B H S_q
+    S_kv D, half under causal."""
     _, b, h, s_q, s_kv, d, causal, _ = case
-    ops = 4 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
+    return 2 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
+
+
+def k3_bound_ms(case, dtype_size, tf32=False):
+    """The larger of operations / peak rate (two products, 4 B H S_q S_kv
+    D, half under causal) and bytes / HBM rate (q, k, v read once, out
+    written once), in ms. The rate is fp32 on CUDA cores (67 TFLOP/s), or
+    with ``tf32`` three tf32 passes per product (3xTF32) at 495 TFLOP/s.
+    Returns (ms, "bytes" or "operations")."""
+    _, b, h, s_q, s_kv, d, _, _ = case
+    ops = 2 * product_flops(case)
+    rate = TF32_OPS_PER_S / 3 if tf32 else FP32_OPS_PER_S
     by = dtype_size * b * h * d * (2 * s_q + 2 * s_kv)
-    ops_s, by_s = ops / FP32_OPS_PER_S, by / HBM_BYTES_PER_S
+    ops_s, by_s = ops / rate, by / HBM_BYTES_PER_S
     return (by_s * 1e3, "bytes") if by_s > ops_s else (ops_s * 1e3,
                                                        "operations")
 
@@ -962,12 +1001,16 @@ def run_case_k3(torch, fa, case, dtype, timed=False):
                 torch, qh, kh, vh)
     esize = torch.tensor([], dtype=dtype).element_size()
     res["bound_ms"], res["bound_by"] = k3_bound_ms(case, esize)
+    res["bound_ms_3xtf32"], res["bound_by_3xtf32"] = k3_bound_ms(
+        case, esize, tf32=True)
+    res["flops"] = 2 * product_flops(case)
     times = (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
              f"sdpa_ms={res['library_ms']:.4f}" if timed else "")
     log(f"  {name:18s} B={b} H={h} S_q={s_q} S_kv={s_kv} D={d} "
         f"causal={int(causal)} {form:4s} {str(dtype)[6:]:8s} "
         f"max_err={err:.3e} max|out|={scale:.3e} tol={tol:g} of max|out|"
         f"{times} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+        f"bound_3xtf32_ms={res['bound_ms_3xtf32']:.4f} "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"flash_attention disagrees with its plain version on {name} "
@@ -990,6 +1033,8 @@ def phase_kernel_k3(torch, fa):
     results = {"ms": n * timed["ms"], "plain_ms": n * timed["plain_ms"],
                "bound_ms": n * timed["bound_ms"],
                "bound_by": timed["bound_by"],
+               "bound_ms_3xtf32": n * timed["bound_ms_3xtf32"],
+               "bound_by_3xtf32": timed["bound_by_3xtf32"],
                "library_ms": n * timed["library_ms"],
                "library_kernel": timed["library_kernel"],
                "max_abs_err": errs[torch.float32],
@@ -1001,6 +1046,15 @@ def phase_kernel_k3(torch, fa):
         f"({results['bound_by']} at 67 TFLOP/s), scaled_dot_product_"
         f"attention {results['library_ms']:.3f} ms (its kernel: "
         f"{results['library_kernel'][:80]})")
+    results["bound_share"] = results["bound_ms"] / results["ms"]
+    results["bound_share_3xtf32"] = results["bound_ms_3xtf32"] / results["ms"]
+    log(f"kernel: the forward's 2 products ({n * timed['flops'] / 1e12:.3f} "
+        f"TFLOP) at {n * timed['flops'] / (results['ms'] * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s; 3xTF32 bound (3 tf32 passes per product at 495 TFLOP/s) "
+        f"{results['bound_ms_3xtf32']:.3f} ms ({results['bound_by_3xtf32']});"
+        f" share of the fp32 / 3xTF32 bound {results['bound_share']:.3f} / "
+        f"{results['bound_share_3xtf32']:.3f}; kernel / scaled_dot_product_"
+        f"attention {results['ms'] / results['library_ms']:.3f}")
     return results
 
 
@@ -1082,13 +1136,6 @@ def bwd_cases():
         ("d100", 1, 2, 1100, 1100, 100, False, "bhsd"),
         ("d100_causal", 1, 2, 1100, 1100, 100, True, "bhsd"),
     ]
-
-
-def product_flops(case):
-    """Flops of one product of the backward: 2 B H S_q S_kv D, half under
-    causal."""
-    _, b, h, s_q, s_kv, d, causal, _ = case
-    return 2 * b * h * s_q * s_kv * d * (0.5 if causal else 1.0)
 
 
 def k3_bwd_bound_ms(case, dtype_size, which, tf32=False):
@@ -1616,6 +1663,9 @@ def main():
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "status": "ok",
+        "bound_ms_3xtf32": k3["bound_ms_3xtf32"],
+        "bound_share": k3["bound_share"],
+        "bound_share_3xtf32": k3["bound_share_3xtf32"],
         "per": f"one BERT-base forward at batch {LONG_BATCH}, sequence "
                f"{LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} launches)",
         "library_covers": "torch.nn.functional.scaled_dot_product_attention"

@@ -1,7 +1,7 @@
 // Tensor-core building blocks for fp32-accurate products on Hopper (and
 // Ampere): the tf32 split, the m16n8k8 tf32 mma.sync, the 3xTF32 product
 // and cp.async copies into shared memory. Used by the flash-attention
-// backward (flash_attention_bwd.cu).
+// kernels through their tile helpers (flash_tiles.cuh).
 //
 // 3xTF32 ("fast fp32", as CUTLASS's mma_tensor_op_fast_f32.h): an fp32 x
 // is split into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest

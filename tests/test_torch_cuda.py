@@ -155,7 +155,9 @@ def test_matmul_epilogue_gradients_match_plain(cuda, act, p):
 
 # (B, H, S_q, S_kv, D, causal, form): "qkv" reads strided (B, S, H, D)
 # views of one fused (B, S, 3HD) tensor, "bhsd" contiguous [B, H, S, D],
-# "3d" [B, S, D]
+# "3d" [B, S, D]. S_q 127, 128 and 129 sit at the edge of the forward's
+# 128-row CTA; S_q 300 against S_kv 200 under causal puts empty and
+# non-empty rows in one CTA.
 FLASH_CASES = [
     (4, 12, 4096, 4096, 64, False, "qkv"),
     (2, 3, 1100, 1100, 64, False, "bhsd"),
@@ -173,6 +175,10 @@ FLASH_CASES = [
     (2, 3, 1100, 1100, 40, True, "bhsd"),
     (1, 2, 1100, 1100, 100, False, "bhsd"),
     (1, 2, 1100, 1100, 100, True, "bhsd"),
+    (1, 2, 127, 1100, 64, True, "bhsd"),
+    (1, 2, 128, 1100, 64, False, "bhsd"),
+    (1, 2, 129, 1100, 64, True, "bhsd"),
+    (1, 2, 300, 200, 64, True, "bhsd"),
 ]
 
 
@@ -194,7 +200,8 @@ def flash_inputs(case, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
+                                       (torch.bfloat16, 1e-2),
+                                       (torch.float16, 1e-2)])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
     q, k, v = flash_inputs(case, dtype, cuda)
@@ -320,3 +327,31 @@ def test_flash_attention_forward_writes_lse_only_for_a_gradient(cuda):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     _, none = fa._attend(q, k, v, True, 0.125, 512, False, False)
     assert none is None
+
+
+@pytest.mark.parametrize("case", [
+    (1, 2, 300, 1100, 64, True, "bhsd"),
+    (1, 2, 129, 1100, 64, False, "bhsd"),
+    (1, 2, 300, 200, 64, True, "bhsd"),
+    (1, 2, 129, 1100, 128, True, "bhsd"),
+    (1, 2, 200, 130, 256, True, "bhsd"),
+])
+def test_flash_attention_forward_lse_matches_plain(cuda, case):
+    """The forward's fp32 row log-sum-exp against the plain version's
+    ``return_lse=True``: within 1e-5 of max |lse| on the rows with an
+    allowed key, +inf on exactly the rows without one. D 128 and 256 split
+    a row's keys across warps (the row max and sum are combined through
+    shared memory)."""
+    q, k, v = flash_inputs(case, torch.float32, cuda)
+    causal = case[5]
+    _, want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+    _, lse = fa._attend(q, k, v, causal, fa.default_scale(case[4], q.dtype),
+                        512, True, False)
+    torch.cuda.synchronize()
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    finite = torch.isfinite(want)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert bool((lse[~finite] == torch.inf).all())
+    err = (lse[finite] - want[finite]).abs().max().item()
+    assert err <= 1e-5 * want[finite].abs().max().item(), err

@@ -17,13 +17,15 @@ dk are zero analytically (a softmax over one key is constant) and both
 sides give the rounding noise of ``dp - delta``; there the scale is
 floored at 0.1 (1e-5 absolute in fp32).
 
-The card's backward kernels compute every product in 3xTF32 on the tensor
-cores: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
-nearest with ties away from zero (cvt.rna.tf32.f32), and a b = a_lo b_hi +
-a_hi b_lo + a_hi b_hi. No CPU here converts to TF32, so this file emulates
-the rounding on fp32 bits (``_tf32_bits``) and the product (``_mm_3xtf32``),
-holds the backward built from those products against ``jax.vjp``, and pins
-the split down on hand-picked values whose expected bits are written out."""
+The card's kernels, forward and backward, compute every product in 3xTF32
+on the tensor cores: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi),
+both rounded to nearest with ties away from zero (cvt.rna.tf32.f32), and
+a b = a_lo b_hi + a_hi b_lo + a_hi b_hi. No CPU here converts to TF32, so
+this file emulates the rounding on fp32 bits (``_tf32_bits``) and the
+product (``_mm_3xtf32``), holds the backward built from those products
+against ``jax.vjp`` and the forward built from them (64-key tiles, as the
+card streams them) against ``_blockwise_impl``, and pins the split down on
+hand-picked values whose expected bits are written out."""
 import importlib
 
 import jax
@@ -301,6 +303,54 @@ def test_3xtf32_backward_matches_jax_vjp(s_q, s_kv, causal, d):
                  want, TOL["float32"])
     if causal and s_q > s_kv:           # rows with no allowed key: zeros
         assert not got[0][..., :s_q - s_kv, :].any()
+
+
+def _fwd_3xtf32(q, k, v, causal, scale, tile=64):
+    """The forward kernel's arithmetic on numpy fp32 [..., S, D] inputs:
+    per tile of ``tile`` keys, s = q k^T in 3xTF32, scaled and masked to
+    -1e30, the online softmax update with exact exp, p v in 3xTF32 added to
+    o * alpha; out = o / l, rows with no allowed key zeros."""
+    s_q, s_kv = q.shape[-2], k.shape[-2]
+    neg = np.float32(-1e30)
+    m = np.full(q.shape[:-1], neg, dtype=np.float32)
+    l = np.zeros(q.shape[:-1], dtype=np.float32)
+    o = np.zeros(q.shape, dtype=np.float32)
+    rows = np.arange(s_q)[:, None]
+    for n0 in range(0, s_kv, tile):
+        kt, vt = k[..., n0:n0 + tile, :], v[..., n0:n0 + tile, :]
+        s = _mm_3xtf32(q, np.swapaxes(kt, -1, -2)) * np.float32(scale)
+        if causal:                      # bottom-right: j <= i + S_kv - S_q
+            keys = n0 + np.arange(kt.shape[-2])[None, :]
+            s = np.where(keys <= rows + s_kv - s_q, s, neg)
+        m_new = np.maximum(m, s.max(axis=-1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(axis=-1, dtype=np.float32)
+        o = o * alpha[..., None] + _mm_3xtf32(p, vt)
+        m = m_new
+    out = o / l[..., None]
+    if causal and s_q > s_kv:
+        out[..., :s_q - s_kv, :] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("s_q,s_kv,causal", [(1100, 1100, False),
+                                             (300, 1100, True),
+                                             (1100, 300, True)])
+def test_3xtf32_forward_matches_jax_blockwise(s_q, s_kv, causal, d):
+    """The forward with both products in emulated 3xTF32 over 64-key tiles
+    (the card kernel's arithmetic) against ``_blockwise_impl``: S_q = S_kv
+    = 1100, S_q < S_kv and S_q > S_kv causal (rows with no allowed key), D
+    64 and D 40 (not a multiple of 8); within 1e-5 of max |out|, the card
+    kernel's tolerance against its plain version."""
+    q, k, v, _ = _arrays(2 * s_q + s_kv + d, s_q, s_kv, lead=(1, 2), d=d)
+    want = np.asarray(jra._blockwise_impl(*_jax((q, k, v), "float32"),
+                                          causal=causal))
+    got = _fwd_3xtf32(q, k, v, causal, fa.default_scale(d, torch.float32))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-5 * float(np.abs(want).max()), err
 
 
 # (x, hi = tf32(x), lo = tf32(x - hi)) as fp32 bit patterns: 1; the tie
