@@ -107,9 +107,34 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                and the gradients of word_embed, the first and last
                cell's qkv and ffn_1 weights and the decoder's last Dense
                within 1e-3 of each one's max |value|.
+12. kernel K1 — the conv epilogue under autograd at ResNet-50's own
+    training   epilogue shapes at batch 128 (BatchNorm + relu in row mode
+               with and without a residual, the residual-only form, one
+               gelu case), float32 and bfloat16: the kernel-backed
+               Function's output (bit-equal in float32) and its gradients
+               dy, dscale, dbias, dres against the plain version's
+               autograd (1e-5 of max |grad| in float32, 1e-2 in
+               bfloat16); the forward + backward time of the 48
+               epilogues of one training step beside its bytes bound.
+13. train     — full-width ResNet-50 v1 (224x224x3, 1000 classes, Xavier
+    ResNet      weights from SEED) at batch 128, fp32, TF32 off, through
+               record -> SoftmaxCrossEntropyLoss -> autograd.backward ->
+               Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4).step(128) on
+               examples/train_imagenet.py's synthetic batch
+               (RandomState(0): randn images, randint labels): 6 steps,
+               the first a warm-up. Per step K1 must run 48 times and
+               every other kernel 0; the losses must be finite and fall.
+               Step time, images/s, peak memory, one profiled step's busy
+               share and top kernels (K1's forward, the cuDNN
+               convolutions), the step's fp32 FLOP (convolutions and
+               Dense from their shapes, forward x 3) and its share of
+               the 67 TFLOP/s peak. Gate: one batch-1 step from the same
+               weights and running statistics on the card and on the
+               CPU; the loss, five gradients and two BatchNorms' running
+               mean and var within 1e-3 of each one's max |value|.
 
 Each serve phase sets the launch counts to 0 just before its burst and
-reads them just after, and the training phase just before its steps.
+reads them just after, and each training phase just before its steps.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, the script exits non-zero and prints no
@@ -1460,13 +1485,13 @@ def profile_step(torch, step, wall_ms):
     if device_ms <= 0:
         log("profile: device time not measured (the profiler saw no "
             "kernels)")
-        return None
+        return None, {}
     log(f"profile: one training step: kernels {device_ms:.3f} ms on the "
         f"device ({sum(c for c, _ in dev.values()):.0f} launches), busy "
         f"{device_ms / wall_ms:.3f} of the median step's {wall_ms:.3f} ms")
     for key, (calls, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"  {ms:9.4f} ms {calls:5.0f}x  {key[:90]}")
-    return device_ms
+    return device_ms, dev
 
 
 def phase_train_long_bert(torch, mx, card, ctx):
@@ -1527,7 +1552,7 @@ def phase_train_long_bert(torch, mx, card, ctx):
     log(f"train: launches in {TRAIN_STEPS} steps: {counted}")
     log(f"train: peak device memory {peak / 2**30:.3f} GiB "
         f"({peak / 2**20:.1f} MiB) over the {TRAIN_STEPS} steps")
-    device_ms = profile_step(torch, step, step_ms)
+    device_ms, _ = profile_step(torch, step, step_ms)
 
     # the gate: one batch-1 step on the card and on the CPU (plain
     # versions) from the same weights with the same dropout bits
@@ -1556,7 +1581,17 @@ def phase_train_long_bert(torch, mx, card, ctx):
     cpu_params = cpu_net.collect_params()
     ref = {k: cpu_params[k].grad.numpy() for k in GATE_PARAMS}
     ref["loss"] = cpu_loss.detach().numpy()
-    worst = 0.0
+    worst = gate(card, ref)
+    return {"launches": launches, "step_ms": step_ms, "losses": losses,
+            "peak_bytes": peak, "device_ms": device_ms, "gate_rel": worst}
+
+
+def gate(card, ref):
+    """Fail unless each quantity of ``card`` is finite and within
+    GATE_RTOL of max |value| of the same one in ``ref`` (the CPU's);
+    returns the worst relative error."""
+    import numpy as np
+    worst, bad = 0.0, []
     for name, want in ref.items():
         got = card[name]
         scale = float(np.abs(want).max())
@@ -1566,10 +1601,359 @@ def phase_train_long_bert(torch, mx, card, ctx):
         log(f"train: gate {name}: max abs err {err:.6e}, max |value| "
             f"{scale:.6e}, relative {rel:.3e} (tolerance {GATE_RTOL:g})")
         if not (np.isfinite(got).all() and rel <= GATE_RTOL):
-            fail(f"training step on the card differs from the CPU in "
-                 f"{name}: {rel} > {GATE_RTOL} of max |value|")
+            bad.append(f"{name}: {rel}")
+    if bad:
+        fail(f"training step on the card differs from the CPU by more than "
+             f"{GATE_RTOL} of max |value| in {bad}")
+    return worst
+
+
+# -- phase 12: kernel K1 training --------------------------------------------
+RN_BATCH = 128                       # GluonCV's per-device ResNet-50 batch
+RN_SIZE = 224
+RN_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+RN_GATE_PARAMS = ("features.0.weight", "features.4.0.body.0.weight",
+                  "features.4.0.body.1.gamma", "features.7.2.body.4.weight",
+                  "output.weight")
+RN_GATE_STATS = ("features.1.running_mean", "features.1.running_var",
+                 "features.7.2.body.5.running_mean",
+                 "features.7.2.body.5.running_var")
+K1_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of max |grad|
+
+
+def k1_train_bytes(shape, vectors, with_res, dtype_size=4):
+    """Bytes of one epilogue's forward and backward, each input read once
+    and each output written once: forward y [, res], scale, bias -> out;
+    backward g, y [, res], scale, bias -> dy [, dres], dscale, dbias."""
+    n = math.prod(shape)
+    vec = 2 * shape[1] if vectors else 0
+    r = int(with_res)
+    return dtype_size * (n * (2 + r) + vec + n * (3 + 2 * r) + 2 * vec)
+
+
+def k1_leaves(torch, shape, vectors, with_res, dtype, gen):
+    """Seeded (y, scale, bias, res, g) on the card; None where absent."""
+    dev = torch.device("cuda", 0)
+    c = shape[1]
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
+
+    scale = (torch.rand(c, generator=gen, device=dev) + 0.5).to(dtype) \
+        if vectors else None
+    return (rnd(*shape), scale, rnd(c, scale=0.1) if vectors else None,
+            rnd(*shape) if with_res else None, rnd(*shape))
+
+
+def k1_fwd_bwd(torch, fn, inputs, act):
+    """``fn``'s output and the gradients of the inputs given, on fresh
+    leaves of ``inputs`` = (y, scale, bias, res, g)."""
+    *args, g = inputs
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in args]
+    out = fn(*leaves, channel_axis=1, act_type=act)
+    return out.detach(), torch.autograd.grad(
+        out, [t for t in leaves if t is not None], g)
+
+
+def phase_kernel_k1_train(torch, ce):
+    """K1 under autograd at ResNet-50's epilogue shapes at batch RN_BATCH:
+    the kernel-backed Function against the plain version's autograd
+    (output bit-equal in float32, gradients within K1_GRAD_TOL of max
+    |grad|), then forward + backward timed per training step."""
+    log("kernel: conv_epilogue under autograd vs the plain version on "
+        "the card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    calls = resnet50_epilogues(RN_BATCH)
+    bn = sorted({shape for _, shape, v, _ in calls if v})
+    res = sorted({shape for _, shape, v, _ in calls if not v})
+    cases = [(shape, True, False, "relu") for shape in bn] \
+        + [(shape, True, True, "relu") for shape in bn] \
+        + [(shape, False, True, "relu") for shape in res] \
+        + [(bn[0], True, False, "gelu")]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        tol = K1_GRAD_TOL[name]
+        for shape, vectors, with_res, act in cases:
+            inputs = k1_leaves(torch, shape, vectors, with_res, dtype, gen)
+            kernels_before = ce.launch_count.value
+            got, got_g = k1_fwd_bwd(torch, ce.fused_conv_epilogue, inputs,
+                                    act)
+            if ce.launch_count.value != kernels_before + 1:
+                fail("conv_epilogue under autograd did not launch its "
+                     "kernel exactly once")
+            want, want_g = k1_fwd_bwd(torch, ce.fused_conv_epilogue_plain,
+                                      inputs, act)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            names = [n for n, t in zip(("dy", "dscale", "dbias", "dres"),
+                                       inputs[:4]) if t is not None]
+            rel = {n: float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+                   for n, a, b in zip(names, got_g, want_g)}
+            worst[name] = max(worst[name], *rel.values())
+            log(f"  {str(shape):22s} vectors={int(vectors)} "
+                f"res={int(with_res)} {act:5s} {name:8s} out max_err "
+                f"{err:.3e}; gradients, max err of max |grad|: "
+                + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+                + f" (tolerance {tol:g})")
+            if (dtype == torch.float32 and err != 0.0) or any(
+                    r > tol for r in rel.values()):
+                fail(f"conv_epilogue under autograd differs from the plain "
+                     f"version at {shape} {act} {name}: out {err}, "
+                     f"gradients {rel}")
+            del inputs, got, got_g, want, want_g
+    # forward + backward of the 48 epilogues of one training step, fp32
+    torch.cuda.empty_cache()
+    per_shape = {}
+    for _, shape, vectors, with_res in calls:
+        key = (shape, vectors, with_res)
+        if key in per_shape:
+            continue
+        inputs = k1_leaves(torch, shape, vectors, with_res, torch.float32,
+                           gen)
+        per_shape[key] = [event_ms(torch, lambda fn=fn: k1_fwd_bwd(
+            torch, fn, inputs, "relu"), 10)
+            for fn in (ce.fused_conv_epilogue, ce.fused_conv_epilogue_plain)]
+        del inputs
+    ms = sum(per_shape[(s, v, r)][0] for _, s, v, r in calls)
+    plain_ms = sum(per_shape[(s, v, r)][1] for _, s, v, r in calls)
+    total_bytes = sum(k1_train_bytes(s, v, r) for _, s, v, r in calls)
+    bound = total_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel: forward + backward of the 48 epilogues of one ResNet-50 "
+        f"training step at batch {RN_BATCH}, float32: {ms:.3f} ms (the "
+        f"kernel forward and the plain VJP), plain {plain_ms:.3f} ms, bytes "
+        f"bound {bound:.3f} ms ({total_bytes / 1e9:.3f} GB at 3.35 TB/s); "
+        f"max gradient error of max |grad| fp32 {worst['float32']:.3e}, "
+        f"bf16 {worst['bfloat16']:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "grad_rel": worst["float32"], "grad_rel_bf16": worst["bfloat16"]}
+
+
+# -- phase 13: train ResNet --------------------------------------------------
+def product_flops_per_image(torch, net, size):
+    """fp32 operations of one forward of one image through every Conv2D
+    and Dense of ``net``, from the shapes a batch-1 forward gives."""
+    from mxnet_tpu_torch.gluon import nn
+    total = [0]
+
+    def hook(module, _, out):
+        w = module.weight
+        per_out = math.prod(w.shape[1:])         # C_in/groups*kh*kw or in
+        total[0] += 2 * out.numel() * per_out
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (nn.Conv2D, nn.Dense))]
+    with torch.no_grad():
+        net(torch.zeros(1, 3, size, size, device=net.output.weight.device))
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+class ReluTape:
+    """The relu decisions of one ResNet step, recorded on the card and
+    replayed on the CPU, as the BERT gate replays the card's dropout bits.
+
+    Two fp32 runs of ResNet-50 (cuDNN and the CPU's convolutions sum in
+    other orders) give some relu inputs within rounding of 0 opposite
+    signs: tens per image, and each moves the early layers' gradients by
+    up to percents (PERF.md §6, PR 7). Replaying the card's signs on the
+    CPU keeps every discrete decision equal and every value computed
+    apart. Sites: the stem's Activation (forward order) and each conv
+    epilogue's relu, which on the card runs in the kernel and is recorded
+    where the backward (the plain VJP) recomputes it, in reverse order;
+    the CPU's epilogue applies it in its forward and again in its
+    backward."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.act, self.k1 = [], []
+        self.replay = False
+        self.differ = self.total = 0
+
+    def _decide(self, p, mask):
+        if not self.replay:
+            return mask
+        own = p > 0
+        mask = mask.to(p.device)
+        if mask.shape != own.shape:
+            fail(f"relu tape: recorded {tuple(mask.shape)}, replayed at "
+                 f"{tuple(own.shape)}")
+        self.differ += int((own != mask).sum())
+        self.total += own.numel()
+        return mask
+
+    def __enter__(self):
+        from mxnet_tpu_torch.kernels import conv_epilogue as ce
+        from mxnet_tpu_torch.ops import nn as ops_nn
+        torch, tape = self.torch, self
+        self._saved = (ce.act_fn, ops_nn.activation)
+        act_fn, activation = self._saved
+        fwd = iter(self.k1[::-1]) if self.replay else None
+        bwd = iter(self.k1) if self.replay else None
+
+        def k1_act(what, act_type):
+            if act_type != "relu":
+                return act_fn(what, act_type)
+
+            def relu(p):
+                if tape.replay:
+                    mask = tape._decide(p, next(
+                        bwd if torch.is_grad_enabled() else fwd))
+                else:
+                    mask = p > 0
+                    if torch.is_grad_enabled():       # the VJP's recompute
+                        tape.k1.append(mask.cpu())
+                return torch.where(mask, p, torch.zeros((), dtype=p.dtype,
+                                                        device=p.device))
+            return relu
+
+        acts = iter(self.act) if self.replay else None
+
+        def stem_act(x, act_type=None):
+            if act_type != "relu":
+                return activation(x, act_type)
+            if tape.replay:
+                mask = tape._decide(x, next(acts))
+            else:
+                mask = x > 0
+                tape.act.append(mask.cpu())
+            return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+        ce.act_fn, ops_nn.activation = k1_act, stem_act
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.kernels import conv_epilogue as ce
+        from mxnet_tpu_torch.ops import nn as ops_nn
+        ce.act_fn, ops_nn.activation = self._saved
+
+
+def phase_train_resnet(torch, mx, card, ctx):
+    """Train full-width ResNet-50 v1 at batch RN_BATCH on ``ctx`` through
+    record -> SoftmaxCrossEntropyLoss -> backward -> Trainer("sgd"), then
+    hold one batch-1 step against the CPU."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    import numpy as np
+
+    dev = ctx.torch_device
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=mx.random.generator(SEED))
+    flops = product_flops_per_image(torch, net, RN_SIZE) * RN_BATCH * 3
+    # examples/train_imagenet.py's synthetic batch
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(RN_BATCH, 3, RN_SIZE, RN_SIZE)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, (RN_BATCH,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(RN_SGD))
+    n_params = sum(t.numel() for t in trainer._params)
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        mx.autograd.backward(loss)
+        trainer.step(RN_BATCH)
+        return loss
+
+    losses, times = [], []
+    torch.cuda.empty_cache()
+    _sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach().mean()))
+        del loss
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want["conv_epilogue"] = 48 * TRAIN_STEPS
+    if launches != want:
+        fail(f"launches in {TRAIN_STEPS} ResNet-50 training steps "
+             f"{launches}, want {want} (48 conv_epilogue per step)")
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"ResNet-50 training losses {losses} are not finite or did "
+             "not fall")
+    step_ms = _median(times[1:])
+    log(f"train: ResNet-50 v1, batch {RN_BATCH}, {RN_SIZE}x{RN_SIZE}, "
+        f"1000 classes, fp32 (TF32 off), SGD lr {RN_SGD['learning_rate']:g} "
+        f"momentum {RN_SGD['momentum']:g} wd {RN_SGD['wd']:g}, {n_params} "
+        f"trained parameters, on {card}")
+    log(f"train: mean per-sample loss by step "
+        f"{[round(v, 6) for v in losses]}")
+    log(f"train: step ms {[round(t, 3) for t in times]} (the first warms "
+        f"up); median of the last {TRAIN_STEPS - 1} {step_ms:.3f} ms, "
+        f"{RN_BATCH * 1e3 / step_ms:.3f} images/s")
+    log(f"train: launches in {TRAIN_STEPS} steps: conv_epilogue "
+        f"{launches['conv_epilogue']} (= 48 x {TRAIN_STEPS}), every other "
+        "kernel 0")
+    log(f"train: peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak / 2**20:.1f} MiB) over the {TRAIN_STEPS} steps")
+    device_ms, dev_rows = profile_step(torch, step, step_ms)
+    k1 = [(c, ms) for k, (c, ms) in dev_rows.items()
+          if "conv_epilogue_kernel" in k]
+    conv = [(c, ms) for k, (c, ms) in dev_rows.items()
+            if "conv_epilogue" not in k and re.search(
+                r"conv|fprop|dgrad|wgrad|xmma|implicit|cudnn", k, re.I)]
+    k1_ms, conv_ms = sum(ms for _, ms in k1), sum(ms for _, ms in conv)
+    log(f"profile: conv_epilogue_kernel (K1's forward) {k1_ms:.3f} ms in "
+        f"{sum(c for c, _ in k1):.0f} launches; cuDNN convolutions (fprop, "
+        f"dgrad, wgrad) {conv_ms:.3f} ms in {sum(c for c, _ in conv):.0f} "
+        "launches")
+    log(f"train: {flops / 1e12:.4f} TFLOP per step (convolutions and Dense "
+        f"from their shapes, forward x 3): {flops / step_ms / 1e9:.2f} "
+        f"TFLOP/s over the step, {flops / step_ms / 1e9 / 67:.3f} of the "
+        f"67 TFLOP/s fp32 peak; over the convolutions' device time "
+        f"{flops / conv_ms / 1e9 if conv_ms else float('nan'):.2f} TFLOP/s")
+
+    # the gate: one batch-1 step on the card and on the CPU from the same
+    # weights and running statistics
+    state = {k: v.detach().cpu().numpy().copy()
+             for k, v in net.collect_params().items()}
+
+    def gate_step(model, xb, yb):
+        with mx.autograd.record():
+            loss = loss_fn(model(xb), yb)
+        mx.autograd.backward(loss)
+        params = model.collect_params()
+        got = {k: params[k].grad.detach().cpu().numpy().copy()
+               for k in RN_GATE_PARAMS}
+        got.update({k: params[k].detach().cpu().numpy().copy()
+                    for k in RN_GATE_STATS})
+        got["loss"] = loss.detach().cpu().numpy()
+        return got
+
+    tape = ReluTape(torch)
+    with tape:
+        card_q = gate_step(net, x[:1], y[:1])
+    cpu_net = resnet50_v1()
+    cpu_net.load_dict(state, ctx=mx.cpu())
+    t0 = time.perf_counter()
+    tape.replay = True
+    with tape:
+        cpu_q = gate_step(cpu_net, x[:1].cpu(), y[:1].cpu())
+    log(f"train: the CPU step at batch 1 took "
+        f"{time.perf_counter() - t0:.1f} s; {len(tape.act)} stem and "
+        f"{len(tape.k1)} epilogue relu decisions replayed from the card, "
+        f"{tape.differ} of {tape.total} relu inputs the CPU alone would "
+        "have decided the other way")
+    worst = gate(card_q, cpu_q)
     return {"launches": launches, "step_ms": step_ms, "losses": losses,
-            "peak_bytes": peak, "device_ms": device_ms, "gate_rel": worst}
+            "peak_bytes": peak, "device_ms": device_ms, "k1_ms": k1_ms,
+            "conv_ms": conv_ms, "flops": flops, "gate_rel": worst}
 
 
 def main():
@@ -1603,10 +1987,14 @@ def main():
     run("kernel K2 training", lambda: phase_kernel_k2_train(torch, mx, me))
     run("train long BERT", lambda: phase_train_long_bert(torch, mx, card,
                                                          mx.gpu(0)))
+    run("kernel K1 training", lambda: phase_kernel_k1_train(torch, ce))
+    run("train ResNet", lambda: phase_train_resnet(torch, mx, card,
+                                                   mx.gpu(0)))
     k1, k1_launches = out["kernel K1"], out["serve ResNet"]
     k2, k2_launches = out["kernel K2"], out["serve BERT"]
     k3, k3_launches = out["kernel K3"], out["serve long BERT"]
     k3b, train = out["kernel K3 backward"], out["train long BERT"]
+    k1t, rn = out["kernel K1 training"], out["train ResNet"]
     bwd_per = (f"one BERT-base training step at batch {LONG_BATCH}, "
                f"sequence {LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} "
                "launches)")
@@ -1637,7 +2025,19 @@ def main():
         "per": f"one ResNet-50 v1 forward at batch {BATCH}, float32 "
                "(48 launches)",
         "max_abs_err_bf16": k1["max_abs_err_bf16"],
-        "max_abs_err_ragged_fp32": k1["max_abs_err_ragged_fp32"]}, {
+        "max_abs_err_ragged_fp32": k1["max_abs_err_ragged_fp32"],
+        "train_launches": rn["launches"]["conv_epilogue"],
+        "train_launches_per_step": rn["launches"]["conv_epilogue"]
+        // TRAIN_STEPS,
+        "train_per": f"one ResNet-50 v1 training step at batch {RN_BATCH}, "
+                     "float32",
+        "backward_route": "VJP of the plain version in PyTorch ops "
+                          "(launches no kernel of its own)",
+        "train_fwd_bwd_ms": k1t["ms"], "train_fwd_bwd_plain_ms":
+        k1t["plain_ms"], "train_fwd_bwd_bound_ms": k1t["bound_ms"],
+        "train_fwd_bwd_bound_by": "bytes",
+        "train_grad_max_rel_err": k1t["grad_rel"],
+        "train_grad_max_rel_err_bf16": k1t["grad_rel_bf16"]}, {
         "name": "matmul_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/matmul_epilogue.cu",
         "replaces": "mxnet_tpu/pallas/kernels.py:285",

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from ...ops import contrib as _contrib
 from ...ops import nn as _nn
 from ...ops import tensor as _tensor
@@ -133,8 +135,14 @@ class BatchNorm(DeferredParams, HybridBlock):
     ``activation`` fuses an activation into the normalize pass: the
     conv-epilogue kernel on the card. The layer adds no parameters for
     it, so checkpoints are interchangeable with a BatchNorm + Activation
-    pair. Only the inference branch is ported: in training mode the
-    layer raises unless ``use_global_stats``."""
+    pair. In training (``autograd.record()``, unless
+    ``use_global_stats``) it normalizes with the batch statistics and
+    folds them into the running ones in place, as the JAX layer does:
+    ``running·m + batch·(1 − m)``, except that statistics still at
+    their init (mean all 0 and var all 1, per layer) adopt the first
+    batch's outright, keeping the init var where the batch's var was
+    destroyed by cancellation (``mean² > 4096 · var``). The test and the
+    selection stay on the device: no host sync per layer."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False,
@@ -164,13 +172,31 @@ class BatchNorm(DeferredParams, HybridBlock):
             self._set_shape(name, (channels,))
 
     def forward(self, x):
-        out, _, _ = _nn.batch_norm(
+        training = self.training
+        out, mean, var = _nn.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale, axis=self._axis,
             use_global_stats=self._use_global_stats,
-            act_type=self._activation, training=self.training)
+            act_type=self._activation, training=training)
+        if training and not self._use_global_stats:
+            self._update_running(mean, var)
         return out
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        """ref: the JAX layer's functional update, written in place."""
+        m = self._momentum
+        rmean, rvar = self.running_mean, self.running_var
+        cold = torch.logical_and(torch.all(rmean == 0), torch.all(rvar == 1))
+        new_mean = torch.where(cold, mean, rmean * m + mean * (1 - m))
+        susp_cold = torch.logical_and(cold, torch.square(mean) > 4096.0
+                                      * torch.clamp(var.to(mean.dtype),
+                                                    min=1e-30))
+        new_var = torch.where(susp_cold, rvar,
+                              torch.where(cold, var, rvar * m + var * (1 - m)))
+        rmean.copy_(new_mean)
+        rvar.copy_(new_var)
 
     def extra_repr(self):
         return (f"axis={self._axis}, eps={self._epsilon}, "

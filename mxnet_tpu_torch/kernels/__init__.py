@@ -6,7 +6,8 @@ and a launch count; ``csrc/`` holds the CUDA sources, which
 :mod:`._build` compiles for Hopper at first use. A CPU tensor takes the
 plain version; a CUDA tensor takes the kernel or the call raises.
 
-- K1 :mod:`.conv_epilogue`: ``act(scale * y + bias [+ res])``.
+- K1 :mod:`.conv_epilogue`: ``act(scale * y + bias [+ res])``; its
+  backward is the VJP of the plain version (no kernel of its own).
 - K2 :mod:`.matmul_epilogue`: ``dropout(act(y + bias))``.
 - K3/K3' :mod:`.flash_attention`: ``softmax(scale * q k^T) v`` streamed
   over key tiles (online softmax, bottom-right causal), and its backward

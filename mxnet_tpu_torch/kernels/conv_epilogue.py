@@ -15,6 +15,13 @@ The math runs in fp32 and the result is cast back to ``y``'s dtype;
 The per-channel vectors are indexed in place by the kernel (row mode for
 NCHW, column mode for channel-last), so no layout is moved and no vector
 is tiled; the residual-only form passes no vectors at all.
+
+The N-D entry is differentiable: a ``torch.autograd.Function`` whose
+forward is the kernel (the plain version on the CPU) and whose backward
+is the counterpart of ``_ce_res_bwd`` / ``_ce_nores_bwd``, the VJP of
+the plain version. The JAX package leaves that VJP to XLA; the port
+computes it with PyTorch ops, so the backward launches no kernel of its
+own and adds nothing to :data:`launch_count`.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ __all__ = ["EPILOGUE_ACTS", "conv_epilogue_plain", "fused_conv_epilogue",
            "fused_conv_epilogue_plain", "launch_count"]
 
 MODE_NONE, MODE_COL, MODE_ROW = 0, 1, 2
-launch_count = LaunchCount()
+launch_count = LaunchCount()     # forward launches; the backward has none
 
 
 def conv_epilogue_plain(y, scale=None, bias=None, res=None,
@@ -68,12 +75,6 @@ def _launch(y, scale, bias, res, act_type, mode, c, inner):
     check_cuda_inputs("conv epilogue kernel", y,
                       (("scale", scale, None), ("bias", bias, None),
                        ("res", res, None)))
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (y, scale, bias, res)):
-        raise MXNetError("conv epilogue kernel: an input requires grad; the "
-                         "kernel has no backward yet (it comes with the "
-                         "ResNet-50 training slice; run under "
-                         "torch.inference_mode() or torch.no_grad())")
     out = torch.empty_like(y, memory_format=torch.contiguous_format)
     n = y.numel()
     if n == 0:
@@ -130,6 +131,44 @@ def fused_conv_epilogue_plain(x, scale=None, bias=None, res=None,
     return conv_epilogue_plain(x, scale, bias, res, act_type)
 
 
+def _forward(y, scale, bias, res, act_type, channel_axis, mode, c, inner):
+    if y.device.type == "cpu":
+        return fused_conv_epilogue_plain(y, scale, bias, res, channel_axis,
+                                         act_type)
+    if y.device.type == "cuda":
+        return _launch(y, scale, bias, res, act_type, mode, c, inner)
+    raise MXNetError(f"conv epilogue: unsupported device {y.device}")
+
+
+class _ConvEpilogue(torch.autograd.Function):
+    """K1 under autograd: the kernel (plain version on the CPU) forward;
+    the backward is the VJP of the plain version. ``scale``/``bias``
+    gradients reduce to their (C,) shape over every other axis, in row
+    and column mode alike; the ones / zeros that ``_layout`` fills in
+    get none."""
+
+    @staticmethod
+    def forward(ctx, y, scale, bias, res, act_type, channel_axis, mode, c,
+                inner):
+        ctx.save_for_backward(y, scale, bias, res)
+        ctx.args = (act_type, channel_axis)
+        return _forward(y, scale, bias, res, act_type, channel_axis, mode, c,
+                        inner)
+
+    @staticmethod
+    def backward(ctx, g):
+        act_type, channel_axis = ctx.args
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            args = [None if t is None else t.detach().requires_grad_(n)
+                    for t, n in zip(ctx.saved_tensors, need)]
+            out = fused_conv_epilogue_plain(*args, channel_axis, act_type)
+            grads = iter(torch.autograd.grad(
+                out, [a for a, n in zip(args, need) if n], g))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None, None)
+
+
 def fused_conv_epilogue(x, scale=None, bias=None, res=None, channel_axis=-1,
                         act_type="relu"):
     """N-D entry: ``act(scale * x + bias [+ res])``.
@@ -140,12 +179,15 @@ def fused_conv_epilogue(x, scale=None, bias=None, res=None, channel_axis=-1,
     tensor the kernel runs in row mode (channel = (i / inner) % C, e.g.
     NCHW with inner = H*W) or column mode (channel last) over the
     contiguous ``x``; on a CPU tensor the plain version runs.
+    Differentiable in ``x``, ``scale``, ``bias`` and ``res``: when
+    autograd records and one of them requires grad, the call goes
+    through :class:`_ConvEpilogue`; otherwise nothing is saved.
     """
-    if x.device.type == "cpu":
-        return fused_conv_epilogue_plain(x, scale, bias, res, channel_axis,
-                                         act_type)
-    if x.device.type != "cuda":
-        raise MXNetError(f"conv epilogue: unsupported device {x.device}")
-    scale, bias, mode, c, inner, _ = _layout(x, scale, bias, res,
-                                             channel_axis, act_type)
-    return _launch(x, scale, bias, res, act_type, mode, c, inner)
+    scale, bias, mode, c, inner, ax = _layout(x, scale, bias, res,
+                                              channel_axis, act_type)
+    args = (x, scale, bias, res, act_type,
+            channel_axis if ax is None else ax, mode, c, inner)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, scale, bias, res)):
+        return _ConvEpilogue.apply(*args)
+    return _forward(*args)

@@ -3,9 +3,8 @@
 Plain functions on tensors with the JAX package's op names, arguments
 and NCHW/OIHW layouts. Convolution, pooling and the matrix product go to
 PyTorch, as the JAX package leaves them to XLA; the BatchNorm + activation
-epilogue goes to the hand-written conv-epilogue kernel. Only the predict
-branch of BatchNorm is ported; its training branch raises until the
-ResNet-50 training slice. Dropout has both branches.
+epilogue goes to the hand-written conv-epilogue kernel. BatchNorm and
+Dropout have both their predict and their training branch.
 """
 from __future__ import annotations
 
@@ -128,24 +127,47 @@ def activation(x, act_type=None):
 def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                axis=1, act_type=None, training=False):
-    """ref: BatchNorm, inference branch: normalize with the running
-    statistics. Returns ``(out, mean, var)`` like the JAX op.
+    """ref: BatchNorm. Returns ``(out, mean, var)`` like the JAX op.
+
+    Predict mode (or ``use_global_stats``) normalizes with the running
+    statistics. Training normalizes with the batch's, term for term as
+    the JAX op: one-pass fp32 moments of ``x - c`` about ``c``, the
+    running mean taken as a constant; ``var = maximum(e2 - mean_c², 0)``
+    (``torch.maximum``, whose gradient splits a tie as ``jnp.maximum``'s
+    does); channels whose variance cancellation destroyed (``e2 > 4096 ·
+    var``) normalize with ``e2`` instead, and the biased ``var`` is
+    reported either way. This is not ``torch.nn.functional.batch_norm``,
+    which keeps an unbiased running variance with the complementary
+    momentum and no shift. The running statistics are not touched here:
+    the Gluon layer folds the returned mean and var into them.
 
     Mean, var, gamma and beta fold in fp32 into a per-channel scale and
     offset, cast once to ``x``'s dtype; with ``act_type`` the
     multiply-add and the activation run as one conv-epilogue pass."""
-    if training and not use_global_stats:
-        raise MXNetError("BatchNorm: the training branch (batch "
-                         "statistics) is not ported yet; run in predict "
-                         "mode or with use_global_stats=True")
     ax = axis % x.ndim
     bshape = [1] * x.ndim
     bshape[ax] = x.shape[ax]
     if fix_gamma:
         gamma = torch.ones_like(gamma)
-    mean = moving_mean.float()
-    var = moving_var.float()
-    scale = torch.rsqrt(var + eps) * gamma.float()
+    if training and not use_global_stats:
+        # no op below saves the shift for backward (sub and add save
+        # nothing), so the layer may update the buffer in place
+        axes = tuple(i for i in range(x.ndim) if i != ax)
+        c = moving_mean.detach().float()
+        xc = x.float() - c.reshape(bshape)
+        mean_c = torch.mean(xc, dim=axes)
+        e2 = torch.mean(torch.square(xc), dim=axes)
+        d = e2 - torch.square(mean_c)
+        var_raw = torch.maximum(d, d.new_zeros(()))
+        mean = mean_c + c
+        suspicious = e2 > 4096.0 * torch.clamp(var_raw.detach(), min=1e-30)
+        var_norm = torch.where(suspicious, e2, var_raw)
+        var = var_raw
+    else:
+        mean = moving_mean.float()
+        var = moving_var.float()
+        var_norm = var
+    scale = torch.rsqrt(var_norm + eps) * gamma.float()
     offset = beta.float() - mean * scale
     if act_type is None:
         out = x * scale.to(x.dtype).reshape(bshape) \

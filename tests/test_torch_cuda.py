@@ -1,8 +1,8 @@
 """Tests of the port that need an NVIDIA card (marker ``cuda``): the
 hand-written conv-epilogue (K1), matmul-epilogue (K2) and flash-attention
 (K3/K3', forward and backward) kernels against their plain versions on
-CUDA tensors, the gradients of K2 and K3 against their plain versions'
-autograd and plain backward, their launch counts, and their refusals.
+CUDA tensors, the gradients of K1, K2 and K3 against their plain
+versions' autograd and plain backward, their launch counts, and their refusals.
 Without a card they skip; on the card run them with ``python -m pytest
 -m cuda --noconftest tests/test_torch_cuda.py`` (the suite's conftest
 imports the JAX package)."""
@@ -66,8 +66,58 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ce.fused_conv_epilogue(x.transpose(2, 3), res=x.transpose(2, 3))
     with pytest.raises(MXNetError, match="dtype"):
         ce.fused_conv_epilogue(x.double(), res=x.double())
-    with pytest.raises(MXNetError, match="requires grad"):
-        ce.fused_conv_epilogue(x.requires_grad_(), res=x)
+    with pytest.raises(MXNetError, match="dtype"):
+        ce.fused_conv_epilogue(x.double().requires_grad_(), res=x.double())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("act", ce.EPILOGUE_ACTS)
+@pytest.mark.parametrize("shape,axis,vectors,with_res", [
+    ((8, 64, 56, 56), 1, True, False),
+    ((8, 256, 56, 56), 1, False, True),
+    ((8, 512, 7, 7), 1, True, True),
+    ((77, 13), -1, True, True),
+])
+def test_conv_epilogue_gradients_match_plain(cuda, shape, axis, vectors,
+                                             with_res, act, dtype, tol):
+    """K1 under autograd on the card: the kernel's forward (one launch,
+    bit-equal to the plain version in float32), then the gradients of y,
+    scale, bias and res against the plain version's autograd, within
+    ``tol`` of each gradient's max |value|; the backward launches no
+    kernel."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    c = shape[axis]
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return (torch.rand(*s, generator=gen, device=cuda) + shift
+                if shift else torch.randn(*s, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    inputs = [rnd(*shape), rnd(c, shift=0.5) if vectors else None,
+              rnd(c, scale=0.1) if vectors else None,
+              rnd(*shape) if with_res else None]
+    g = rnd(*shape)
+    results = []
+    for fn in (ce.fused_conv_epilogue, ce.fused_conv_epilogue_plain):
+        leaves = [None if t is None else t.clone().requires_grad_()
+                  for t in inputs]
+        kernels.reset_launch_counts()
+        out = fn(*leaves, channel_axis=axis, act_type=act)
+        wrt = [t for t in leaves if t is not None]
+        grads = torch.autograd.grad(out, wrt, g)
+        launched = kernels.launch_counts()["conv_epilogue"]
+        assert launched == (1 if fn is ce.fused_conv_epilogue else 0)
+        results.append((out.detach(), grads))
+    torch.cuda.synchronize()
+    (got, got_grads), (want, want_grads) = results
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    for gg, ww in zip(got_grads, want_grads):
+        assert gg.shape == ww.shape and gg.dtype == ww.dtype
+        assert (gg.float() - ww.float()).abs().max().item() \
+            <= tol * ww.float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -7,8 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu import nd
-from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu import autograd, nd
 from mxnet_tpu_torch.ops import contrib as tcontrib
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops import tensor as ttensor
@@ -84,10 +83,32 @@ def test_batch_norm_inference(act_type, fix_gamma, axis):
 
 
 def test_batch_norm_training_branch_is_not_ported():
-    x = torch.randn(2, 3, 4, 4)
-    v = torch.ones(3)
-    with pytest.raises(MXNetError, match="training branch"):
-        tnn.batch_norm(x, v, v, v, v, training=True)
+    """The training branch is ported: it returns the JAX op's output and
+    batch mean and biased var (atol = rtol = 1e-5), leaves the running
+    statistics as they are, and with ``use_global_stats`` normalizes
+    with the running ones as predict mode does. (tests/
+    test_torch_resnet_train.py holds its gradients.)"""
+    rng = np.random.RandomState(6)
+    x = (rng.randn(2, 3, 4, 4) * 2 + 0.5).astype(np.float32)
+    v = np.ones(3, np.float32)
+    mean = (rng.randn(3) * 0.1).astype(np.float32)
+    kw = dict(eps=1e-5, fix_gamma=False)
+    with autograd.train_mode():
+        want = nd.BatchNorm(*(nd.array(a) for a in (x, v, v, mean, v)), **kw)
+    kw["training"] = True
+    tm = _t(mean.copy())
+    got = tnn.batch_norm(_t(x), _t(v), _t(v), tm, _t(v), **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+    np.testing.assert_allclose(got[2].numpy(), x.var(axis=(0, 2, 3)),
+                               rtol=1e-5)
+    assert torch.equal(tm, _t(mean))
+    glob = tnn.batch_norm(_t(x), _t(v), _t(v), tm, _t(v),
+                          use_global_stats=True, **kw)
+    pred = tnn.batch_norm(_t(x), _t(v), _t(v), tm, _t(v),
+                          **dict(kw, training=False))
+    for g, w in zip(glob, pred):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("flatten,bias", [(True, True), (False, False)])

@@ -108,7 +108,22 @@ def test_save_and_load_parameters_round_trip(tmp_path):
 
 
 def test_training_mode_raises_until_the_training_slice():
+    """Training mode (``.train()`` outside any scope) runs: it normalizes
+    with the batch statistics, so its logits differ from predict mode's,
+    and folds them into every BatchNorm's running statistics, which
+    predict mode leaves alone. Nothing raises."""
     _, tnet = narrow_pair(seed=6)
-    tnet.train()
-    with pytest.raises(MXNetError, match="training branch"):
-        tnet(torch.from_numpy(_batch(7)))
+    x = torch.from_numpy(_batch(7))
+    stats = {k: v.clone() for k, v in tnet.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    with torch.no_grad():
+        predicted = tnet(x)
+        assert all(torch.equal(stats[k], tnet.state_dict()[k])
+                   for k in stats)
+        tnet.train()
+        trained = tnet(x)
+    assert trained.shape == predicted.shape
+    assert torch.isfinite(trained).all()
+    assert not torch.allclose(trained, predicted, rtol=1e-3, atol=1e-3)
+    assert all(not torch.equal(stats[k], tnet.state_dict()[k])
+               for k in stats)

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Probes of the PyTorch/CUDA port's ResNet-50 v1 (``mxnet_tpu_torch``).
+
+Run from the root of a checkout:
+
+    python3 tools/resnet_probes.py gate-sensitivity [--steps N]
+    python3 tools/resnet_probes.py ab-forward DIR_A DIR_B
+
+``gate-sensitivity`` (CPU) asks how far a batch-1 training step's
+gradients, the ones ``chip_smoke.py``'s ResNet gate compares, move when
+the input moves by 1e-7 of itself: a rounding-sized change, like the
+difference between cuDNN's and the CPU's convolutions. Full-width
+ResNet-50 v1 (Xavier from seed 0) on ``examples/train_imagenet.py``'s
+synthetic batch; the running statistics are warmed by one training
+forward at batch 8, or by ``--steps`` SGD steps (lr 0.1, momentum 0.9,
+wd 1e-4) at batch 8. It prints each gate quantity's change relative to
+its max |value|, first as computed, then with the relu decisions of the
+unperturbed step replayed (``chip_smoke.ReluTape``), and how many relu
+inputs changed sign.
+
+``ab-forward`` (card) times the batch-8 predict forward of ResNet-50 v1
+in two checkouts, in turns A B B A A B, each in a fresh process: the
+median and minimum host wall of 60 forwards after 10 warm-up ones.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EPS = 1e-7
+
+
+def gate_sensitivity(steps):
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import chip_smoke
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                   generator=mx.random.generator(0))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8, 3, 224, 224).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, (8,)).astype(np.float32))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    if steps:
+        with torch.no_grad():
+            net(x[:1])                        # materialize the shapes
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(chip_smoke.RN_SGD))
+        for _ in range(steps):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(x.shape[0])
+    else:
+        with mx.autograd.record():
+            net(x)                            # warm the statistics only
+    state = {k: v.detach().numpy().copy()
+             for k, v in net.collect_params().items()}
+    noise = torch.from_numpy(np.random.RandomState(5).randn(1, 3, 224, 224)
+                             .astype(np.float32))
+
+    def step(xb, tape):
+        model = resnet50_v1()
+        model.load_dict(state, ctx=mx.cpu())
+        with tape:
+            with mx.autograd.record():
+                loss = loss_fn(model(xb), y[:1])
+            mx.autograd.backward(loss)
+        params = model.collect_params()
+        out = {k: params[k].grad.numpy().copy()
+               for k in chip_smoke.RN_GATE_PARAMS}
+        out.update({k: params[k].detach().numpy().copy()
+                    for k in chip_smoke.RN_GATE_STATS})
+        out["loss"] = loss.detach().numpy()
+        return out
+
+    def change(got, ref):
+        return {k: float(np.abs(got[k] - ref[k]).max()
+                         / np.abs(ref[k]).max()) for k in ref}
+
+    tape = chip_smoke.ReluTape(torch)
+    ref = step(x[:1], tape)
+    moved = x[:1] * (1 + EPS * noise)
+    free = step(moved, _Nothing())
+    tape.replay = True
+    replayed = step(moved, tape)
+    print(json.dumps({"steps": steps, "input_change": EPS,
+                      "change_of_max_value": change(free, ref),
+                      "change_with_relu_replayed": change(replayed, ref),
+                      "relu_inputs_changed_sign": tape.differ,
+                      "relu_inputs": tape.total}, indent=1))
+
+
+class _Nothing:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+CHILD = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+net = resnet50_v1()
+net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+               generator=mx.random.generator(0))
+x = torch.randn(8, 3, 224, 224, device="cuda")
+wall = []
+with torch.inference_mode():
+    for i in range(70):
+        t0 = time.perf_counter()
+        net(x)
+        torch.cuda.synchronize()
+        if i >= 10:
+            wall.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"checkout": sys.argv[1], "median_ms":
+                  statistics.median(wall), "min_ms": min(wall)}))
+"""
+
+
+def ab_forward(dir_a, dir_b):
+    for d in (dir_a, dir_b, dir_b, dir_a, dir_a, dir_b):
+        out = subprocess.run([sys.executable, "-c", CHILD,
+                              os.path.abspath(d)], capture_output=True,
+                             text=True, timeout=600, check=True)
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    sub = parser.add_subparsers(dest="probe", required=True)
+    sens = sub.add_parser("gate-sensitivity")
+    sens.add_argument("--steps", type=int, default=0)
+    ab = sub.add_parser("ab-forward")
+    ab.add_argument("dir_a")
+    ab.add_argument("dir_b")
+    args = parser.parse_args()
+    if args.probe == "gate-sensitivity":
+        gate_sensitivity(args.steps)
+    else:
+        ab_forward(args.dir_a, args.dir_b)
+
+
+if __name__ == "__main__":
+    main()
