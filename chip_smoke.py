@@ -24,10 +24,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                after warm-up) and the bytes bound at 3.35 TB/s.
 4. serve     — full-width ResNet-50 v1 (224x224x3, 1000 classes, seeded
    ResNet      random weights and BatchNorm statistics) behind the port's
-               Server on cuda:0, batch buckets 1-8, float32. 32
+               Server on cuda:0, batch buckets 1-8, float32, serving from
+               CUDA graphs: start() captures one predictor graph per
+               bucket (ServerConfig.aot_prewarm) before traffic, and each
+               graph's capture seconds and pool MiB are printed. 32
                single-image requests from 4 threads must all be answered;
-               K1 must run 48 times per batch forward; the logits must
-               match the same model and weights run on the CPU.
+               K1 must run 48 times per batch forward, counted across
+               graph replays; the logits must match the same model and
+               weights run on the CPU, and the graphed batch-8 logits the
+               eager forward on the card within 1e-6 of max |value|. The
+               profile times the eager forward, the graph's replay and
+               both with the host copies, in turns, and profiles each:
+               device ms, launches, busy share, host launch calls per
+               forward; the graphed trace must hold K1's 48 launches.
 5. kernel K2 — hold the matmul-epilogue kernel against its plain version
                on the card: BERT-base's own epilogue shapes at batch 8,
                sequence 128, and ragged ones; all five activations; column
@@ -39,10 +48,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    BERT        decoder: 12 layers, 768 units, 3072 hidden, 12 heads, vocab
                30522, max_length 512, seeded Normal(0.02) weights) behind
                the Server on cuda:0, batch buckets 1-8, int32 token ids of
-               128 per request. 32 requests from 4 threads must all be
-               answered; K2 must run 25 times per batch forward; every
-               output (seq_out, pooled, nsp) must match the same model and
-               weights run on the CPU.
+               128 per request, from CUDA graphs captured at start() as
+               in phase 4. 32 requests from 4 threads must all be
+               answered; K2 must run 25 times per batch forward (across
+               replays); every output (seq_out, pooled, nsp) must match
+               the same model and weights run on the CPU, and the graphed
+               ones the eager forward on the card within 1e-6; profiled
+               eager and graphed as in phase 4.
 7. kernel K3 — hold the flash-attention kernel against its plain version
                on the card: the long-context slice's own call (q, k, v as
                strided views of a (4, 4096, 2304) fused QKV, 12 heads, D
@@ -62,11 +74,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                of both bounds.
 8. serve     — full-width BERT-base at S 4096 (bert_12_768_12 without the
    long BERT   MLM decoder, max_length 4096, seeded as in phase 6) behind
-               the Server on cuda:0, batch buckets 1/2/4, int32 ids. 8
+               the Server on cuda:0, batch buckets 1/2/4, int32 ids, from
+               CUDA graphs captured at start() as in phase 4. 8
                requests from 4 threads must all be answered; per batch
-               forward flash_attention must run 12 times and K2 25 times;
-               seq_out, pooled and nsp of served requests 0 and 1 must
-               match the same model and weights run on the CPU. The
+               forward flash_attention must run 12 times and K2 25 times
+               (across replays); seq_out, pooled and nsp of served
+               requests 0 and 1 must match the same model and weights run
+               on the CPU, and the graphed batch-4 outputs the eager
+               forward on the card within 1e-6. The
                default deadline is raised to 10 s for this phase: a batch-4
                forward here takes about 160 ms on an H100 at 700 W, and a
                request may wait behind two of them.
@@ -106,7 +121,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                the CPU with the card's dropout bits replayed; the loss
                and the gradients of word_embed, the first and last
                cell's qkv and ffn_1 weights and the decoder's last Dense
-               within 1e-3 of each one's max |value|.
+               within 1e-3 of each one's max |value|. Then, after
+               torch.cuda.empty_cache(), the model hybridized: 4 steps,
+               the first capturing the forward graph (K2 with dropout
+               bits drawn inside it, K3) and the backward graph (both K3
+               backward kernels); launches counted across replays and the
+               capture's warm-up passes; step ms, peak memory beside the
+               eager peak, one profiled graphed step. Two consecutive
+               steps must draw different masks and two replays after
+               mx.random.seed equal ones; one graphed forward + backward
+               recorded with a bits tape must equal an eager one
+               replaying those bits: the loss and the six gradients
+               within 1e-5 of max |value|.
 12. kernel K1 — the conv epilogue under autograd at ResNet-50's own
     training   epilogue shapes at batch 128 (BatchNorm + relu in row mode
                with and without a residual, the residual-only form, one
@@ -131,10 +157,24 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                the 67 TFLOP/s peak. Gate: one batch-1 step from the same
                weights and running statistics on the card and on the
                CPU; the loss, five gradients and two BatchNorms' running
-               mean and var within 1e-3 of each one's max |value|.
+               mean and var within 1e-3 of each one's max |value|. Then
+               net.hybridize() from the eager run's initial weights and
+               running statistics with a fresh SGD: 6 graphed steps, the
+               first capturing the forward graph (BatchNorm's running
+               statistics updated in place in it, K1) and the backward
+               graph; launches (48 K1 per step and per warm-up pass of
+               the capture), step ms, images/s, peak memory, a profiled
+               step's busy share. Last, with cuDNN deterministic, one
+               graphed forward + backward from that initial state against
+               an eager one: the loss, the five gradients and the two
+               BatchNorms' statistics within 1e-4 of max |value|.
 
 Each serve phase sets the launch counts to 0 just before its burst and
-reads them just after, and each training phase just before its steps.
+reads them just after, and each training phase just before its steps
+(eager, then graphed). A graph's replay calls no kernel wrapper: each
+replay adds the launches its capture recorded
+(mxnet_tpu_torch/gluon/cached_graph.py), so the counts stay the kernels
+the card ran.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside this file, the script exits non-zero and prints no
@@ -169,6 +209,7 @@ LONG_K3_PER_FORWARD = 12             # one flash attention per cell
 LONG_REQUESTS = 8
 LONG_CHECKED = (0, 1)                # served requests held against the CPU
 LONG_DEADLINE_MS = 10000.0
+GRAPH_RTOL = 1e-6                    # graphed vs eager on the card, of max
 
 
 def fail(msg):
@@ -541,6 +582,52 @@ def check_against_cpu(name, served, ref):
              f"{LOGIT_RTOL} x {scale}")
 
 
+def report_prewarm(server, card):
+    """Fail unless start() captured one CUDA graph per batch bucket
+    before traffic; print each predictor's capture seconds and pool."""
+    warm = server.stats()["prewarm"]
+    entries = server.cache.entries()
+    if not warm or warm["warmed"] != len(server.grid.batch_buckets) \
+            or warm["compiled"] != warm["warmed"] \
+            or not all(pred.ready for _, pred in entries):
+        fail(f"prewarm {warm} did not capture every batch bucket")
+    log(f"serve: prewarm {warm} (one CUDA graph per batch bucket, captured "
+        f"by start() before traffic) on {card}")
+    per = {}
+    for (bucket, key, _), pred in entries:
+        mib = None if pred.pool_bytes is None else pred.pool_bytes / 2**20
+        per[bucket] = {"capture_s": pred.capture_s, "pool_mib": mib}
+        log(f"serve: graph of bucket {bucket} x {key}: capture "
+            f"{pred.capture_s:.3f} s (warm-up and capture), pool "
+            f"{'not measured' if mib is None else f'{mib:.1f} MiB'}")
+    return per
+
+
+def graphed_vs_eager(torch, server, net, x, names):
+    """The server's graphed predictor at ``x``'s padded shape against the
+    eager forward of the same block on the card: each output within
+    GRAPH_RTOL of its max |value|. Returns the worst relative error."""
+    key = (x.shape[0], tuple(x.shape[1:]), x.dtype.str)
+    pred = dict(server.cache.entries())[key]
+    got, _ = pred(x)
+    with torch.inference_mode():
+        want = net(torch.from_numpy(x).to(server.device))
+    want = [want] if isinstance(want, torch.Tensor) else list(want)
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        w = w.cpu().numpy()
+        scale = float(abs(w).max())
+        rel = float(abs(g - w).max()) / scale
+        worst = max(worst, rel)
+        log(f"serve: graphed {name} vs the eager forward on the card: "
+            f"relative {rel:.3e} of max |value| {scale:.6e} (tolerance "
+            f"{GRAPH_RTOL:g}; bit-equal {bool((g == w).all())})")
+        if not rel <= GRAPH_RTOL:
+            fail(f"graphed {name} differs from the eager forward by {rel} "
+                 f"of max |value|")
+    return worst
+
+
 # -- phase 4: serve ResNet ----------------------------------------------------
 def phase_serve_resnet(torch, mx, card, ctx, size=224):
     """Serve ResNet-50 v1 on ``ctx`` at ``size`` x ``size`` inputs."""
@@ -569,12 +656,16 @@ def phase_serve_resnet(torch, mx, card, ctx, size=224):
     net.load_dict(params)
     images = rng.randn(N_REQUESTS, 3, size, size).astype(np.float32)
 
-    server = Server(net, ServerConfig(max_batch=8), ctx=ctx).start()
+    server = Server(net, ServerConfig(max_batch=8,
+                                      aot_prewarm=((3, size, size),)),
+                    ctx=ctx).start()
+    graphs = report_prewarm(server, card)
     results, launches = serve_burst(torch, server, images,
                                     {"conv_epilogue": 48}, card, "images")
-    profile_forward(torch, net, torch.randn(BATCH, 3, size, size,
-                                            device=ctx.torch_device),
-                    "conv_epilogue")
+    graph_rel = graphed_vs_eager(torch, server, net, images[:BATCH],
+                                 ("logits",))
+    prof = profile_forward(torch, net, torch.randn(
+        BATCH, 3, size, size, device=ctx.torch_device), "conv_epilogue", 48)
 
     # the same model and weights on the CPU: the plain versions
     cpu_net = resnet50_v1()
@@ -588,7 +679,8 @@ def phase_serve_resnet(torch, mx, card, ctx, size=224):
     if ref.shape != (N_REQUESTS, 1000):
         fail(f"CPU logits have shape {ref.shape}")
     check_against_cpu("logits", np.stack(results), ref)
-    return launches
+    return {"launches": launches, "profile": prof, "graphs": graphs,
+            "graph_rel": graph_rel}
 
 
 # -- phase 5: kernel K2 ------------------------------------------------------
@@ -767,13 +859,17 @@ def phase_serve_bert(torch, mx, card, ctx):
     ids = np.random.RandomState(SEED).randint(
         0, BERT_VOCAB, (N_REQUESTS, BERT_SEQ)).astype(np.int32)
 
-    server = Server(net, ServerConfig(max_batch=8, dtype="int32"),
+    server = Server(net, ServerConfig(max_batch=8, dtype="int32",
+                                      aot_prewarm=((BERT_SEQ,),)),
                     ctx=ctx).start()
+    graphs = report_prewarm(server, card)
     results, launches = serve_burst(
         torch, server, ids, {"matmul_epilogue": BERT_K2_PER_FORWARD}, card,
         "sequences")
-    profile_forward(torch, net, torch.from_numpy(ids[:BATCH]).to(dev),
-                    "matmul_epilogue")
+    graph_rel = graphed_vs_eager(torch, server, net, ids[:BATCH],
+                                 ("seq_out", "pooled", "nsp"))
+    prof = profile_forward(torch, net, torch.from_numpy(ids[:BATCH]).to(dev),
+                           "matmul_epilogue", BERT_K2_PER_FORWARD)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         net(torch.from_numpy(ids[:BATCH]).to(dev))
@@ -795,7 +891,8 @@ def phase_serve_bert(torch, mx, card, ctx):
         if ref.shape != (N_REQUESTS,) + shape:
             fail(f"CPU {name} has shape {ref.shape}")
         check_against_cpu(name, np.stack([res[k] for res in results]), ref)
-    return launches
+    return {"launches": launches, "profile": prof, "graphs": graphs,
+            "graph_rel": graph_rel}
 
 
 def _ms(fn):
@@ -808,68 +905,107 @@ def _median(values):
     return sorted(values)[len(values) // 2]
 
 
-def profile_forward(torch, net, x, kernel, reps=10):
-    """Where one batch forward's time goes: the host clock around forward
-    + synchronize and around a predictor call (host copy in, forward,
-    outputs out), interleaved on the calling thread so both see the same
-    host, then the predictor call on another thread (the server's worker
-    is one); medians of ``reps``. Then the device time of every kernel
-    from torch.profiler; ``kernel`` names the port's kernel of this
-    path."""
+def _launch_calls(prof_rows):
+    """Host calls that launch work on the device (kernels or a graph)."""
+    return sum(e.count for e in prof_rows
+               if not str(e.device_type).endswith("CUDA")
+               and re.search(r"LaunchKernel|GraphLaunch|cuLaunch", e.key))
+
+
+def profile_forward(torch, net, x, kernel, per_forward, reps=10):
+    """Where one batch forward's time goes, eager and graphed in turns
+    (each rep runs all four, so all see the same host): the eager forward
+    and the graph's replay alone (host clock around the call and a
+    synchronize), and each with the host copy in and the outputs out (the
+    graphed one a Predictor call, the server's path); then the graphed
+    predictor call on another thread (the server's worker is one);
+    medians of ``reps``. Then torch.profiler over 3 forwards of each:
+    device time, kernel launches, busy share of the median wall time,
+    host launch calls per forward and ``kernel``'s time and launches. A
+    graph's kernels must include ``per_forward`` of ``kernel``'s."""
     from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch.serving import Predictor
     batch = x.shape[0]
     padded = x.cpu().numpy()
-    pred = Predictor(net, x.device)
+    pred = Predictor(net, x.device, tuple(x.shape), padded.dtype)
+    captured = pred.replay(x).fwd_launches.get(kernel, 0)
+    if captured != per_forward:
+        fail(f"the graph captured {captured} {kernel} launches, want "
+             f"{per_forward}")
 
-    def forward():
+    def eager():
         with torch.inference_mode():
             net(x)
         torch.cuda.synchronize()
 
-    for _ in range(3):
-        forward()
-        pred(padded)
-    fwd, call, other = [], [], []
+    def graphed():
+        pred.replay()
+        torch.cuda.synchronize()
+
+    def eager_call():
+        with torch.inference_mode():
+            out = net(torch.from_numpy(padded).to(x.device))
+        for o in [out] if isinstance(out, torch.Tensor) else out:
+            o.cpu().numpy()
+
+    runs = {"eager": eager, "graphed": graphed,
+            "eager + copies": eager_call,
+            "graphed + copies": lambda: pred(padded)}
+    for fn in runs.values():
+        for _ in range(3):
+            fn()
+    times = {name: [] for name in runs}
     for _ in range(reps):
-        fwd.append(_ms(forward))
-        call.append(_ms(lambda: pred(padded)))
+        for name, fn in runs.items():
+            times[name].append(_ms(fn))
+    other = []
     worker = threading.Thread(target=lambda: other.extend(
         _ms(lambda: pred(padded)) for _ in range(reps + 3)))
     worker.start()
     worker.join(timeout=300)
-    wall = _median(fwd)
-    log(f"profile: batch {batch}: forward alone {wall:.3f} ms, predictor "
-        f"call (host copy in, forward, outputs out) {_median(call):.3f} ms "
-        f"on the calling thread, {_median(other[3:]):.3f} ms on another "
-        f"thread (medians of {reps}; forward min {min(fwd):.3f} max "
-        f"{max(fwd):.3f} ms)")
-    with torch.inference_mode():
+    wall = {name: _median(t) for name, t in times.items()}
+    log(f"profile: batch {batch}, medians of {reps} in turns: "
+        + ", ".join(f"{name} {ms:.3f} ms (min {min(times[name]):.3f})"
+                    for name, ms in wall.items())
+        + f"; graphed + copies on another thread {_median(other[3:]):.3f}"
+        " ms")
+    result = {"wall_ms": wall, "thread_ms": _median(other[3:])}
+    for mode, fn in (("eager", eager), ("graphed", graphed)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             for _ in range(3):
-                net(x)
-            torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
-    dev = {e.key: (e.count / 3, e.self_device_time_total / 3e3)
-           for e in rows}
-    device_ms = sum(ms for _, ms in dev.values())
-    if device_ms <= 0:
-        log(f"profile: batch {batch} forward {wall:.3f} ms wall (median of "
-            f"{reps}); device time not measured (profiler saw no kernels)")
-        return
-    k_ms = sum(ms for k, (_, ms) in dev.items() if f"{kernel}_kernel" in k)
-    k_calls = sum(c for k, (c, _) in dev.items() if f"{kernel}_kernel" in k)
-    log(f"profile: batch {batch} forward {wall:.3f} ms wall (median of "
-        f"{reps}), kernels {device_ms:.3f} ms on the device "
-        f"({sum(c for c, _ in dev.values()):.0f} launches), device busy "
-        f"{device_ms / wall:.3f} of the wall time; {kernel} "
-        f"{k_ms:.3f} ms in {k_calls:.0f} launches, "
-        f"{k_ms / device_ms:.3f} of the device time")
-    for key, (calls, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"  {ms:9.4f} ms {calls:5.0f}x  {key[:90]}")
+                fn()
+        rows = prof.key_averages()
+        dev = {e.key: (e.count / 3, e.self_device_time_total / 3e3)
+               for e in rows if str(e.device_type).endswith("CUDA")}
+        device_ms = sum(ms for _, ms in dev.values())
+        calls = _launch_calls(rows) / 3
+        k_ms = sum(ms for k, (_, ms) in dev.items() if f"{kernel}_kernel" in k)
+        k_n = sum(c for k, (c, _) in dev.items() if f"{kernel}_kernel" in k)
+        n = sum(c for c, _ in dev.values())
+        result[mode] = {"device_ms": device_ms, "launches": n,
+                        "host_launch_calls": calls, "kernel_ms": k_ms,
+                        "kernel_launches": k_n,
+                        "busy": device_ms / wall[mode]}
+        if device_ms <= 0:
+            log(f"profile: {mode} batch {batch} forward {wall[mode]:.3f} "
+                "ms wall; device time not measured (the profiler saw no "
+                f"kernels); {calls:.0f} host launch calls per forward")
+            result[mode]["device_ms"] = result[mode]["kernel_ms"] = None
+            continue
+        log(f"profile: {mode} batch {batch} forward {wall[mode]:.3f} ms "
+            f"wall, kernels {device_ms:.3f} ms on the device ({n:.0f} "
+            f"launches), busy {device_ms / wall[mode]:.3f}; {calls:.0f} host "
+            f"launch calls per forward; {kernel} {k_ms:.3f} ms in {k_n:.0f} "
+            f"launches, {k_ms / device_ms:.3f} of the device time")
+        for key, (c, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]:
+            log(f"  {ms:9.4f} ms {c:5.0f}x  {key[:90]}")
+        if mode == "graphed" and k_n != per_forward:
+            fail(f"the profiler saw {k_n} {kernel} launches in a graphed "
+                 f"forward, want {per_forward}")
+    pred.close()
+    return result
 
 
 # -- phase 7: kernel K3 ------------------------------------------------------
@@ -1098,14 +1234,19 @@ def phase_serve_long_bert(torch, mx, card, ctx):
     log(f"serve: default_deadline_ms set to {LONG_DEADLINE_MS:g} for this "
         "phase (the server's default is 2000)")
     server = Server(net, ServerConfig(max_batch=LONG_BATCH, dtype="int32",
-                                      default_deadline_ms=LONG_DEADLINE_MS),
+                                      default_deadline_ms=LONG_DEADLINE_MS,
+                                      aot_prewarm=((LONG_SEQ,),)),
                     ctx=ctx).start()
+    graphs = report_prewarm(server, card)
     results, launches = serve_burst(
         torch, server, ids, {"flash_attention": LONG_K3_PER_FORWARD,
                              "matmul_epilogue": BERT_K2_PER_FORWARD},
         card, "sequences", n_requests=LONG_REQUESTS, max_batch=LONG_BATCH)
+    graph_rel = graphed_vs_eager(torch, server, net, ids[:LONG_BATCH],
+                                 ("seq_out", "pooled", "nsp"))
     x = torch.from_numpy(ids[:LONG_BATCH]).to(dev)
-    profile_forward(torch, net, x, "flash_attention", reps=3)
+    prof = profile_forward(torch, net, x, "flash_attention",
+                           LONG_K3_PER_FORWARD, reps=3)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         net(x)
@@ -1133,7 +1274,8 @@ def phase_serve_long_bert(torch, mx, card, ctx):
             fail(f"CPU {name} has shape {want.shape}")
         check_against_cpu(name, np.stack([results[i][k]
                                           for i in LONG_CHECKED]), want)
-    return launches
+    return {"launches": launches, "profile": prof, "graphs": graphs,
+            "graph_rel": graph_rel}
 
 
 # -- phase 9: kernel K3 backward ---------------------------------------------
@@ -1582,13 +1724,120 @@ def phase_train_long_bert(torch, mx, card, ctx):
     ref = {k: cpu_params[k].grad.numpy() for k in GATE_PARAMS}
     ref["loss"] = cpu_loss.detach().numpy()
     worst = gate(card, ref)
+    del cpu_net, cpu_params, cpu_loss
+    graphed = train_long_bert_graphed(torch, mx, net, step, tokens, labels,
+                                      loss_fn, card, step_ms)
     return {"launches": launches, "step_ms": step_ms, "losses": losses,
-            "peak_bytes": peak, "device_ms": device_ms, "gate_rel": worst}
+            "peak_bytes": peak, "device_ms": device_ms, "gate_rel": worst,
+            "graphed": graphed}
 
 
-def gate(card, ref):
-    """Fail unless each quantity of ``card`` is finite and within
-    GATE_RTOL of max |value| of the same one in ``ref`` (the CPU's);
+GRAPH_TRAIN_STEPS = 4                # the first captures
+GRAPH_TRAIN_PER = ("launches: the hybridized training steps' replays and "
+                   "the capture's eager warm-up passes; ms: the profiler's "
+                   "sum over one graphed step")
+
+
+def _gib(n):
+    return "not measured" if n is None else f"{n / 2**30:.3f} GiB"
+
+
+def train_long_bert_graphed(torch, mx, net, step, tokens, labels, loss_fn,
+                            card, eager_ms):
+    """The MLM hybridized: GRAPH_TRAIN_STEPS steps, the first capturing
+    the forward and the backward graphs (dropout drawn inside the
+    forward graph); two consecutive replays must draw different masks,
+    two replays after mx.random.seed(SEED) equal ones; then one graphed
+    forward + backward recorded with a bits tape against an eager one
+    replaying those bits, loss and the gated gradients within 1e-5 of
+    max |value| (same kernels, same bits)."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.cached_graph import WARMUP_ITERS
+    import numpy as np
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net.hybridize()
+    kernels.reset_launch_counts()
+    times, losses, masks = [], [], []
+    for i in range(GRAPH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        with mx.random.bits_tape() as tape:
+            loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach().mean()))
+        masks.append(tape.drawn[0].clone())
+        del loss, tape
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runs = GRAPH_TRAIN_STEPS + WARMUP_ITERS
+    for kernel, n in TRAIN_PER_STEP.items():
+        if launches[kernel] != n * runs:
+            fail(f"graphed: {kernel} launched {launches[kernel]} times, want "
+                 f"{n} x ({GRAPH_TRAIN_STEPS} steps + {WARMUP_ITERS} warm-up "
+                 "passes of the capture)")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"graphed training losses {losses} are not finite")
+    if torch.equal(masks[-1], masks[-2]):
+        fail("two consecutive graphed steps drew the same dropout mask")
+    step_ms = _median(times[1:])
+    progs = net._graphs.programs()
+    log(f"train: hybridized BERT-base MLM: step ms "
+        f"{[round(t, 3) for t in times]} (the first warms up and captures "
+        f"the forward and backward graphs); median of the last "
+        f"{GRAPH_TRAIN_STEPS - 1} {step_ms:.3f} ms against {eager_ms:.3f} "
+        f"eager, {LONG_BATCH * 1e3 / step_ms:.3f} sequences/s; losses "
+        f"{[round(v, 6) for v in losses]}; {len(progs)} program(s), pool "
+        f"{_gib(progs[0].pool_bytes)}, capture {progs[0].capture_s:.3f} s")
+    log(f"train: launches in {GRAPH_TRAIN_STEPS} graphed steps and the "
+        f"capture's {WARMUP_ITERS} warm-up passes: "
+        + ", ".join(f"{k} {launches[k]} (= {n} x {runs})"
+                    for k, n in TRAIN_PER_STEP.items()))
+    log(f"train: peak device memory eager {eager_peak / 2**30:.3f} GiB, "
+        f"graphed {peak / 2**30:.3f} GiB (empty_cache between the halves)")
+    device_ms, dev_rows = profile_step(torch, step, step_ms)
+
+    def recorded():
+        with mx.random.bits_tape() as tape:
+            with mx.autograd.record():
+                loss = loss_fn(net(tokens)[1], labels)
+            mx.autograd.backward(loss)
+        params = net.collect_params()
+        got = {k: params[k].grad.detach().cpu().numpy() for k in GATE_PARAMS}
+        got["loss"] = loss.detach().cpu().numpy()
+        return got, [b.clone() for b in tape.drawn]
+
+    mx.random.seed(SEED)
+    _, first = recorded()
+    mx.random.seed(SEED)
+    graph_q, bits = recorded()
+    same = all(torch.equal(a, b) for a, b in zip(first, bits))
+    log(f"train: {len(bits)} dropout draws per graphed forward; two replays "
+        f"after mx.random.seed({SEED}) drew equal masks: {same}; two "
+        "consecutive steps drew different ones: True")
+    if not same:
+        fail("reseeding did not reproduce the graphed dropout masks")
+    net.hybridize(active=False)
+    with mx.random.bits_tape(replay=bits):
+        with mx.autograd.record():
+            loss = loss_fn(net(tokens)[1], labels)
+        mx.autograd.backward(loss)
+    params = net.collect_params()
+    eager_q = {k: params[k].grad.detach().cpu().numpy() for k in GATE_PARAMS}
+    eager_q["loss"] = loss.detach().cpu().numpy()
+    worst = gate(graph_q, eager_q, 1e-5, "the eager step on the card")
+    return {"step_ms": step_ms, "times": times, "losses": losses,
+            "launches": launches, "peak_bytes": peak,
+            "eager_peak_bytes": eager_peak, "device_ms": device_ms,
+            "dev_rows": dev_rows, "pool_bytes": progs[0].pool_bytes,
+            "capture_s": progs[0].capture_s, "gate_rel": worst,
+            "masks_reproduced": same}
+
+
+def gate(card, ref, tol=GATE_RTOL, against="the CPU"):
+    """Fail unless each quantity of ``card`` is finite and within ``tol``
+    of max |value| of the same one in ``ref`` (the CPU's, or ``against``);
     returns the worst relative error."""
     import numpy as np
     worst, bad = 0.0, []
@@ -1598,13 +1847,13 @@ def gate(card, ref):
         err = float(np.abs(got - want).max())
         rel = err / scale
         worst = max(worst, rel)
-        log(f"train: gate {name}: max abs err {err:.6e}, max |value| "
-            f"{scale:.6e}, relative {rel:.3e} (tolerance {GATE_RTOL:g})")
-        if not (np.isfinite(got).all() and rel <= GATE_RTOL):
+        log(f"train: gate {name} vs {against}: max abs err {err:.6e}, max "
+            f"|value| {scale:.6e}, relative {rel:.3e} (tolerance {tol:g})")
+        if not (np.isfinite(got).all() and rel <= tol):
             bad.append(f"{name}: {rel}")
     if bad:
-        fail(f"training step on the card differs from the CPU by more than "
-             f"{GATE_RTOL} of max |value| in {bad}")
+        fail(f"training step on the card differs from {against} by more "
+             f"than {tol} of max |value| in {bad}")
     return worst
 
 
@@ -1847,6 +2096,8 @@ def phase_train_resnet(torch, mx, card, ctx):
     net.initialize(mx.init.Xavier(), ctx=ctx,
                    generator=mx.random.generator(SEED))
     flops = product_flops_per_image(torch, net, RN_SIZE) * RN_BATCH * 3
+    init_state = {k: v.detach().cpu().numpy().copy()
+                  for k, v in net.collect_params().items()}
     # examples/train_imagenet.py's synthetic batch
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(RN_BATCH, 3, RN_SIZE, RN_SIZE)
@@ -1951,9 +2202,123 @@ def phase_train_resnet(torch, mx, card, ctx):
         f"{tape.differ} of {tape.total} relu inputs the CPU alone would "
         "have decided the other way")
     worst = gate(card_q, cpu_q)
+    del cpu_net
+    graphed = train_resnet_graphed(torch, mx, net, x, y, loss_fn,
+                                   init_state, card, step_ms, losses)
     return {"launches": launches, "step_ms": step_ms, "losses": losses,
             "peak_bytes": peak, "device_ms": device_ms, "k1_ms": k1_ms,
-            "conv_ms": conv_ms, "flops": flops, "gate_rel": worst}
+            "conv_ms": conv_ms, "flops": flops, "gate_rel": worst,
+            "graphed": graphed}
+
+
+RN_GRAPH_RTOL = 1e-4                 # graphed vs eager step, of max
+
+
+def train_resnet_graphed(torch, mx, net, x, y, loss_fn, state, card,
+                         eager_ms, eager_losses):
+    """ResNet-50 hybridized from the eager run's initial weights and
+    running statistics (``state``) with a fresh SGD, as the eager run
+    began: TRAIN_STEPS steps, the first
+    capturing the forward graph (BatchNorm's running statistics updated
+    in place inside it) and the backward graph; then, with cuDNN
+    deterministic, one graphed forward + backward from that same state
+    against an eager one: the loss, the gated gradients and running
+    statistics within RN_GRAPH_RTOL of max |value|."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.cached_graph import WARMUP_ITERS
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net.load_dict(state)                     # in place
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(RN_SGD))
+    net.hybridize()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        mx.autograd.backward(loss)
+        trainer.step(RN_BATCH)
+        return loss
+
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach().mean()))
+        del loss
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runs = TRAIN_STEPS + WARMUP_ITERS
+    want = dict.fromkeys(launches, 0)
+    want["conv_epilogue"] = 48 * runs
+    if launches != want:
+        fail(f"graphed: launches {launches}, want {want} (48 conv_epilogue "
+             f"x ({TRAIN_STEPS} steps + {WARMUP_ITERS} warm-up passes of "
+             "the capture))")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"graphed ResNet-50 losses {losses} are not finite")
+    step_ms = _median(times[1:])
+    progs = net._graphs.programs()
+    log(f"train: hybridized ResNet-50: step ms {[round(t, 3) for t in times]}"
+        f" (the first warms up and captures); median of the last "
+        f"{TRAIN_STEPS - 1} {step_ms:.3f} ms against {eager_ms:.3f} eager, "
+        f"{RN_BATCH * 1e3 / step_ms:.3f} images/s; {len(progs)} program(s),"
+        f" pool {_gib(progs[0].pool_bytes)}, capture "
+        f"{progs[0].capture_s:.3f} s")
+    log(f"train: graphed losses {[round(v, 6) for v in losses]}, eager "
+        f"{[round(v, 6) for v in eager_losses]} (same start, same batch)")
+    log(f"train: launches in {TRAIN_STEPS} graphed steps and the capture's "
+        f"{WARMUP_ITERS} warm-up passes: conv_epilogue "
+        f"{launches['conv_epilogue']} (= 48 x {runs}), every other kernel 0")
+    log(f"train: peak device memory eager {eager_peak / 2**30:.3f} GiB, "
+        f"graphed {peak / 2**30:.3f} GiB (empty_cache between the halves)")
+    device_ms, dev_rows = profile_step(torch, step, step_ms)
+    k1 = [(c, ms) for k, (c, ms) in dev_rows.items()
+          if "conv_epilogue_kernel" in k]
+    k1_ms, k1_n = sum(ms for _, ms in k1), sum(c for c, _ in k1)
+    if dev_rows:
+        log(f"profile: graphed step: conv_epilogue_kernel {k1_ms:.3f} ms in "
+            f"{k1_n:.0f} launches (captured: "
+            f"{progs[0].fwd_launches.get('conv_epilogue', 0)} per forward)")
+        if k1_n != 48:
+            fail(f"the profiler saw {k1_n} conv_epilogue launches in a "
+                 "graphed step, want 48")
+
+    # graphed vs eager from one state, cuDNN deterministic
+    def quantities():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        mx.autograd.backward(loss)
+        params = net.collect_params()
+        got = {k: params[k].grad.detach().cpu().numpy().copy()
+               for k in RN_GATE_PARAMS}
+        got.update({k: params[k].detach().cpu().numpy().copy()
+                    for k in RN_GATE_STATS})
+        got["loss"] = loss.detach().cpu().numpy()
+        return got
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        net.hybridize(active=False)
+        net.load_dict(state)
+        eager_q = quantities()
+        net.load_dict(state)
+        net.hybridize()
+        graph_q = quantities()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        net.hybridize(active=False)
+    worst = gate(graph_q, eager_q, RN_GRAPH_RTOL,
+                 "the eager step on the card")
+    return {"step_ms": step_ms, "times": times, "losses": losses,
+            "launches": launches, "peak_bytes": peak,
+            "eager_peak_bytes": eager_peak, "device_ms": device_ms,
+            "k1_ms": k1_ms if dev_rows else None,
+            "pool_bytes": progs[0].pool_bytes,
+            "capture_s": progs[0].capture_s, "gate_rel": worst}
 
 
 def main():
@@ -1990,11 +2355,32 @@ def main():
     run("kernel K1 training", lambda: phase_kernel_k1_train(torch, ce))
     run("train ResNet", lambda: phase_train_resnet(torch, mx, card,
                                                    mx.gpu(0)))
-    k1, k1_launches = out["kernel K1"], out["serve ResNet"]
-    k2, k2_launches = out["kernel K2"], out["serve BERT"]
-    k3, k3_launches = out["kernel K3"], out["serve long BERT"]
+    k1, s1 = out["kernel K1"], out["serve ResNet"]
+    k2, s2 = out["kernel K2"], out["serve BERT"]
+    k3, s3 = out["kernel K3"], out["serve long BERT"]
+    k1_launches, k2_launches, k3_launches = (s["launches"]
+                                             for s in (s1, s2, s3))
     k3b, train = out["kernel K3 backward"], out["train long BERT"]
     k1t, rn = out["kernel K1 training"], out["train ResNet"]
+
+    def graphed_fields(serve, kernel):
+        """The kernel inside the served graphs: launches across replays
+        in the burst (every served batch replayed a graph) and its device
+        time per graphed forward (None where the profiler saw no
+        graph kernels)."""
+        prof = serve["profile"]
+        return {"graph_launches": serve["launches"][kernel],
+                "graph_ms": prof["graphed"]["kernel_ms"],
+                "eager_ms_in_forward": prof["eager"]["kernel_ms"],
+                "graph_per": "one graphed (CUDA graph replay) forward of "
+                             "the served model, the profiler's sum"}
+
+    def graphed_train(run, kernel):
+        rows = run["graphed"].get("dev_rows") or {}
+        ms = [v[1] for k, v in rows.items() if f"{kernel}_kernel" in k]
+        return {"graph_train_launches": run["graphed"]["launches"][kernel],
+                "graph_train_ms": sum(ms) if ms else None,
+                "graph_train_per": GRAPH_TRAIN_PER}
     bwd_per = (f"one BERT-base training step at batch {LONG_BATCH}, "
                f"sequence {LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} "
                "launches)")
@@ -2037,7 +2423,11 @@ def main():
         k1t["plain_ms"], "train_fwd_bwd_bound_ms": k1t["bound_ms"],
         "train_fwd_bwd_bound_by": "bytes",
         "train_grad_max_rel_err": k1t["grad_rel"],
-        "train_grad_max_rel_err_bf16": k1t["grad_rel_bf16"]}, {
+        "train_grad_max_rel_err_bf16": k1t["grad_rel_bf16"],
+        **graphed_fields(s1, "conv_epilogue"),
+        "graph_train_launches": rn["graphed"]["launches"]["conv_epilogue"],
+        "graph_train_ms": rn["graphed"]["k1_ms"],
+        "graph_train_per": GRAPH_TRAIN_PER}, {
         "name": "matmul_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/matmul_epilogue.cu",
         "replaces": "mxnet_tpu/pallas/kernels.py:285",
@@ -2053,7 +2443,9 @@ def main():
                           "computes the gelu and tanh epilogues",
         "ms_identity": k2["ms_identity"],
         "max_abs_err_p0_fp32": k2["max_abs_err_p0_fp32"],
-        "max_abs_err_bf16": k2["max_abs_err_bf16"]}, {
+        "max_abs_err_bf16": k2["max_abs_err_bf16"],
+        **graphed_fields(s2, "matmul_epilogue"),
+        **graphed_train(train, "matmul_epilogue")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "
@@ -2071,7 +2463,9 @@ def main():
         "library_covers": "torch.nn.functional.scaled_dot_product_attention"
                           " on the same inputs as [B, H, S, D]; its kernel: "
                           + k3["library_kernel"][:80],
-        "max_abs_err_bf16": k3["max_abs_err_bf16"]}, {
+        "max_abs_err_bf16": k3["max_abs_err_bf16"],
+        **graphed_fields(s3, "flash_attention"),
+        **graphed_train(train, "flash_attention")}, {
         "name": "flash_attention_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1121 (_flash_attention_bwd_dkv) via "
@@ -2083,7 +2477,8 @@ def main():
         "bound_share": k3b["share_dkv"],
         "bound_share_3xtf32": k3b["share_dkv_3xtf32"],
         "max_rel_err": k3b["rel"],
-        "max_abs_err_bf16": k3b["err_dkv_bf16"]}, {
+        "max_abs_err_bf16": k3b["err_dkv_bf16"],
+        **graphed_train(train, "flash_attention_bwd_dkv")}, {
         "name": "flash_attention_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1456 (_flash_attention_bwd_dq) via "
@@ -2095,7 +2490,8 @@ def main():
         "bound_share": k3b["share_dq"],
         "bound_share_3xtf32": k3b["share_dq_3xtf32"],
         "max_rel_err": k3b["rel"],
-        "max_abs_err_bf16": k3b["err_dq_bf16"]}]}
+        "max_abs_err_bf16": k3b["err_dq_bf16"],
+        **graphed_train(train, "flash_attention_bwd_dq")}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

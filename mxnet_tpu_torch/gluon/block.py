@@ -10,6 +10,12 @@ innermost ``autograd`` scope: training inside ``autograd.record()`` or
 or ``predict_mode()``. Outside every scope a block keeps its own mode:
 predict, as Gluon runs outside ``autograd.record``, unless ``.train()``
 switched it.
+
+``HybridBlock.hybridize()`` is the reference's CachedOp: on the card a
+hybridized block runs each call as CUDA graphs, one program per (mode,
+recording, input shapes and dtypes, device), captured at the first call
+of its key (:mod:`.cached_graph`); blocks nested in it run inside its
+graphs. On the CPU, which a caller asks for explicitly, it runs eagerly.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from .. import autograd as _autograd
 from .. import initializer as _init_mod
 from ..base import MXNetError
 from ..context import resolve_device
+from .cached_graph import (CudaGraphs, GraphCache, in_capture,
+                           structure_changed)
 from .parameter import DeferredParams
 
 __all__ = ["Block", "HybridBlock"]
@@ -49,6 +57,25 @@ class Block(nn.Module):
     def training(self, value):
         self.__dict__["_own_training"] = bool(value)
 
+    # a captured graph reads tensors by address: a program lists its
+    # block's tensors anew after any of these
+    def __setattr__(self, name, value):
+        if isinstance(value, nn.Module):
+            structure_changed()
+        super().__setattr__(name, value)
+
+    def add_module(self, name, module):
+        structure_changed()
+        super().add_module(name, module)
+
+    def register_parameter(self, name, param):
+        structure_changed()
+        super().register_parameter(name, param)
+
+    def register_buffer(self, name, tensor, persistent=True):
+        structure_changed()
+        super().register_buffer(name, tensor, persistent)
+
     def initialize(self, init=None, ctx=None, generator=None,
                    force_reinit=False):
         """Materialize and fill every parameter whose shape is known on
@@ -64,6 +91,7 @@ class Block(nn.Module):
         for module in self.modules():
             if isinstance(module, DeferredParams):
                 module._init_params(init, device, generator, force_reinit)
+        self._clear_cached_op()
         return self
 
     def collect_params(self, select=None) -> "OrderedDict[str, torch.Tensor]":
@@ -90,7 +118,7 @@ class Block(nn.Module):
         if extra and not ignore_extra:
             raise MXNetError(f"{source} has extra parameters {extra}; pass "
                              "ignore_extra=True")
-        device = None
+        device, rebound = None, False
         for key, cur in params.items():
             if key not in arrays:
                 continue
@@ -107,9 +135,12 @@ class Block(nn.Module):
                     if device is None:
                         device = resolve_device(ctx)
                     module._reset_lazy(name, spec, device)
+                    rebound = True
         state = {k: torch.tensor(np.asarray(v)) for k, v in arrays.items()
                  if k in params}
-        self.load_state_dict(state, strict=False)
+        self.load_state_dict(state, strict=False)   # in place where live
+        if rebound:
+            self._clear_cached_op()
         return self
 
     def save_parameters(self, filename):
@@ -127,12 +158,46 @@ class Block(nn.Module):
                               ignore_extra=ignore_extra, source=filename)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API compatibility and does nothing yet: the port
-        runs eagerly. Capturing the forward as CUDA graphs is planned."""
-        return None
+        """Nothing on a plain Block; recurses so that nested HybridBlocks
+        engage (ref: Block.hybridize)."""
+        for child in self.children():
+            child.hybridize(active, **kwargs)
+
+    def _clear_cached_op(self):
+        """Drop the captured graphs of this block and its descendants
+        (ref: HybridBlock._clear_cached_op): after ``initialize`` and
+        after a load that rebound a deferred parameter's storage."""
+        for module in self.modules():
+            graphs = module.__dict__.get("_graphs")
+            if graphs is not None:
+                graphs.clear()
 
 
 class HybridBlock(Block):
-    """A Block that the reference can compile as one graph (ref:
-    gluon/block.py HybridBlock). In the port it is a plain Block:
-    :meth:`Block.hybridize` is a no-op."""
+    """A Block that runs as one compiled program per input signature once
+    hybridized (ref: gluon/block.py HybridBlock; CachedOp ≡ CUDA graphs
+    here, see :mod:`.cached_graph`)."""
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  inline_limit=2, forward_bulk_size=None,
+                  backward_bulk_size=None):
+        """Capture this block's calls on the card as CUDA graphs
+        (``active``), or stop (``active=False``). Every call drops the
+        graphs captured so far and frees their pools, then recurses into
+        the children. The other arguments are the reference's and change
+        nothing: a graph is always statically allocated."""
+        self._clear_cached_op()
+        self.__dict__["_graphs"] = GraphCache(CudaGraphs()) if active \
+            else None
+        for child in self.children():
+            child.hybridize(active, static_alloc=static_alloc,
+                            static_shape=static_shape)
+
+    def __call__(self, *args, **kwargs):
+        """ref: HybridBlock.__call__ — the cached program when hybridized
+        and no outer program is being captured on this thread, else the
+        eager forward."""
+        graphs = self.__dict__.get("_graphs")
+        if graphs is None or in_capture():
+            return super().__call__(*args, **kwargs)
+        return graphs.call(self, args, kwargs)

@@ -22,7 +22,7 @@ from .flash_attention import flash_attention_bwd_plain, flash_attention_plain
 from .matmul_epilogue import (fused_matmul_epilogue, keep_threshold,
                               matmul_epilogue_plain)
 
-__all__ = ["EPILOGUE_ACTS", "conv_epilogue_plain",
+__all__ = ["EPILOGUE_ACTS", "add_launches", "conv_epilogue_plain",
            "flash_attention_bwd_plain", "flash_attention_plain",
            "fused_conv_epilogue", "fused_matmul_epilogue", "keep_threshold",
            "launch_counts", "matmul_epilogue_plain", "reset_launch_counts"]
@@ -42,3 +42,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for c in _COUNTS.values():
         c.reset()
+
+
+def add_launches(counts: dict) -> None:
+    """Add {kernel name: launches} to the counts (negative to take some
+    back): what a CUDA graph's replay ran without calling the
+    wrappers."""
+    for name, n in counts.items():
+        if n:
+            _COUNTS[name].add(n)

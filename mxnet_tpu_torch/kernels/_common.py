@@ -31,15 +31,18 @@ _ACT_FNS = {
 
 class LaunchCount:
     """How many times a wrapper launched its kernel. Only a successful
-    launch adds one; the CPU path and the plain version add nothing."""
+    launch adds one; the CPU path and the plain version add nothing. A
+    CUDA graph's replay runs launches without calling the wrapper, so
+    the graph adds the launches it captured once per replay (``n``), and
+    takes back those of the capture itself, which ran nothing."""
 
     def __init__(self):
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self):
+    def add(self, n=1):
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:

@@ -13,6 +13,9 @@ Dropout draws one uint8 per element (:func:`bits`, the counterpart of
 at least ``keep_threshold(p)``. :func:`bits_tape` records the bits a
 forward draws, or hands recorded bits back in the same order, so one
 forward on the card and one on the CPU can use the same masks.
+:func:`draws` lets a CUDA-graph capture see which generators a forward
+draws from and which tensors it draws into (see
+``gluon/cached_graph.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import threading
 
 import torch
 
-__all__ = ["bits", "bits_tape", "device_generator", "generator", "seed"]
+__all__ = ["bits", "bits_tape", "device_generator", "draws", "generator",
+           "seed"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -78,10 +82,15 @@ def bits(shape, device, generator=None) -> torch.Tensor:
                              f"{tuple(shape)} uint8")
         return out
     g = device_generator(device) if generator is None else generator
+    seen = getattr(_tape, "draws", None)
+    if seen is not None and seen.keep_states and g not in seen.states:
+        seen.states[g] = g.get_state()
     out = torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
                         device=device, generator=g)
     if tape is not None:
         tape.drawn.append(out)
+    if seen is not None:
+        seen.drawn.append(out)
     return out
 
 
@@ -104,3 +113,41 @@ def bits_tape(replay=None):
         yield tape
     finally:
         _tape.active = prev
+
+
+def replaying() -> bool:
+    """True inside :func:`bits_tape` with recorded bits to hand back."""
+    tape = getattr(_tape, "active", None)
+    return tape is not None and tape.replay is not None
+
+
+def record_drawn(tensors) -> None:
+    """Append ``tensors`` to the recording :func:`bits_tape` of this
+    thread, if one is active: a CUDA graph's static bits after a replay,
+    which hold that replay's draws."""
+    tape = getattr(_tape, "active", None)
+    if tape is not None and tape.replay is None:
+        tape.drawn.extend(tensors)
+
+
+class _Draws:
+    def __init__(self, keep_states):
+        self.keep_states = keep_states
+        self.states = {}          # generator -> state before its first draw
+        self.drawn = []           # the tensors drawn, in order
+
+
+@contextlib.contextmanager
+def draws(keep_states=True):
+    """Within the scope, :func:`bits` lists every draw on this thread:
+    ``seen.drawn`` (the tensors, in order) and, with ``keep_states``,
+    ``seen.states`` (each generator drawn from, with its state before
+    its first draw, to restore it). A :func:`bits_tape` of an enclosing
+    scope is suspended meanwhile."""
+    prev = getattr(_tape, "active", None), getattr(_tape, "draws", None)
+    seen = _Draws(keep_states)
+    _tape.active, _tape.draws = None, seen
+    try:
+        yield seen
+    finally:
+        _tape.active, _tape.draws = prev

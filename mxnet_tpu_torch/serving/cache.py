@@ -2,14 +2,17 @@
 of ``mxnet_tpu/serving/cache.py``).
 
 In the JAX package each entry is one jitted XLA program for one padded
-shape ``(batch_bucket,) + feature_key``. The port runs the block eagerly,
-so an entry is a :class:`Predictor` bound to one padded shape: it moves
-the padded batch to the server's device, runs the block under
-``torch.inference_mode()`` and brings the outputs back as numpy arrays.
-It reads the block's *current* parameters on every call. The LRU bound
-and the hit/miss/eviction counters are the JAX package's; a later
-capture of each entry as a CUDA graph will make the entries hold real
-per-shape state.
+shape ``(batch_bucket,) + feature_key``. In the port an entry is a
+:class:`Predictor` for one padded shape: on the card it captures the
+block's inference forward at that shape as a CUDA graph when it is built
+(``gluon/cached_graph.py``), and each call copies the padded batch into
+the graph's static input, replays it and copies the outputs straight to
+host numpy. The graph reads the block's parameters where they live, so
+an in-place reload reaches the next call without a capture; a rebound
+parameter makes the entry capture anew. On the CPU, which a caller asks
+for explicitly, the entry runs the block eagerly. The LRU bound and the
+hit/miss/eviction counters are the JAX package's; an evicted entry
+releases its graph and pool.
 """
 from __future__ import annotations
 
@@ -20,28 +23,87 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import autograd as _autograd
+from ..base import MXNetError
+from ..gluon import cached_graph as _cg
+
 __all__ = ["Predictor", "PredictorCache"]
 
 
 class Predictor:
-    """Inference of ``block`` at one padded shape on ``device``.
+    """Inference of ``block`` at one padded ``shape`` of ``dtype`` on
+    ``device``, in predict mode (ref: CompiledPredictor).
 
+    On a CUDA device the constructor captures the forward (``capture_s``
+    and ``pool_bytes`` describe the graph); on the CPU nothing is built
+    and every call runs the block eagerly.
     ``__call__(x_padded)`` returns ``(outputs, treedef)``: a list of numpy
     arrays and None for a single tensor output, or the output's type
     (tuple/list) to rebuild a sequence of tensors."""
 
-    def __init__(self, block, device, shape=None):
+    def __init__(self, block, device, shape, dtype="float32"):
         self._block = block
         self.device = torch.device(device)
-        self.shape = None if shape is None else tuple(shape)
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self._program = None
+        self.capture_s = 0.0
+        self.pool_bytes = None
+        if self.device.type == "cuda":
+            self._capture()
+
+    @property
+    def ready(self) -> bool:
+        """True once the forward is captured: a call replays it (ref:
+        ``CompiledPredictor.ready``); always True on the CPU, where a
+        call runs the block eagerly."""
+        return self._program is not None or self.device.type == "cpu"
+
+    def _capture(self):
+        x = torch.from_numpy(np.zeros(self.shape, self.dtype)).to(
+            self.device)
+        with _autograd.pause():
+            self._program = _cg.capture(_cg.CudaGraphs(), self._block,
+                                        (x,), {}, False, self.device)
+        self.capture_s = self._program.capture_s
+        self.pool_bytes = self._program.pool_bytes
 
     def __call__(self, x_padded):
         x = torch.from_numpy(np.ascontiguousarray(x_padded))
-        with torch.inference_mode():
-            out = self._block(x.to(self.device))
-        if isinstance(out, torch.Tensor):
-            return [out.cpu().numpy()], None
-        return [o.cpu().numpy() for o in out], type(out)
+        if self._program is None:
+            with torch.inference_mode(), _autograd.pause():
+                out = self._block(x.to(self.device))
+            if isinstance(out, torch.Tensor):
+                return [out.cpu().numpy()], None
+            return [o.cpu().numpy() for o in out], type(out)
+        if tuple(x.shape) != self.shape:
+            raise MXNetError(f"predictor for {self.shape} called with "
+                             f"{tuple(x.shape)}")
+        prog = self.replay(x)
+        outs = [o.to("cpu", copy=True).numpy() for o in prog.out]
+        return outs, None if prog.tree is None else prog.tree[0]
+
+    def replay(self, x=None):
+        """Copy ``x`` (any device) into the graph's static input, unless
+        None, and replay the graph, capturing it anew first if a parameter
+        was rebound; returns the program, whose ``out`` holds the outputs
+        until the next replay."""
+        if self._program is None:
+            raise MXNetError(f"no graph to replay on {self.device}")
+        if self._program.stale(self._block):
+            self.close()
+            self._capture()
+        prog = self._program
+        if x is not None:
+            prog.load([x])
+        prog.replay_forward()
+        return prog
+
+    def close(self):
+        """Release the graph and its pool (eviction)."""
+        prog, self._program = self._program, None
+        if prog is not None:
+            prog.release()
 
 
 class PredictorCache:
@@ -83,9 +145,15 @@ class PredictorCache:
             self.last_build_s = round(build_s, 4)
             self._lru[key] = entry
             while len(self._lru) > self.max_entries:
-                self._lru.popitem(last=False)
+                _, old = self._lru.popitem(last=False)
+                old.close()
                 self.evictions += 1
         return entry, False
+
+    def entries(self) -> list:
+        """[(key, entry)] from least to most recently used."""
+        with self._lock:
+            return list(self._lru.items())
 
     def stats(self) -> dict:
         with self._lock:

@@ -10,12 +10,17 @@ bucket grid and runs the block once per batch through the bounded
 dequeue and after the batch.
 
 The server runs on ``cuda:0`` unless it is given ``ctx=cpu()``; without
-a CUDA device and without that request it raises at construction.
+a CUDA device and without that request it raises at construction. On
+the card each predictor is a CUDA graph of one padded shape, captured
+when the predictor is built: ``start()`` builds every batch bucket x
+feature shape of ``config.aot_prewarm`` before admitting traffic
+(:meth:`Server.prewarm`), and any other shape is captured at its first
+batch. A capture that fails fails that batch's requests.
 
-Not ported yet: hot reload, the AOT cache, shard plans, the decode
-engine, tenants and fleets, the journal, tracing and metrics
-exposition, tuned tables, device retries and environment-variable
-defaults.
+Not ported yet: hot reload, the AOT cache's on-disk store (a CUDA graph
+cannot be serialized), shard plans, the decode engine, tenants and
+fleets, the journal, tracing and metrics exposition, tuned tables,
+device retries and environment-variable defaults.
 """
 from __future__ import annotations
 
@@ -96,6 +101,7 @@ class ServerConfig:
     window_ms: float = 5.0
     default_deadline_ms: float = 2000.0
     cache_entries: int = 16
+    aot_prewarm: tuple | None = None         # feature shapes warmed at start
     idle_poll_s: float = 0.05                # worker wake granularity
     dtype: str = "float32"                   # request payload dtype
     pad_value: float = 0.0
@@ -134,6 +140,7 @@ class Server:
         self._admit_lock = threading.Lock()
         self._closed = False
         self._last_batch_t = None
+        self.last_prewarm = None
         self.counters = {"accepted": 0, "served": 0, "shed": 0,
                          "rejected_shape": 0, "rejected_stopped": 0,
                          "deadline_miss_dequeue": 0,
@@ -147,6 +154,8 @@ class Server:
         self._stopping.clear()
         with self._admit_lock:
             self._closed = False
+        if self.config.aot_prewarm:
+            self.prewarm()                 # the lattice before traffic
         self._worker = threading.Thread(
             target=self._run, name="mxnet-torch-serving-worker", daemon=True)
         self._worker.start()
@@ -177,6 +186,41 @@ class Server:
             self._drain_queue(stragglers)
         self._fail_remaining(stragglers)
         self._worker = None
+
+    # -- bucket-lattice prewarm ----------------------------------------------
+    def prewarm(self, shapes=None) -> dict:
+        """Build the predictor of every batch bucket x feature shape ahead
+        of traffic (ref: Server.prewarm). ``shapes``: per-request feature
+        shapes, no batch axis (default ``config.aot_prewarm``). Returns
+        ``{warmed, loaded, compiled, skipped, ms}`` with the reference's
+        keys: ``warmed`` predictors built, ``loaded`` 0 (no graph is read
+        from disk), ``compiled`` the CUDA graphs captured (0 on the CPU,
+        where a predictor runs eagerly), ``skipped`` the shapes outside
+        the grid. A failed capture raises."""
+        shapes = shapes if shapes is not None else self.config.aot_prewarm
+        t0 = time.perf_counter()
+        warmed = 0
+        skipped = []
+        for shape in shapes or ():
+            key = self.grid.feature_key(tuple(shape))
+            if key is None:
+                skipped.append(list(shape))    # outside the grid
+                continue
+            for bucket in self.grid.batch_buckets:
+                _, hit = self.cache.get(
+                    (bucket, key, self._dtype.str),
+                    lambda b=bucket, k=key: self._build_predictor(b, k))
+                warmed += not hit
+        compiled = warmed if self.device.type == "cuda" else 0
+        out = {"warmed": warmed, "loaded": 0, "compiled": compiled,
+               "skipped": skipped,
+               "ms": round((time.perf_counter() - t0) * 1000.0, 2)}
+        self.last_prewarm = out
+        return out
+
+    def _build_predictor(self, bucket, key):
+        return Predictor(self.block, self.device, (bucket,) + key,
+                         self._dtype)
 
     # -- client surface ------------------------------------------------------
     def submit(self, x, deadline_ms=None) -> PendingResponse:
@@ -252,6 +296,7 @@ class Server:
                 "last_batch_age_s": None if t is None
                 else time.monotonic() - t,
                 "cache": self.cache.stats(),
+                "prewarm": self.last_prewarm,
                 "latency_ms": self.latency.summary(),
                 "exec_ms": self.exec_ms.summary(),
                 **counters}
@@ -335,8 +380,7 @@ class Server:
         try:
             predictor, _ = self.cache.get(
                 (bucket, key, self._dtype.str),
-                lambda: Predictor(self.block, self.device,
-                                  (bucket,) + key))
+                lambda: self._build_predictor(bucket, key))
             t0 = time.perf_counter()
             outs, treedef = predictor(padded)
             self.exec_ms.observe((time.perf_counter() - t0) * 1000.0)

@@ -2,7 +2,10 @@
 hand-written conv-epilogue (K1), matmul-epilogue (K2) and flash-attention
 (K3/K3', forward and backward) kernels against their plain versions on
 CUDA tensors, the gradients of K1, K2 and K3 against their plain
-versions' autograd and plain backward, their launch counts, and their refusals.
+versions' autograd and plain backward, their launch counts, and their refusals;
+then CUDA graphs: each kernel captured and replayed against its launch,
+hybridized narrow models against eager twins, and the server's graphed
+predictors.
 Without a card they skip; on the card run them with ``python -m pytest
 -m cuda --noconftest tests/test_torch_cuda.py`` (the suite's conftest
 imports the JAX package)."""
@@ -405,3 +408,330 @@ def test_flash_attention_forward_lse_matches_plain(cuda, case):
     assert bool((lse[~finite] == torch.inf).all())
     err = (lse[finite] - want[finite]).abs().max().item()
     assert err <= 1e-5 * want[finite].abs().max().item(), err
+
+
+# -- CUDA graphs: the kernels captured, hybridize() on narrow models ---------
+from mxnet_tpu_torch import autograd as tag            # noqa: E402
+from mxnet_tpu_torch import initializer as tinit       # noqa: E402
+from mxnet_tpu_torch import random as trandom          # noqa: E402
+from mxnet_tpu_torch.gluon import cached_graph as cg   # noqa: E402
+
+
+def _graph(device, fn, generators=()):
+    """``fn`` warmed up and captured by the port's backend; returns the
+    graph and the static output, and the bits the capture drew."""
+    backend = cg.CudaGraphs()
+    backend.warm_up(fn, device)
+    with trandom.draws(keep_states=False) as seen:
+        graph, out = backend.capture(fn, backend.new_pool(device),
+                                     list(generators), device)
+    return graph, out, seen.drawn
+
+
+def test_conv_epilogue_replays_equal_its_launch(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn(8, 64, 56, 56, generator=gen, device=cuda)
+    s = torch.rand(64, generator=gen, device=cuda) + 0.5
+    b = torch.randn(64, generator=gen, device=cuda)
+    r = torch.randn(8, 64, 56, 56, generator=gen, device=cuda)
+
+    def fn():
+        return ce.fused_conv_epilogue(x, s, b, r, channel_axis=1,
+                                      act_type="relu")
+
+    graph, out, _ = _graph(cuda, fn)
+    for _ in range(2):
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+        graph.replay()
+        assert torch.equal(out, fn())
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_matmul_epilogue_replays_equal_its_launch(cuda, p):
+    """K2 in a graph, p 0 and p 0.1 with bits drawn inside the graph from
+    a registered generator: each replay equals the eager kernel on the
+    bits that replay drew, and two replays draw different bits."""
+    from mxnet_tpu_torch.ops import contrib
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    y = torch.randn(1024, 768, generator=gen, device=cuda)
+    bias = torch.randn(768, generator=gen, device=cuda)
+    drop = trandom.generator(5, cuda)
+
+    def fn():
+        return contrib.matmul_epilogue(y, bias, act_type="gelu", p=p,
+                                       training=True, generator=drop)
+
+    graph, out, drawn = _graph(cuda, fn, [drop])
+    assert len(drawn) == (1 if p else 0)
+    seen = []
+    for _ in range(2):
+        y.copy_(torch.randn(y.shape, generator=gen, device=cuda))
+        graph.replay()
+        bits = drawn[0].clone() if p else None
+        want = me.fused_matmul_epilogue(y, bias, act_type="gelu", p=p,
+                                        bits=bits)
+        assert torch.equal(out, want)
+        seen.append(bits)
+    if p:
+        assert not torch.equal(*seen)
+
+
+def test_flash_attention_and_backward_replay_equal_their_launches(cuda):
+    """K3 and both K3 backward kernels in one graph (forward, then
+    ``autograd.grad``): each replay equals the eager kernels."""
+    q, k, v = (t.clone().requires_grad_()
+               for t in flash_inputs((2, 3, 1100, 1100, 64, True, "bhsd"),
+                                     torch.float32, cuda))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    dout = torch.randn(q.shape, generator=gen, device=cuda)
+
+    def fn():
+        out = fa.flash_attention(q, k, v, causal=True)
+        return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    graph, static, _ = _graph(cuda, fn)
+    for _ in range(2):
+        with torch.no_grad():
+            for t in (q, k, v, dout):
+                t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+        kernels.reset_launch_counts()
+        graph.replay()
+        assert not any(kernels.launch_counts().values())   # no wrapper ran
+        for got, want in zip(static, fn()):
+            assert torch.equal(got, want)
+
+
+def _narrow_resnet(cuda):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                          [8, 16, 32, 64, 128], classes=10)
+    net.initialize(tinit.Xavier(), ctx=cuda,
+                   generator=trandom.generator(0))
+    net(torch.zeros(2, 3, 32, 32, device=cuda))
+    return net
+
+
+def _narrow_bert(cuda, dropout=0.0, max_length=64):
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    net = bert.BERTModel(num_layers=2, units=64, hidden_size=128,
+                         num_heads=2, max_length=max_length, vocab_size=100,
+                         dropout=dropout, use_pooler=False,
+                         use_classifier=False)
+    net.initialize(tinit.Normal(0.02), ctx=cuda,
+                   generator=trandom.generator(0))
+    net(torch.zeros(1, 4, dtype=torch.int32, device=cuda))
+    return net
+
+
+def _twin(net, make, cuda):
+    other = make(cuda)
+    other.load_dict({k: v.detach().cpu().numpy()
+                     for k, v in net.collect_params().items()})
+    return other
+
+
+def _step(net, x, y, loss_fn, pick=None):
+    with tag.record():
+        out = net(x)
+        loss = loss_fn(out if pick is None else out[pick], y)
+    tag.backward(loss)
+    return loss.detach()
+
+
+def _close_rel(got, want, tol, what):
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
+    assert err <= tol * scale, f"{what}: {err} > {tol} x {scale}"
+
+
+def _same_step(a, b, tol):
+    """Every gradient (a parameter the step did not reach: zeros in a
+    graphed block, as the reference's VJP gives, None in an eager one)
+    and every buffer of ``a`` and ``b`` within ``tol`` of max |value|."""
+    pa, pb = a.collect_params(), b.collect_params()
+    for name in pa:
+        if pa[name].requires_grad:
+            ga, gb = (torch.zeros_like(p) if p.grad is None else p.grad
+                      for p in (pa[name], pb[name]))
+            _close_rel(ga, gb, tol, f"grad {name}")
+        else:
+            _close_rel(pa[name], pb[name], tol, name)
+
+
+@pytest.fixture
+def deterministic():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = old
+
+
+def test_hybridized_resnet_predicts_and_trains_as_eager(cuda, deterministic):
+    """The narrow ResNet V1 hybridized against an eager twin: predict
+    outputs bit-equal, 12 K1 launches per replay; three recorded steps
+    (SGD momentum) give equal losses, gradients and running statistics
+    within 1e-5 of max |value| (cuDNN deterministic)."""
+    from mxnet_tpu_torch import gluon
+    net = _narrow_resnet(cuda)
+    eager = _twin(net, _narrow_resnet, cuda)
+    net.hybridize()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    x = torch.randn(16, 3, 32, 32, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (16,), generator=gen, device=cuda).float()
+    with torch.inference_mode():
+        want = eager(x)
+        net(x)
+        kernels.reset_launch_counts()
+        got = net(x)
+    assert kernels.launch_counts() == dict(_NONE, conv_epilogue=12)
+    assert torch.equal(got, want)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    sgd = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    t_net = gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+    t_eager = gluon.Trainer(eager.collect_params(), "sgd", dict(sgd))
+    for _ in range(3):
+        _close_rel(_step(net, x, y, loss_fn), _step(eager, x, y, loss_fn),
+                   1e-5, "loss")
+        _same_step(net, eager, 1e-5)
+        t_net.step(16)
+        t_eager.step(16)
+    assert len(net._graphs) == 2          # one predict, one training program
+
+
+def test_hybridized_bert_trains_as_eager_with_the_graphs_bits(cuda):
+    """The narrow BERT MLM at S 1100 (K3 and its backward, K2 with
+    dropout 0.1 drawn inside the graph): the predict outputs bit-equal to
+    the eager ones; a graphed step recorded with a bits tape equals an
+    eager step replaying those bits, loss and every gradient within 1e-5
+    of max |value|; two replays draw different masks and reseeding
+    reproduces them."""
+    from mxnet_tpu_torch import gluon
+    net = _narrow_bert(cuda, dropout=0.1, max_length=1100)
+    eager = _twin(net, lambda d: _narrow_bert(d, 0.1, 1100), cuda)
+    net.hybridize()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    x = torch.randint(0, 100, (2, 1100), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    y = x.float()
+    with torch.inference_mode():
+        for got, want in zip(net(x), eager(x)):
+            assert torch.equal(got, want)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    masks = []
+    for seed in (7, 7, None):
+        if seed is not None:
+            trandom.seed(seed)
+        with trandom.bits_tape() as tape:
+            got = _step(net, x, y, loss_fn, pick=1)
+        masks.append([b.clone() for b in tape.drawn])
+    assert len(masks[0]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(masks[0], masks[1]))
+    assert not all(torch.equal(a, b) for a, b in zip(masks[1], masks[2]))
+    with trandom.bits_tape(replay=masks[2]):
+        want = _step(eager, x, y, loss_fn, pick=1)
+    _close_rel(got, want, 1e-5, "loss")
+    _same_step(net, eager, 1e-5)
+    with trandom.bits_tape(replay=masks[2]):
+        with pytest.raises(MXNetError, match="replay"):
+            net(x)
+
+
+def test_hybridized_grad_req_add_accumulates_as_eager(cuda, deterministic):
+    """grad_req "add" over two graphed steps: the parameters' .grad are
+    not the graph's buffers (a replay would overwrite them), so they sum
+    as eager ones."""
+    from mxnet_tpu_torch import gluon
+    net = _narrow_resnet(cuda)
+    eager = _twin(net, _narrow_resnet, cuda)
+    net.hybridize()
+    for m in (net, eager):
+        for p in m.collect_params().values():
+            if p.requires_grad:
+                p.grad_req = "add"
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(2):
+        x = torch.randn(4, 3, 32, 32, generator=gen, device=cuda)
+        y = torch.randint(0, 10, (4,), generator=gen, device=cuda).float()
+        _step(net, x, y, loss_fn)
+        _step(eager, x, y, loss_fn)
+    _same_step(net, eager, 1e-5)
+
+
+def test_hybridized_two_forwards_before_one_backward(cuda, deterministic):
+    """Two calls at one key inside one record(), one backward: a second
+    program takes the second call, and the gradients equal eager ones."""
+    from mxnet_tpu_torch import gluon
+    net = _narrow_resnet(cuda)
+    eager = _twin(net, _narrow_resnet, cuda)
+    net.hybridize()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    x1, x2 = (torch.randn(4, 3, 32, 32, generator=gen, device=cuda)
+              for _ in range(2))
+    y = torch.randint(0, 10, (4,), generator=gen, device=cuda).float()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for m in (net, eager):
+        with tag.record():
+            loss = loss_fn(m(x1), y) + 2 * loss_fn(m(x2), y)
+        tag.backward(loss)
+    assert len(net._graphs) == 2
+    _same_step(net, eager, 1e-5)
+
+
+def test_hybridized_reads_parameters_at_call_time(cuda):
+    """load_dict into live parameters after the capture (in place) changes
+    the graphed output to the eager one of the new weights, no capture;
+    a rebound parameter makes the block capture anew."""
+    net = _narrow_bert(cuda)
+    other = _narrow_bert(cuda)
+    with torch.no_grad():
+        for t in other.collect_params().values():
+            if t.requires_grad:
+                t.add_(0.01)
+    x = torch.randint(0, 100, (2, 12), device=cuda, dtype=torch.int32)
+    net.hybridize()
+    with torch.inference_mode():
+        before = net(x)[0]
+        net.load_dict({k: v.detach().cpu().numpy()
+                       for k, v in other.collect_params().items()})
+        after = net(x)[0]
+        want = other(x)[0]
+    assert net._graphs.captures == 1
+    assert not torch.equal(before, after)
+    assert torch.equal(after, want)
+    net.word_embed.weight = torch.nn.Parameter(
+        other.word_embed.weight.detach().clone() * 2)
+    with torch.inference_mode():
+        rebound = net(x)[0]
+    assert net._graphs.captures == 2
+    assert not torch.equal(rebound, after)
+
+
+def test_server_serves_from_graphed_predictors(cuda):
+    """The server on the card with aot_prewarm: one graph per batch
+    bucket captured before traffic; each request, served alone at batch
+    bucket 1, equals the eager forward of that sample at batch 1 (the
+    same shape, so the same convolution algorithms) within 1e-6 of max
+    |value|."""
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    net = _narrow_resnet(cuda)
+    cfg = ServerConfig(max_batch=4, aot_prewarm=((3, 32, 32),))
+    server = Server(net, cfg, ctx=cuda).start()
+    try:
+        warm = server.stats()["prewarm"]
+        assert (warm["warmed"], warm["loaded"], warm["compiled"]) == (3, 0, 3)
+        x = torch.randn(3, 3, 32, 32, device=cuda)
+        got = [server.predict(x[i].cpu().numpy()) for i in range(3)]
+    finally:
+        server.stop()
+    for i in range(3):
+        with torch.inference_mode():
+            want = net(x[i:i + 1])[0].cpu().numpy()
+        assert abs(got[i] - want).max() <= 1e-6 * abs(want).max()
