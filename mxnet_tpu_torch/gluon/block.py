@@ -29,7 +29,7 @@ from torch.nn.parameter import is_lazy
 
 from .. import autograd as _autograd
 from .. import initializer as _init_mod
-from ..base import MXNetError
+from ..base import MXNetError, as_torch_dtype
 from ..context import resolve_device
 from .cached_graph import (CudaGraphs, GraphCache, in_capture,
                            structure_changed)
@@ -156,6 +156,26 @@ class Block(nn.Module):
             arrays = {k: data[k] for k in data.files}
         return self.load_dict(arrays, ctx=ctx, allow_missing=allow_missing,
                               ignore_extra=ignore_extra, source=filename)
+
+    def cast(self, dtype):
+        """Cast every floating parameter and buffer of this block and its
+        descendants to ``dtype`` (ref: Block.cast), and reset each
+        parameter's gradient to zeros of the new dtype, as the reference
+        re-creates the gradient buffer. Parameters still to infer take
+        ``dtype`` when they materialize. Drops the captured graphs."""
+        dtype = as_torch_dtype(dtype)
+        for module in self.modules():
+            for spec in getattr(module, "_specs", {}).values():
+                if spec.dtype.is_floating_point:
+                    spec.dtype = dtype
+        with torch.no_grad():
+            for t in self.state_dict(keep_vars=True).values():
+                if t.is_floating_point():
+                    t.data = t.data.to(dtype)
+                    if t.grad is not None:
+                        t.grad = torch.zeros_like(t)
+        self._clear_cached_op()
+        return self
 
     def hybridize(self, active=True, **kwargs):
         """Nothing on a plain Block; recurses so that nested HybridBlocks

@@ -146,6 +146,7 @@ class Program:
         self.static_in = []        # one buffer per tensor input
         self.out, self.tree = [], None
         self.bits = []             # the forward graph's dropout bits
+        self.generators = 0        # dropout generators the graph draws from
         self.fwd_launches, self.bwd_launches = {}, {}
         self.n_inputs = 0          # tensor inputs + trainable parameters
         self.grad_of = []          # input positions the backward fills
@@ -168,7 +169,7 @@ class Program:
         with torch.no_grad():
             for s, t in zip(self.static_in, tensors):
                 if s.data_ptr() != t.data_ptr():
-                    s.copy_(t)
+                    s.copy_(t, non_blocking=True)
 
     def replay_forward(self):
         self.fwd.replay()
@@ -274,10 +275,11 @@ def _unflatten(flat, tree):
 
 
 @contextlib.contextmanager
-def _state_kept(block):
-    """Run the scope, then put back the block's buffers and every
-    dropout generator the scope drew from as they were before it."""
-    buffers = [b for b in block.buffers() if not is_lazy(b)]
+def _state_kept(block, extra=()):
+    """Run the scope, then put back the block's buffers, the tensors of
+    ``extra`` and every dropout generator the scope drew from as they
+    were before it."""
+    buffers = [b for b in block.buffers() if not is_lazy(b)] + list(extra)
     with torch.no_grad():
         saved = [b.clone() for b in buffers]
     with _random.draws() as seen:
@@ -298,6 +300,25 @@ def _launches_taken_back(before):
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     _kernels.add_launches({k: -n for k, n in delta.items()})
     return delta
+
+
+def _record(backend, fn, pool, generators, device):
+    """Capture ``fn`` into a graph: (graph, its outputs, the kernel
+    launches each replay runs, the dropout bits it draws)."""
+    before = _kernels.launch_counts()
+    with _random.draws(keep_states=False) as seen:
+        graph, out = backend.capture(fn, pool, generators, device)
+    return graph, out, _launches_taken_back(before), seen.drawn
+
+
+def _finish(prog, backend, block, pool, device, t0):
+    """Note the addresses ``prog`` reads, its pool's bytes and the time
+    its capture took since ``t0``."""
+    prog.slots, prog.structure = _slots(block), _structure[0]
+    prog.addresses = _addresses(prog.slots)
+    measure = getattr(backend, "pool_bytes", None)
+    prog.pool_bytes = None if measure is None else measure(pool, device)
+    prog.capture_s = time.perf_counter() - t0
 
 
 def capture(backend, block, args, kwargs, recording, device) -> Program:
@@ -351,25 +372,17 @@ def _capture(backend, block, args, kwargs, recording, device):
     pool = backend.new_pool(device)
     with _state_kept(block) as warm:
         backend.warm_up(warm_step, device)
-        before = _kernels.launch_counts()
-        with _random.draws(keep_states=False) as seen:
-            prog.fwd, prog.out = backend.capture(forward, pool,
-                                                 list(warm.states), device)
-        prog.fwd_launches = _launches_taken_back(before)
-        prog.bits, prog.tree = seen.drawn, live["tree"]
+        prog.fwd, prog.out, prog.fwd_launches, prog.bits = _record(
+            backend, forward, pool, list(warm.states), device)
+        prog.tree, prog.generators = live["tree"], len(warm.states)
         if recording and targets and any(o.requires_grad for o in prog.out):
             live["gout"] = [torch.empty_like(o) if o.requires_grad else None
                             for o in prog.out]
-            before = _kernels.launch_counts()
-            prog.bwd, grads = backend.capture(backward, pool, [], device)
-            prog.bwd_launches = _launches_taken_back(before)
+            prog.bwd, grads, prog.bwd_launches, _ = _record(
+                backend, backward, pool, [], device)
             prog.gout, prog.grads = live["gout"], list(grads)
             prog.grad_of, prog.targets = positions, targets
-    prog.slots, prog.structure = _slots(block), _structure[0]
-    prog.addresses = _addresses(prog.slots)
-    measure = getattr(backend, "pool_bytes", None)
-    prog.pool_bytes = None if measure is None else measure(pool, device)
-    prog.capture_s = time.perf_counter() - t0
+    _finish(prog, backend, block, pool, device, t0)
     return prog
 
 

@@ -79,6 +79,14 @@ class SoftmaxCrossEntropyLoss(Loss):
             raise MXNetError("label_smoothing requires sparse_label=True "
                              "(smooth dense label distributions yourself)")
 
+    @property
+    def amp_safe(self):
+        """True when this loss does its own fp32-accumulated reductions on
+        reduced-precision inputs, so ``ShardedTrainer`` may skip the fp32
+        cast of the model's outputs: the fused sparse path only (ref: the
+        JAX loss's ``amp_safe``)."""
+        return self._sparse_label and not self._from_logits
+
     def forward(self, pred, label, sample_weight=None):
         axis = self._axis
         if self._sparse_label and not self._from_logits:

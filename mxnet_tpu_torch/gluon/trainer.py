@@ -9,6 +9,12 @@ and applies the optimizer to every weight with its ``.grad``, in place.
 A weight that no backward reached is updated with a zero gradient, as the
 reference's zero-filled gradient buffer gives. There is no KVStore: on
 one device ``allreduce_grads`` has nothing to do.
+
+With fp16 AMP (``contrib.amp.init("float16")`` and ``amp.init_trainer``)
+``step`` checks every gradient with one fused reduction and one host
+read: a non-finite step skips the update, leaving weights and optimizer
+state untouched, and halves the loss scale. bf16 has fp32's exponent
+range, so no check runs.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        self._skipped_steps = 0
 
     @property
     def learning_rate(self):
@@ -56,10 +63,42 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size):
-        """Rescale by ``1 / batch_size`` and update (ref: Trainer.step)."""
+    @property
+    def skipped_steps(self):
+        """Steps skipped on a non-finite gradient so far."""
+        return self._skipped_steps
+
+    def _active_scaler(self):
+        """The fp16 loss scaler, or None: bf16 cannot overflow where fp32
+        does not, so its steps are not checked."""
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            from ..contrib.amp import amp_dtype
+            if amp_dtype() != "float16":
+                scaler = None
+        return scaler
+
+    def step(self, batch_size, ignore_stale_grad=False, loss=None):
+        """Rescale by ``1 / batch_size`` and update (ref: Trainer.step).
+        With an fp16 loss scaler, one fused finiteness check over the
+        gradients (and ``loss``'s mean, when given) and one host read
+        decide the step: on overflow the update is skipped and the scale
+        halved. A weight no backward reached is updated with a zero
+        gradient either way (``ignore_stale_grad`` changes nothing)."""
         self.allreduce_grads()
+        scaler = self._active_scaler()
+        if scaler is not None:
+            from ..guardrails import fused
+            grads = [p.grad for p in self._params if p.grad is not None]
+            mean = None if loss is None else torch.mean(loss.float())
+            finite, _ = fused.guard_stats(grads, mean)
+            if not fused.host_fetch(finite)[0]:
+                self._skipped_steps += 1
+                scaler.update_scale(True)
+                return
         self.update(batch_size)
+        if scaler is not None:
+            scaler.update_scale(False)
 
     def allreduce_grads(self):
         """Nothing to reduce on one device (ref: Trainer.allreduce_grads)."""

@@ -66,6 +66,11 @@ class Optimizer:
     def learning_rate(self):
         return self.lr
 
+    def _get_wd(self, index):
+        """The wd of weight ``index`` (ref: Optimizer._get_wd; no wd
+        multipliers yet)."""
+        return self.wd
+
     def _common(self):
         return dict(lr=self.lr, wd=self.wd, rescale_grad=self.rescale_grad,
                     clip_gradient=self.clip_gradient

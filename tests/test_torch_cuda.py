@@ -4,8 +4,9 @@ hand-written conv-epilogue (K1), matmul-epilogue (K2) and flash-attention
 CUDA tensors, the gradients of K1, K2 and K3 against their plain
 versions' autograd and plain backward, their launch counts, and their refusals;
 then CUDA graphs: each kernel captured and replayed against its launch,
-hybridized narrow models against eager twins, and the server's graphed
-predictors.
+hybridized narrow models against eager twins, the server's graphed
+predictors, and ``parallel.ShardedTrainer``'s whole step as one graph
+(an fp16 overflow skipped inside it; graphed steps against eager ones).
 Without a card they skip; on the card run them with ``python -m pytest
 -m cuda --noconftest tests/test_torch_cuda.py`` (the suite's conftest
 imports the JAX package)."""
@@ -735,3 +736,143 @@ def test_server_serves_from_graphed_predictors(cuda):
         with torch.inference_mode():
             want = net(x[i:i + 1])[0].cpu().numpy()
         assert abs(got[i] - want).max() <= 1e-6 * abs(want).max()
+
+
+def _sharded(net, opt, params, dtype, eager=False):
+    from mxnet_tpu_torch import gluon, parallel
+    trainer = parallel.ShardedTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), opt, dict(params),
+        mesh=parallel.make_mesh({"data": 1, "model": 1}),
+        compute_dtype=dtype)
+    if eager:
+        trainer._backend = None
+    return trainer
+
+
+_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def test_sharded_fp16_overflow_is_skipped_inside_the_graph(cuda):
+    """The narrow ResNet V1 through ShardedTrainer in fp16: after two
+    graphed steps, a step at loss scale 2^40 overflows; inside the graph
+    the weights, the momentum and the BatchNorm running statistics stay
+    bit-unchanged, the scale halves, the skip is counted, and no second
+    program is captured."""
+    net = _narrow_resnet(cuda)
+    trainer = _sharded(net, "sgd", _SGD, "float16")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    x = torch.randn(16, 3, 32, 32, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (16,), generator=gen, device=cuda)
+    for _ in range(2):
+        trainer.step(x, y)
+    before = {k: v.detach().clone() for k, v in net.collect_params().items()}
+    states = [s.clone() for st in trainer._states for s in st]
+    skipped = trainer.skipped_steps
+    trainer._scaler.loss_scale = 2.0 ** 40
+    trainer.step(x, y)
+    torch.cuda.synchronize()
+    assert trainer._scaler.loss_scale == 2.0 ** 39
+    assert trainer.skipped_steps == skipped + 1
+    assert len(trainer._programs) == 1
+    for k, v in net.collect_params().items():
+        assert torch.equal(v, before[k]), k
+    for s, b in zip((s for st in trainer._states for s in st), states):
+        assert torch.equal(s, b)
+
+
+@pytest.mark.parametrize("model", ["resnet", "bert"])
+def test_graphed_sharded_step_equals_eager(cuda, deterministic, model):
+    """Three bf16 ShardedTrainer steps captured as one CUDA graph against
+    an eager twin on the card from the same weights: the narrow ResNet V1
+    (SGD momentum, cuDNN deterministic) and the narrow BERT MLM (Adam,
+    dropout 0.1, the eager step replaying the graph's bits). Losses,
+    outputs, weights, optimizer state and statistics within 1e-5 of max
+    |value| (measured bit-equal in the graphs of hybridize)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import random as trandom
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    if model == "resnet":
+        net = _narrow_resnet(cuda)
+        twin = _twin(net, _narrow_resnet, cuda)
+        opt, params = "sgd", _SGD
+        x = torch.randn(16, 3, 32, 32, generator=gen, device=cuda)
+        y = torch.randint(0, 10, (16,), generator=gen, device=cuda)
+        wrap = lambda n: n                                   # noqa: E731
+    else:
+        def make(dev):
+            return _narrow_bert(dev, dropout=0.1)
+        net = make(cuda)
+        twin = _twin(net, make, cuda)
+        opt, params = "adam", {"learning_rate": 1e-3}
+        x = torch.randint(0, 100, (4, 16), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        y = x
+
+        class MLM(gluon.HybridBlock):
+            def __init__(self, inner):
+                super().__init__()
+                self.inner = inner
+
+            def forward(self, tokens):
+                return self.inner(tokens)[1]
+        wrap = MLM
+    graphed = _sharded(wrap(net), opt, params, "bfloat16")
+    eager = _sharded(wrap(twin), opt, params, "bfloat16", eager=True)
+    for _ in range(3):
+        with trandom.bits_tape() as tape:
+            gl = graphed.step(x, y)
+        bits = [b.clone() for b in tape.drawn]
+        with trandom.bits_tape(replay=bits):
+            el = eager.step(x, y)
+        _close_rel(gl, el, 1e-5, "loss")
+        for g, e in zip(graphed.last_outputs, eager.last_outputs):
+            _close_rel(g.float(), e.float(), 1e-5, "outputs")
+    assert len(graphed._programs) == 1 and not eager._programs
+    pa, pb = net.collect_params(), twin.collect_params()
+    for k in pa:
+        _close_rel(pa[k].float(), pb[k].float(), 1e-5, k)
+    for sa, sb in zip(graphed._states, eager._states):
+        for a, b in zip(sa, sb):
+            _close_rel(a, b, 1e-5, "optimizer state")
+
+
+@pytest.mark.parametrize("rebind", ["cast", "clone"])
+def test_graphed_sharded_step_recaptures_after_a_rebind(cuda, deterministic,
+                                                        rebind):
+    """A graph reads the parameters at the addresses it captured. After
+    the first bf16 graphed step of the narrow ResNet V1, the masters are
+    cast to bf16 (``Block.cast``) or each rebound to a copy of itself;
+    the next two graphed steps capture anew and equal an eager twin's
+    within 1e-5 of max |value|, and the rebound parameters are the ones
+    updated."""
+    net = _narrow_resnet(cuda)
+    twin = _twin(net, _narrow_resnet, cuda)
+    graphed = _sharded(net, "sgd", _SGD, "bfloat16")
+    eager = _sharded(twin, "sgd", _SGD, "bfloat16", eager=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    x = torch.randn(16, 3, 32, 32, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (16,), generator=gen, device=cuda)
+    for step in range(3):
+        if step == 1:
+            for tr in (graphed, eager):
+                if rebind == "cast":
+                    tr._block.cast("bfloat16")
+                else:
+                    for p in tr._trainable:
+                        p.data = p.data.clone()
+            before = [p.detach().clone() for p in graphed._trainable]
+            first = next(iter(graphed._programs.values()))
+        _close_rel(graphed.step(x, y), eager.step(x, y), 1e-5, "loss")
+    assert first.released and len(graphed._programs) == 1
+    assert any(not torch.equal(p, b)
+               for p, b in zip(graphed._trainable, before))
+    pa, pb = net.collect_params(), twin.collect_params()
+    for k in pa:
+        assert pa[k].dtype == pb[k].dtype, k
+        _close_rel(pa[k].float(), pb[k].float(), 1e-5, k)
+    for sa, sb in zip(graphed._states, eager._states):
+        for a, b in zip(sa, sb):
+            _close_rel(a, b, 1e-5, "optimizer state")

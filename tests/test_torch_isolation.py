@@ -79,3 +79,24 @@ def test_no_cuda_means_raise_not_cpu(monkeypatch):
         assert Server(dense).device == torch.device("cpu")
     assert dense.weight.device == torch.device("cpu")
     assert tmx.current_context() == tmx.gpu(0)
+
+
+def test_no_cuda_mesh_and_sharded_trainer_raise(monkeypatch):
+    """Without a card make_mesh() and a ShardedTrainer on the default mesh
+    raise; a CPU mesh is what a caller asks for explicitly."""
+    from mxnet_tpu_torch import parallel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        parallel.make_mesh()
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        parallel.make_mesh({"data": 1, "model": 1})
+    net = nn.Dense(2, in_units=3).initialize(ctx=tmx.cpu())
+    trainer = parallel.ShardedTrainer(net, tmx.gluon.loss.L2Loss(), "sgd")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        trainer.step(torch.zeros(4, 3), torch.zeros(4, 2))
+    mesh = parallel.make_mesh({"data": 1}, devices=[tmx.cpu()])
+    trainer = parallel.ShardedTrainer(net, tmx.gluon.loss.L2Loss(), "sgd",
+                                      mesh=mesh)
+    assert trainer.device == torch.device("cpu")
+    assert torch.isfinite(trainer.step(torch.zeros(4, 3),
+                                       torch.zeros(4, 2)))

@@ -5,6 +5,7 @@ Run from the root of a checkout:
 
     python3 tools/resnet_probes.py gate-sensitivity [--steps N]
     python3 tools/resnet_probes.py ab-forward DIR_A DIR_B
+    python3 tools/resnet_probes.py bf16-divergence
 
 ``gate-sensitivity`` (CPU) asks how far a batch-1 training step's
 gradients, the ones ``chip_smoke.py``'s ResNet gate compares, move when
@@ -21,10 +22,21 @@ inputs changed sign.
 ``ab-forward`` (card) times the batch-8 predict forward of ResNet-50 v1
 in two checkouts, in turns A B B A A B, each in a fresh process: the
 median and minimum host wall of 60 forwards after 10 warm-up ones.
+
+``bf16-divergence`` (card) asks why ``chip_smoke.py``'s bf16 ResNet
+gate replays values: ResNet-50 v1 through ``ShardedTrainer(compute_dtype=
+"bfloat16")`` trains 3 steps at batch 64 on the card, then one batch-1
+step of the trainer's differentiated function runs on the card and on
+the CPU from the same weights, the card's relu decisions replayed. It
+prints each BatchNorm output's max difference relative to its max
+|value|, in forward order, and the gate's five gradients' relative
+differences, first so, then with ``chip_smoke.ValueTape`` (each
+BatchNorm's and residual epilogue's value and gradient replayed).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -140,6 +152,65 @@ def ab_forward(dir_a, dir_b):
         print(out.stdout.strip().splitlines()[-1], flush=True)
 
 
+def bf16_divergence():
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    cs.phase_card(torch)
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(64, 3, 224, 224).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, (64,)).astype(np.int32))
+    net, trainer = cs.sh_resnet(torch, mx, mx.gpu(0), "bfloat16")
+    for _ in range(3):
+        trainer.step(x.to(dev), y.to(dev))
+    state = {k: v.detach().cpu().numpy().copy()
+             for k, v in net.collect_params().items()}
+    cpu_tr = cs.sh_resnet(torch, mx, mx.cpu(), "bfloat16", state)[1]
+    cpu_tr.prepare(x[:1])
+    batch_norm, outs = ops_nn.batch_norm, []
+
+    def recorded(*args, **kwargs):
+        out, mean, var = batch_norm(*args, **kwargs)
+        outs.append(out.detach().float().cpu())
+        return out, mean, var
+
+    for teacher in (False, True):
+        tapes = [cs.ReluTape(torch)] + ([cs.ValueTape(torch)] if teacher
+                                        else [])
+        got = []
+        for tr, replay in ((trainer, False), (cpu_tr, True)):
+            outs.clear()
+            for tape in tapes:
+                tape.replay = replay
+            ops_nn.batch_norm = recorded
+            try:
+                with contextlib.ExitStack() as stack:
+                    for tape in tapes:
+                        stack.enter_context(tape)
+                    _, grads, _ = tr._loss_and_grads(
+                        [x[:1].to(tr.device)], y[:1].to(tr.device))
+            finally:
+                ops_nn.batch_norm = batch_norm
+            named = dict(zip((n for n, _ in tr._named), grads))
+            got.append(([o.clone() for o in outs],
+                        {k: named[k].float().cpu() for k in
+                         cs.RN_GATE_PARAMS}))
+        (card_bn, card_g), (cpu_bn, cpu_g) = got
+        print(json.dumps({
+            "values_replayed": teacher,
+            "bn_rel_by_layer": [round(float((a - b).abs().max()
+                                            / b.abs().max()), 5)
+                                for a, b in zip(card_bn, cpu_bn)],
+            "grad_rel": {k: float((card_g[k] - cpu_g[k]).abs().max()
+                                  / cpu_g[k].abs().max())
+                         for k in cs.RN_GATE_PARAMS}}), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="probe", required=True)
@@ -148,9 +219,12 @@ def main():
     ab = sub.add_parser("ab-forward")
     ab.add_argument("dir_a")
     ab.add_argument("dir_b")
+    sub.add_parser("bf16-divergence")
     args = parser.parse_args()
     if args.probe == "gate-sensitivity":
         gate_sensitivity(args.steps)
+    elif args.probe == "bf16-divergence":
+        bf16_divergence()
     else:
         ab_forward(args.dir_a, args.dir_b)
 
