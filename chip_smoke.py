@@ -12,8 +12,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 2. build     — compile every CUDA kernel of the port from its source with
                nvcc for sm_90a, all sources at once; print the seconds and,
                per instance of the flash-attention kernels (the forward,
-               dK/dV and dQ), ptxas's registers, stack and spill bytes and
-               the dynamic shared memory of a CTA.
+               dK/dV and dQ: fp32 3xTF32, 16-bit wgmma and mma.sync
+               m16n8k16), ptxas's registers, stack and spill bytes and the
+               dynamic shared memory of a CTA.
 3. kernel K1 — hold the conv-epilogue kernel against its plain PyTorch
                version on the card: ResNet-50 v1's own epilogue shapes at
                batch 8 and ragged ones; row, column and none modes; with
@@ -91,16 +92,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                call (gradients written into one fused (4, 4096, 2304)
                buffer), causal and not, S_q > S_kv (empty rows get zero
                gradients) and S_q < S_kv, ragged S, D 16, 32, 40, 64, 100,
-               128 and 256 (40 and 100 causal and not), 3-D inputs, float32
-               and bfloat16; tolerance 1e-4 (fp32) and 2e-2 (bf16) of each
-               gradient's max |value|; the forward's lse against the plain
-               forward's. Times of the slice's call (CUDA events after
-               warm-up) for each kernel, the delta reduction, the plain
-               version and the backward of scaled_dot_product_attention
-               (kernel printed), beside two operations bounds: fp32 on CUDA
+               128 and 256 (40 and 100 causal and not), 3-D inputs,
+               float32, bfloat16 and float16; tolerance 1e-4 (fp32) and
+               2e-2 (16-bit) of each gradient's max |value|; the 16-bit
+               error also against the plain version with round_to the
+               input dtype (the function the 16-bit kernels compute: p
+               and scale * ds rounded before the gradient products), logged
+               only; the forward's lse against the plain forward's. Times
+               of the slice's call (CUDA events after warm-up) for each
+               kernel, the delta reduction, the plain version and the
+               backward of scaled_dot_product_attention (kernel printed),
+               per dtype. fp32 beside two operations bounds: fp32 on CUDA
                cores at 67 TFLOP/s, and 3xTF32 (three tf32 passes per
-               product) at 495 TFLOP/s; the achieved TFLOP/s of the
-               kernels' 7 products and each kernel's share of both bounds.
+               product) at 495 TFLOP/s; bf16 and fp16 beside the 16-bit
+               tensor cores' 989 TFLOP/s, each kernel against its own
+               bound; the pair's TFLOP/s and its ratio to SDPA's backward.
 10. kernel K2 — ffn_2's training call at (16384, 768) with dropout bits
     training    drawn on the card: bit-equal to the plain version on the
                same bits, keeping 1 - p within 1%; K2's backward against
@@ -310,7 +316,8 @@ def phase_build():
     return secs
 
 
-_FA_KERNEL = re.compile(r"flash_attention_(bwd_dkv_|bwd_dq_|)kernelI"
+_FA_KERNEL = re.compile(r"flash_attention_(bwd_dkv_|bwd_dq_|)"
+                        r"(mma16_|wgmma_|)kernelI"
                         r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E")
 _FA_DTYPES = {"f": ("float32", 0), "13__nv_bfloat16": ("bfloat16", 1),
               "6__half": ("float16", 2)}
@@ -349,11 +356,11 @@ def ptxas_report(outputs):
             elif "Used" in line and "registers" in line:
                 found[current]["regs"] = int(
                     line.split("Used")[1].split()[0])
-    for (which, dt, dp, causal), info in sorted(found.items()):
+    for (which, design, dt, dp, causal), info in sorted(found.items()):
         name, code = _FA_DTYPES[dt]
         smem = fwd(code, int(dp)) if not which else bwd(
             0 if which == "bwd_dkv_" else 1, code, int(dp))
-        log(f"ptxas: flash_attention_{which}kernel<{name}, D {dp}, "
+        log(f"ptxas: flash_attention_{which}{design}kernel<{name}, D {dp}, "
             f"causal {causal}>: {info.get('regs')} registers, "
             f"{info.get('stack')} bytes stack frame, {info.get('spills')} "
             f"spill-store bytes, {smem} bytes of "
@@ -975,8 +982,16 @@ def profiled(what, attempt, complete):
             f"graph holds; profiling again ({i + 1} of {PROFILE_TRIES})")
 
 
+def _is_kernel(name, kernel):
+    """Whether the device function ``name`` is the kernel whose launch
+    count is ``kernel`` (any of its designs: flash_attention_bwd_dkv is
+    flash_attention_bwd_dkv_kernel, _wgmma_kernel or _mma16_kernel)."""
+    return re.search(rf"\b{kernel}_(?:wgmma_|mma16_)?kernel\b",
+                     name) is not None
+
+
 def _kernel_count(dev, kernel):
-    return sum(c for k, (c, _) in dev.items() if f"{kernel}_kernel" in k)
+    return sum(c for k, (c, _) in dev.items() if _is_kernel(k, kernel))
 
 
 def profile_forward(torch, net, x, kernel, per_forward, reps=10):
@@ -1055,8 +1070,8 @@ def profile_forward(torch, net, x, kernel, per_forward, reps=10):
             or _kernel_count(r[1], kernel) == per_forward)
         device_ms = sum(ms for _, ms in dev.values())
         calls = _launch_calls(rows) / 3
-        k_ms = sum(ms for k, (_, ms) in dev.items() if f"{kernel}_kernel" in k)
-        k_n = sum(c for k, (c, _) in dev.items() if f"{kernel}_kernel" in k)
+        k_ms = sum(ms for k, (_, ms) in dev.items() if _is_kernel(k, kernel))
+        k_n = sum(c for k, (c, _) in dev.items() if _is_kernel(k, kernel))
         n = sum(c for c, _ in dev.values())
         result[mode] = {"device_ms": device_ms, "launches": n,
                         "host_launch_calls": calls, "kernel_ms": k_ms,
@@ -1476,12 +1491,19 @@ def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
             grads = [torch.empty_like(t) for t in (q, k, v)]
         fa._attend_bwd(q, k, v, out, lse, dout, grads, causal, scale, 512,
                        bshd)
-        want = fa.flash_attention_bwd_plain(
-            *(plain_layout(t) for t in (q, k, v, out)), lse,
-            plain_layout(dout), causal=causal, scale=scale)
+        plain_args = [plain_layout(t) for t in (q, k, v, out)] + [
+            lse, plain_layout(dout)]
+        want = fa.flash_attention_bwd_plain(*plain_args, causal=causal,
+                                            scale=scale)
+        # the 16-bit kernels round p and scale * ds to the input dtype
+        # before the gradient products, as the TPU kernels do: the plain
+        # version with the same rounding, logged beside the gate
+        rounded = None if dtype == torch.float32 else \
+            fa.flash_attention_bwd_plain(*plain_args, causal=causal,
+                                         scale=scale, round_to=dtype)
         torch.cuda.synchronize()
-        errs, rels, ok = [], [], lse_ok
-        for g, w in zip(grads, want):
+        errs, rels, rels_round, ok = [], [], [], lse_ok
+        for i, (g, w) in enumerate(zip(grads, want)):
             g = plain_layout(g)
             diff = float((g.float() - w.float()).abs().max())
             top = float(w.float().abs().max())
@@ -1489,11 +1511,15 @@ def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
             rels.append(diff / top)
             ok = ok and diff <= tol * top and g.dtype == dtype \
                 and bool(torch.isfinite(g).all())
+            if rounded is not None:
+                w = rounded[i].float()
+                rels_round.append(float((g.float() - w).abs().max())
+                                  / float(w.abs().max()))
         if causal and s_q > s_kv:       # rows with no allowed key: zeros
             ok = ok and not bool(plain_layout(grads[0])[
                 ..., :s_q - s_kv, :].any())
         res.update(err_dq=errs[0], err_dkv=max(errs[1:]), rel=max(rels),
-                   lse_err=lse_err)
+                   rel_round=max(rels_round, default=0.0), lse_err=lse_err)
         if timed:                       # the slice's fused-QKV call
             delta = fa._bwd_delta(out, dout)
             lse4 = lse.view(b, h, s_q)
@@ -1507,8 +1533,7 @@ def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
                 torch, lambda: fa._bwd_delta(out, dout), 5)
             res["plain_ms"] = event_ms(
                 torch, lambda: fa.flash_attention_bwd_plain(
-                    *(plain_layout(t) for t in (q, k, v, out)), lse,
-                    plain_layout(dout), causal=causal, scale=scale), 2)
+                    *plain_args, causal=causal, scale=scale), 2)
     if timed:
         res["library_ms"], res["library_kernel"] = sdpa_bwd_ms(
             torch, *(plain_layout(t).contiguous() for t in (q, k, v, dout)))
@@ -1528,7 +1553,9 @@ def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
     log(f"  {name:20s} B={b} H={h} S_q={s_q} S_kv={s_kv} D={d} "
         f"causal={int(causal)} {form:4s} {str(dtype)[6:]:8s} "
         f"max_err dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} "
-        f"rel={res['rel']:.3e} tol={tol:g} of max|grad|; lse_err="
+        f"rel={res['rel']:.3e} tol={tol:g} of max|grad|"
+        + (f" (rel to the round_to version {res['rel_round']:.3e})"
+           if rounded is not None else "") + "; lse_err="
         f"{lse_err:.3e}{times} bound_ms={res['bound_both']:.4f} "
         f"({res['bound_by']}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -1541,9 +1568,10 @@ def run_case_k3_bwd(torch, fa, case, dtype, timed=False):
 def phase_kernel_k3_bwd(torch, fa):
     log("kernel: flash attention backward (dK/dV and dQ kernels) vs "
         "flash_attention_bwd_plain on the card")
-    errs = {torch.float32: [0.0, 0.0, 0.0], torch.bfloat16: [0.0, 0.0, 0.0]}
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    errs = {dt: [0.0, 0.0, 0.0, 0.0] for dt in dtypes}
     timed, lse_err = {}, 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for case in bwd_cases():
             want_times = case[0] == "slice"
             r = run_case_k3_bwd(torch, fa, case, dtype, timed=want_times)
@@ -1551,30 +1579,48 @@ def phase_kernel_k3_bwd(torch, fa):
             e[0] = max(e[0], r["err_dq"])
             e[1] = max(e[1], r["err_dkv"])
             e[2] = max(e[2], r["rel"])
+            e[3] = max(e[3], r["rel_round"])
             lse_err = max(lse_err, r["lse_err"])
             if want_times:
                 timed[dtype] = r
     n = LONG_K3_PER_FORWARD
-    t16 = timed[torch.bfloat16]
-    bf16 = {"dkv_ms": n * t16["dkv_ms"], "dq_ms": n * t16["dq_ms"],
-            "plain_ms": n * t16["plain_ms"],
-            "library_ms": n * t16["library_ms"],
-            "library_kernel": t16["library_kernel"],
-            "bound_dkv": n * t16["bound_dkv_bf16_cores"],
-            "bound_dq": n * t16["bound_dq_bf16_cores"],
-            "bound_both": n * t16["bound_both_bf16_cores"],
-            "bound_by": t16["bound_by_bf16_cores"]}
-    log(f"kernel: the same backward in bfloat16 ({n} launches of each): "
-        f"dK/dV {bf16['dkv_ms']:.3f} ms (bound {bf16['bound_dkv']:.3f}), dQ "
-        f"{bf16['dq_ms']:.3f} ms (bound {bf16['bound_dq']:.3f}), the pair "
-        f"{bf16['dkv_ms'] + bf16['dq_ms']:.3f} ms against the five-product "
-        f"bound {bf16['bound_both']:.3f} ms ({bf16['bound_by']} at the bf16 "
-        f"tensor cores' 989 TFLOP/s); plain {bf16['plain_ms']:.3f} ms; "
-        f"scaled_dot_product_attention backward {bf16['library_ms']:.3f} ms "
-        f"(its kernel: {bf16['library_kernel'][:80]}); the pair / SDPA "
-        f"{(bf16['dkv_ms'] + bf16['dq_ms']) / bf16['library_ms']:.3f}")
+    sixteen = {}
+    for dtype in dtypes[1:]:
+        t16, name = timed[dtype], str(dtype)[6:]
+        row = {"dkv_ms": n * t16["dkv_ms"], "dq_ms": n * t16["dq_ms"],
+               "plain_ms": n * t16["plain_ms"],
+               "library_ms": n * t16["library_ms"],
+               "library_kernel": t16["library_kernel"],
+               "bound_dkv": n * t16["bound_dkv_bf16_cores"],
+               "bound_dq": n * t16["bound_dq_bf16_cores"],
+               "bound_both": n * t16["bound_both_bf16_cores"],
+               "bound_by": t16["bound_by_bf16_cores"],
+               "err_dq": errs[dtype][0], "err_dkv": errs[dtype][1],
+               "rel": errs[dtype][2], "rel_round": errs[dtype][3]}
+        pair = row["dkv_ms"] + row["dq_ms"]
+        row["share_dkv"] = row["bound_dkv"] / row["dkv_ms"]
+        row["share_dq"] = row["bound_dq"] / row["dq_ms"]
+        row["tflops_7"] = n * t16["flops_7"] / (pair * 1e-3) / 1e12
+        row["tflops_5"] = n * 5 / 7 * t16["flops_7"] / (pair * 1e-3) / 1e12
+        row["vs_library"] = pair / row["library_ms"]
+        sixteen[name] = row
+        log(f"kernel: the same backward in {name} ({n} launches of each): "
+            f"dK/dV {row['dkv_ms']:.3f} ms (bound {row['bound_dkv']:.3f}, "
+            f"share {row['share_dkv']:.3f}), dQ {row['dq_ms']:.3f} ms "
+            f"(bound {row['bound_dq']:.3f}, share {row['share_dq']:.3f}), "
+            f"bounds at the 16-bit tensor cores' 989 TFLOP/s "
+            f"({row['bound_by']}); the pair {pair:.3f} ms against the "
+            f"five-product bound {row['bound_both']:.3f} ms, at "
+            f"{row['tflops_7']:.1f} TFLOP/s over its 7 products "
+            f"({row['tflops_5']:.1f} over the 5 the gradients need); plain "
+            f"{row['plain_ms']:.3f} ms; scaled_dot_product_attention "
+            f"backward {row['library_ms']:.3f} ms (its kernel: "
+            f"{row['library_kernel'][:80]}); the pair / SDPA "
+            f"{row['vs_library']:.3f}; max relative error "
+            f"{row['rel']:.3e} of max|grad| against the plain version, "
+            f"{row['rel_round']:.3e} against its round_to={name} version")
     timed = timed[torch.float32]
-    f32, bf16_err = errs[torch.float32], errs[torch.bfloat16]
+    f32 = errs[torch.float32]
     results = {
         "dkv_ms": n * timed["dkv_ms"], "dq_ms": n * timed["dq_ms"],
         "delta_ms": n * timed["delta_ms"],
@@ -1588,8 +1634,7 @@ def phase_kernel_k3_bwd(torch, fa):
         "bound_both_3xtf32": n * timed["bound_both_3xtf32"],
         "bound_by_3xtf32": timed["bound_by_3xtf32"],
         "err_dq": f32[0], "err_dkv": f32[1], "rel": f32[2],
-        "err_dq_bf16": bf16_err[0], "err_dkv_bf16": bf16_err[1],
-        "rel_bf16": bf16_err[2], "lse_err": lse_err, "bf16": bf16}
+        "lse_err": lse_err, **sixteen}
     pair_ms = results["dkv_ms"] + results["dq_ms"]
     results["tflops_7"] = n * timed["flops_7"] / (pair_ms * 1e-3) / 1e12
     for which in ("dkv", "dq"):
@@ -2625,12 +2670,12 @@ def sh_train(torch, mx, name, trainer, batch, steps, per_step, unit,
              f"step, want {want_calls} (1)")
     for kernel, n in per_step.items():
         seen = sum(c for k, (c, _) in prof["rows"].items()
-                   if f"{kernel}_kernel" in k)
+                   if _is_kernel(k, kernel))
         if prof["rows"] and seen != n:
             fail(f"train-sharded {name}: the profiler saw {seen} {kernel} "
                  f"launches in a graphed step, want {n}")
     kernel_ms = {k: sum(ms for key, (_, ms) in prof["rows"].items()
-                        if f"{k}_kernel" in key) for k in per_step}
+                        if _is_kernel(key, k)) for k in per_step}
     return {"losses": losses, "times": times, "step_ms": step_ms,
             "rate": rate, "peak_bytes": peak, "launches": launches,
             "capture_s": progs[0].capture_s,
@@ -3076,10 +3121,33 @@ def main():
 
     def graphed_train(run, kernel):
         rows = run["graphed"].get("dev_rows") or {}
-        ms = [v[1] for k, v in rows.items() if f"{kernel}_kernel" in k]
+        ms = [v[1] for k, v in rows.items() if _is_kernel(k, kernel)]
         return {"graph_train_launches": run["graphed"]["launches"][kernel],
                 "graph_train_ms": sum(ms) if ms else None,
                 "graph_train_per": GRAPH_TRAIN_PER}
+
+    def half_rows(which):
+        """One backward kernel's 16-bit design (wgmma at the slice's D 64):
+        its bf16 and fp16 rows at the slice shape."""
+        rows = {}
+        for key, name in (("bf16", "bfloat16"), ("fp16", "float16")):
+            r = k3b[name]
+            rows[key] = {
+                "ms": r[f"{which}_ms"], "bound_ms": r[f"bound_{which}"],
+                "bound_by": r["bound_by"], "bound_share": r[f"share_{which}"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "max_abs_err": r[f"err_{which}"], "max_rel_err": r["rel"],
+                "max_rel_err_vs_round_to": r["rel_round"],
+                "pair_tflops_7_products": r["tflops_7"],
+                "pair_vs_library": r["vs_library"],
+                "per": f"one training step at batch 4, S 4096, {name} (12 "
+                       "launches); plain and library: dq, dk and dv "
+                       "together",
+                "bound_rate": "bytes at 3.35 TB/s with 2-byte elements, "
+                              "operations at 989 TFLOP/s (16-bit tensor "
+                              "cores)"}
+        return rows
+
     bwd_per = (f"one BERT-base training step at batch {LONG_BATCH}, "
                f"sequence {LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} "
                "launches)")
@@ -3188,15 +3256,8 @@ def main():
         "bound_share": k3b["share_dkv"],
         "bound_share_3xtf32": k3b["share_dkv_3xtf32"],
         "max_rel_err": k3b["rel"],
-        "max_abs_err_bf16": k3b["err_dkv_bf16"],
         **graphed_train(train, "flash_attention_bwd_dkv"),
-        **bf16_row({"ms": k3b["bf16"]["dkv_ms"],
-                    "bound_ms": k3b["bf16"]["bound_dkv"],
-                    "bound_by": k3b["bf16"]["bound_by"],
-                    "plain_ms": k3b["bf16"]["plain_ms"],
-                    "library_ms": k3b["bf16"]["library_ms"]},
-                   "one training step at batch 4, S 4096, bfloat16 (12 "
-                   "launches); plain and library: dq, dk and dv together"),
+        **half_rows("dkv"),
         **sharded("flash_attention_bwd_dkv", ("c",))}, {
         "name": "flash_attention_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
@@ -3209,15 +3270,8 @@ def main():
         "bound_share": k3b["share_dq"],
         "bound_share_3xtf32": k3b["share_dq_3xtf32"],
         "max_rel_err": k3b["rel"],
-        "max_abs_err_bf16": k3b["err_dq_bf16"],
         **graphed_train(train, "flash_attention_bwd_dq"),
-        **bf16_row({"ms": k3b["bf16"]["dq_ms"],
-                    "bound_ms": k3b["bf16"]["bound_dq"],
-                    "bound_by": k3b["bf16"]["bound_by"],
-                    "plain_ms": k3b["bf16"]["plain_ms"],
-                    "library_ms": k3b["bf16"]["library_ms"]},
-                   "one training step at batch 4, S 4096, bfloat16 (12 "
-                   "launches); plain and library: dq, dk and dv together"),
+        **half_rows("dq"),
         **sharded("flash_attention_bwd_dq", ("c",))}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

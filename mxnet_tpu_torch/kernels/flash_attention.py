@@ -13,7 +13,10 @@ under ``jax.checkpoint``). The port has one forward kernel and one pair of
 backward kernels for both. Causal masking is bottom-right aligned (query i
 attends keys j <= i + S_kv - S_q); a query row with no allowed key comes
 out as zeros and gets zero gradients. All math is fp32 and the outputs
-have q's dtype.
+have q's dtype, with one exception: on bf16 and fp16 inputs the backward
+kernels round p and scale * ds to the input dtype before the gradient
+products, as the library's backward kernels do on bf16 inputs
+(``flash_attention_bwd_plain(..., round_to=dtype)`` is that function).
 
 - :func:`flash_attention_plain` is the plain PyTorch version of the
   forward, a mirror of ``_blockwise_impl``, and
@@ -127,7 +130,7 @@ def flash_attention_plain(q, k, v, block_size=512, causal=False,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
-                              scale=None, block_size=512):
+                              scale=None, block_size=512, round_to=None):
     """The plain version of the backward, on ``[..., S, D]`` inputs with
     ``lse`` [..., S_q] from the forward: per key block of ``block_size``
     (shrunk to a divisor of S_kv), in fp32, ``p = exp(scale q k^T - lse)``
@@ -135,7 +138,15 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
     ``dp = dout v^T``, ``ds = p * (dp - delta)`` with ``delta = sum(dout
     * out)`` per row, ``dq += scale ds k``, ``dk = scale ds^T q``. No S_q x
     S_kv tensor is held; rows with an empty allowed set (lse +inf) get
-    zero gradients. Returns (dq, dk, dv) in the inputs' dtypes."""
+    zero gradients. Returns (dq, dk, dv) in the inputs' dtypes.
+
+    With ``round_to`` (a 16-bit dtype) p and ``scale * ds`` are rounded
+    to it before the dv, dk and dq products, as the JAX library's Pallas
+    backward rounds them on bf16 inputs (``p.T.astype(do.dtype)``,
+    ``ds.T.astype(do.dtype)`` after the scale, ``ds.astype(k.dtype)``):
+    the function the card's 16-bit kernels compute. The CPU path, a
+    mirror of ``_blockwise_impl`` differentiated in fp32 math, passes
+    none."""
     d = q.shape[-1]
     s_q, s_k = q.shape[-2], k.shape[-2]
     scale = default_scale(d, q.dtype) if scale is None else scale
@@ -152,11 +163,17 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
             scores = torch.where(
                 _causal_mask(s_q, s_k, start, block, q.device), scores, _NEG)
         p = torch.exp(scores - lse[..., None])
-        dvs.append(torch.einsum("...qk,...qd->...kd", p, dof))
         dp = torch.einsum("...qd,...kd->...qk", dof, v_blk)
         ds = p * (dp - delta[..., None])
-        dq = dq + torch.einsum("...qk,...kd->...qd", ds, k_blk) * scale
-        dks.append(torch.einsum("...qk,...qd->...kd", ds, qf) * scale)
+        if round_to is not None:
+            p = p.to(round_to).float()
+            ds = (ds * scale).to(round_to).float()
+            dq = dq + torch.einsum("...qk,...kd->...qd", ds, k_blk)
+            dks.append(torch.einsum("...qk,...qd->...kd", ds, qf))
+        else:
+            dq = dq + torch.einsum("...qk,...kd->...qd", ds, k_blk) * scale
+            dks.append(torch.einsum("...qk,...qd->...kd", ds, qf) * scale)
+        dvs.append(torch.einsum("...qk,...qd->...kd", p, dof))
     return (dq.to(q.dtype), torch.cat(dks, dim=-2).to(k.dtype),
             torch.cat(dvs, dim=-2).to(v.dtype))
 

@@ -319,14 +319,18 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_backward_kernels_match_plain(cuda, case, dtype,
-                                                      tol):
+                                                      tol, record_property):
     """dq, dk and dv of the backward kernels (one launch each of dK/dV
     and dQ) against ``flash_attention_bwd_plain`` on the forward's lse,
-    within ``tol`` of each gradient's max |value|; the lse against the
-    plain forward's."""
+    within ``tol`` of each gradient's max |value|. The 16-bit kernels
+    round p and scale * ds to the input dtype before the gradient
+    products, as the TPU kernels do: they are also held, within the same
+    tolerance, against the plain version with ``round_to`` the input
+    dtype, and that error is recorded (``rel_vs_round_to``)."""
     q, k, v = flash_inputs(case, dtype, cuda)
     causal, form = case[5], case[6]
     if form == "qkv":
@@ -359,15 +363,48 @@ def test_flash_attention_backward_kernels_match_plain(cuda, case, dtype,
                                           return_lse=True)
     want = fa.flash_attention_bwd_plain(*nd, p_out, lse, plain_dout,
                                         causal=causal)
+    rounded = [None] * 3 if dtype == torch.float32 else \
+        fa.flash_attention_bwd_plain(*nd, p_out, lse, plain_dout,
+                                     causal=causal, round_to=dtype)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    worst = 0.0
+    for g, w, r in zip(got, want, rounded):
         assert g.dtype == dtype and g.shape == w.shape
         assert torch.isfinite(g).all()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= tol * w.float().abs().max().item(), err
+        if r is not None:
+            top = r.float().abs().max().item()
+            err = (g.float() - r.float()).abs().max().item()
+            assert err <= tol * top, err
+            worst = max(worst, err / top)
+    if dtype != torch.float32:
+        record_property("rel_vs_round_to", worst)
     s_q, s_kv = case[2], case[3]
     if causal and s_q > s_kv:            # rows with no allowed key: zeros
         assert not got[0][..., :s_q - s_kv, :].any()
+
+
+def test_flash_attention_bwd_smem_is_16_bit_for_16_bit_inputs(cuda):
+    """The 16-bit backward (dtype codes 1 and 2) keeps its resident rows
+    and its streamed tiles as 16-bit values, with no tf32 hi or lo words:
+    at D 64 a CTA holds 1024 bytes of alignment slack, 128 resident rows
+    of K and V (dK/dV) or q and dout (dQ), a three-stage ring of two 128 x
+    64 tiles and, in dK/dV, the ring's lse and delta. The fp32 kernels
+    keep their 3xTF32 layout: 4-byte hi and lo words for 128 resident
+    rows, and streamed tiles of 64 rows."""
+    import ctypes
+    fn = fa._bwd_lib().flash_attention_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    resident, ring = 2 * 128 * 64 * 2, 3 * 2 * 128 * 64 * 2
+    want = {0: 1024 + resident + ring + 3 * 2 * 128 * 4,
+            1: 1024 + resident + ring}
+    for which in (0, 1):
+        for code in (1, 2):
+            assert fn(which, code, 64) == want[which]
+        # fp32: hi and lo words [128][68] for each of two resident operands
+        assert fn(which, 0, 64) >= 4 * 128 * 68 * 4
 
 
 def test_flash_attention_forward_writes_lse_only_for_a_gradient(cuda):

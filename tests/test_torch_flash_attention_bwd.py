@@ -17,10 +17,18 @@ dk are zero analytically (a softmax over one key is constant) and both
 sides give the rounding noise of ``dp - delta``; there the scale is
 floored at 0.1 (1e-5 absolute in fp32).
 
-The card's kernels, forward and backward, compute every product in 3xTF32
-on the tensor cores: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi),
-both rounded to nearest with ties away from zero (cvt.rna.tf32.f32), and
-a b = a_lo b_hi + a_hi b_lo + a_hi b_hi. No CPU here converts to TF32, so
+On bf16 and fp16 inputs the card's backward kernels compute the JAX
+library's function: p and scale * ds are rounded to the input dtype
+before the dv, dk and dq products (``flash_attention_bwd_plain`` with
+``round_to``); this file holds that rounding against a dense computation
+with explicit casts and, at the slice's D 64, against ``jax.vjp`` of
+``_blockwise_impl`` in bf16.
+
+The card's forward kernel, and its backward kernels on fp32 inputs,
+compute every product in 3xTF32 on the tensor cores: x = hi + lo with
+hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with ties
+away from zero (cvt.rna.tf32.f32), and a b = a_lo b_hi + a_hi b_lo +
+a_hi b_hi. No CPU here converts to TF32, so
 this file emulates the rounding on fp32 bits (``_tf32_bits``) and the
 product (``_mm_3xtf32``), holds the backward built from those products
 against ``jax.vjp`` and the forward built from them (64-key tiles, as the
@@ -235,6 +243,99 @@ def test_no_grad_wanted_saves_nothing():
     q.requires_grad_()
     out = fa.flash_attention(q, k, v, block_size=8)
     assert out.grad_fn is not None
+
+
+# -- the rounding of the 16-bit kernels: flash_attention_bwd_plain(round_to=)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", [(64, 64), (90, 70), (70, 90)])
+def test_round_to_none_leaves_the_plain_backward_unchanged(s_q, s_kv,
+                                                           causal):
+    """``round_to=None`` is the plain backward as it was, bit for bit."""
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _arrays(s_q + 2 * s_kv, s_q, s_kv))
+    out, lse = fa.flash_attention_plain(q, k, v, block_size=16,
+                                        causal=causal, return_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                        causal=causal, block_size=16)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                       causal=causal, block_size=16,
+                                       round_to=None)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _dense_rounded_bwd(q, k, v, out, lse, do, causal, scale, dtype):
+    """The backward written densely in fp32 with the casts explicit: p and
+    scale * ds rounded to ``dtype`` before the dv, dk and dq products."""
+    s_q, s_kv = q.shape[-2], k.shape[-2]
+    s = q @ k.transpose(-1, -2) * scale
+    if causal:                          # bottom-right: j <= i + S_kv - S_q
+        allowed = (torch.arange(s_kv)[None, :]
+                   <= torch.arange(s_q)[:, None] + s_kv - s_q)
+        s = torch.where(allowed, s, -1e30)
+    p = torch.exp(s - lse[..., None])
+    delta = (do * out).sum(-1)
+    ds = p * (do @ v.transpose(-1, -2) - delta[..., None])
+    p_r = p.to(dtype).float()
+    ds_r = (ds * scale).to(dtype).float()
+    return ds_r @ k, ds_r.transpose(-1, -2) @ q, p_r.transpose(-1, -2) @ do
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", [(64, 64), (90, 37), (37, 90)])
+def test_round_to_matches_dense_with_explicit_casts(s_q, s_kv, causal,
+                                                    dtype):
+    """With ``round_to`` the blockwise plain backward (16-key blocks)
+    equals the dense one with explicit casts within 1e-6 of max |grad|.
+    Inputs are quarter-integers in [-1, 1] held in fp32: exact in 16
+    bits, and every score and dout . v is exact in fp32 whatever the
+    order of its sum, so only the fp32 sums of the gradient products
+    differ; the outputs stay fp32, so no final rounding hides an error."""
+    rng = np.random.RandomState(s_q + s_kv + causal)
+    q, k, v, do = (torch.from_numpy(
+        rng.randint(-4, 5, size=(2, 3, n, 16)).astype(np.float32) / 4)
+        for n in (s_q, s_kv, s_kv, s_q))
+    scale = 0.25
+    out, lse = fa.flash_attention_plain(q, k, v, block_size=16,
+                                        causal=causal, scale=scale,
+                                        return_lse=True)
+    out = out.to(getattr(torch, dtype)).float()  # a 16-bit forward's out
+    rnd = getattr(torch, dtype)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                       causal=causal, scale=scale,
+                                       block_size=16, round_to=rnd)
+    want = _dense_rounded_bwd(q, k, v, out, lse, do, causal, scale, rnd)
+    unrounded = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal, scale=scale,
+                                             block_size=16)
+    for g, w, u in zip(got, want, unrounded):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        top = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-6 * top
+        assert (u - w).abs().max().item() > 1e-6 * top  # the casts matter
+    if causal and s_q > s_kv:           # rows with no allowed key: zeros
+        assert not got[0][..., :s_q - s_kv, :].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1024, 2048])
+def test_round_to_bf16_matches_jax_vjp(s, causal):
+    """The plain backward with p and ds rounded to bf16 (what the card's
+    16-bit kernels compute) on bf16 inputs at the slice's D 64 lies within
+    the bf16 tolerance (2e-2 of max |grad|) of ``jax.vjp`` of
+    ``_blockwise_impl``, as the unrounded one does
+    (``test_blockwise_grads_match_jax_vjp_bf16``)."""
+    arrays = _arrays(s + causal, s, s, lead=(1, 2), d=64)
+    _, want = _jax_vjp(lambda q, k, v: jra._blockwise_impl(
+        q, k, v, causal=causal), arrays, "bfloat16")
+    q, k, v, do = _torch(arrays, "bfloat16", grad=False)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                       causal=causal,
+                                       round_to=torch.bfloat16)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _check_grads(got, want, TOL["bfloat16"])
 
 
 def _tf32_bits(x):
