@@ -14,7 +14,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                per instance of the flash-attention kernels (the forward,
                dK/dV and dQ: fp32 3xTF32, 16-bit wgmma and mma.sync
                m16n8k16), ptxas's registers, stack and spill bytes and the
-               dynamic shared memory of a CTA.
+               dynamic shared memory of a CTA, and any ptxas warning that
+               names wgmma; fail if a wgmma forward instance spills.
 3. kernel K1 — hold the conv-epilogue kernel against its plain PyTorch
                version on the card: ResNet-50 v1's own epilogue shapes at
                batch 8 and ragged ones; row, column and none modes; with
@@ -63,16 +64,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                != S_kv both ways (causal S_q > S_kv gives zero rows, also
                beside non-empty rows in one CTA), ragged S (1025, 1100, 1,
                7; S_q 127, 128 and 129 against S_kv 1100, at the edge of a
-               128-row CTA), D 16, 40, 64, 80, 100, 128 and 256 (40 and
-               100 causal and not), 3-D inputs, float32 and bfloat16;
-               tolerance 1e-5 (fp32) and 1e-2 (bf16) of max |out|. Times
-               of the slice's call (CUDA events after warm-up) for the
-               kernel, the plain version and torch's
-               scaled_dot_product_attention (backend printed), beside two
-               operations bounds: fp32 on CUDA cores at 67 TFLOP/s, and
-               3xTF32 (three tf32 passes per product) at 495 TFLOP/s; the
-               achieved TFLOP/s of the two products and the kernel's share
-               of both bounds.
+               128-row CTA, and 63, 64 and 65, at that of a 64-row one),
+               D 16, 40, 64, 80, 100, 128 and 256 (40 and
+               100 causal and not), 3-D inputs, float32, bfloat16 and
+               float16; tolerance 1e-5 (fp32) and 1e-2 (16-bit) of max
+               |out|; the 16-bit error also against the plain version with
+               round_to the input dtype and 128-key blocks (the function
+               the 16-bit kernels compute: p rounded before p v), logged
+               only. Times of the slice's call (CUDA events after warm-up)
+               for the kernel, the plain version and torch's
+               scaled_dot_product_attention (backend printed) per dtype:
+               fp32 beside two operations bounds, fp32 on CUDA cores at 67
+               TFLOP/s and 3xTF32 (three tf32 passes per product) at 495
+               TFLOP/s; bf16 and fp16 beside the 16-bit tensor cores' 989
+               TFLOP/s; the achieved TFLOP/s of the two products, the
+               kernel's share of its bounds and its ratio to SDPA.
 8. serve     — full-width BERT-base at S 4096 (bert_12_768_12 without the
    long BERT   MLM decoder, max_length 4096, seeded as in phase 6) behind
                the Server on cuda:0, batch buckets 1/2/4, int32 ids, from
@@ -179,11 +185,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                of a BERT-base MLM training forward at batch 64, S 128
                (ffn_1 bias + gelu, ffn_2 bias + dropout 0.1), each held
                against its plain version (1e-2) and timed beside its
-               bytes bound at 2-byte elements; torch.add(y, bias) beside
-               ffn_2. (Phases 7 and 9 time K3 and its backward in
-               bfloat16 too, beside scaled_dot_product_attention in
-               bfloat16 and the operations bound at the bf16 tensor
-               cores' 989 TFLOP/s.)
+               bytes bound at 2-byte elements (K2's GB/s and share of the
+               bound printed); torch.add(y, bias) beside ffn_2, the bias
+               add alone (4 of K2's 5 bytes per element: no PyTorch call
+               computes K2's function). (Phases 7 and 9 time K3 and its
+               backward in bfloat16 and float16 too, beside
+               scaled_dot_product_attention in the same dtype and the
+               operations bound at the 16-bit tensor cores' 989 TFLOP/s.)
 15. train-    — examples/train_imagenet.py and examples/pretrain_bert.py
     sharded     as written on one card: mx.parallel.ShardedTrainer(...,
                mesh=make_mesh({"data": 1, "model": 1}), compute_dtype=
@@ -201,7 +209,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                pool and capture seconds, launches counted from 0 across
                the steps (per step x (steps + the capture's 2 warm-up
                passes)), and one profiled step's busy share, top kernels
-               and host launch calls (1 required). Gates: one graphed
+               and host launch calls (1 required); for (c) the step time
+               and K3's share of it in the profiled step. Gates: one graphed
                step against an eager one on the card from one state
                (cuDNN deterministic for (a), the graph's dropout bits
                replayed for (b) and (c)): the loss, the gated weights
@@ -316,36 +325,30 @@ def phase_build():
     return secs
 
 
-_FA_KERNEL = re.compile(r"flash_attention_(bwd_dkv_|bwd_dq_|)"
+_FA_KERNEL = re.compile(r"flash_attention_(bwd_dkv_|bwd_dq_|fwd_|)"
                         r"(mma16_|wgmma_|)kernelI"
-                        r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E")
+                        r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?Lb([01])E")
 _FA_DTYPES = {"f": ("float32", 0), "13__nv_bfloat16": ("bfloat16", 1),
               "6__half": ("float16", 2)}
 
 
-def ptxas_report(outputs):
-    """One line per instance of the flash-attention kernels (the forward,
-    dK/dV and dQ): ptxas's registers and spill bytes, and the dynamic
-    shared memory of one CTA from the libraries' own size queries."""
-    import ctypes
-    from mxnet_tpu_torch.kernels import _build
-    fwd = _build.load("flash_attention").flash_attention_smem_bytes
-    fwd.argtypes = [ctypes.c_int] * 2
-    fwd.restype = ctypes.c_longlong
-    bwd = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
-    bwd.argtypes = [ctypes.c_int] * 3
-    bwd.restype = ctypes.c_longlong
-    found = {}
+def ptxas_instances(outputs):
+    """{(which, design, dtype, D, causal): {"regs", "stack", "spills"}}
+    for each instance of the flash-attention kernels in nvcc's output
+    (``which`` "" or "fwd_" for the forward, "bwd_dkv_" or "bwd_dq_";
+    the forward's mma.sync instance has D 256 in its tiles, not in its
+    name), and the ptxas warnings that name wgmma."""
+    found, warnings = {}, []
     for source in ("flash_attention", "flash_attention_bwd"):
-        text = outputs.get(source, "")
-        if not text:
-            log(f"ptxas: {source} was not rebuilt in this run")
         current = None
-        for line in text.splitlines():
+        for line in outputs.get(source, "").splitlines():
+            if "wgmma" in line and "warning" in line.lower():
+                warnings.append(line.strip())
             m = _FA_KERNEL.search(line)
             if m and ("Compiling entry" in line
                       or "Function properties" in line):
-                current = m.groups()
+                which, design, dt, dp, causal = m.groups()
+                current = (which, design, dt, dp or "256", causal)
                 found.setdefault(current, {})
             elif current is None:
                 continue
@@ -356,15 +359,46 @@ def ptxas_report(outputs):
             elif "Used" in line and "registers" in line:
                 found[current]["regs"] = int(
                     line.split("Used")[1].split()[0])
+    return found, warnings
+
+
+def ptxas_report(outputs):
+    """One line per instance of the flash-attention kernels (the forward,
+    dK/dV and dQ): ptxas's registers and spill bytes, and the dynamic
+    shared memory of one CTA from the libraries' own size queries. Fails
+    if a wgmma forward instance spills."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    fwd = _build.load("flash_attention").flash_attention_smem_bytes
+    fwd.argtypes = [ctypes.c_int] * 2
+    fwd.restype = ctypes.c_longlong
+    bwd = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    bwd.argtypes = [ctypes.c_int] * 3
+    bwd.restype = ctypes.c_longlong
+    for source in ("flash_attention", "flash_attention_bwd"):
+        if not outputs.get(source):
+            log(f"ptxas: {source} was not rebuilt in this run")
+    found, warnings = ptxas_instances(outputs)
+    for line in warnings:
+        log(f"ptxas warning: {line}")
+    spilled = []
     for (which, design, dt, dp, causal), info in sorted(found.items()):
         name, code = _FA_DTYPES[dt]
-        smem = fwd(code, int(dp)) if not which else bwd(
+        smem = fwd(code, int(dp)) if which in ("", "fwd_") else bwd(
             0 if which == "bwd_dkv_" else 1, code, int(dp))
         log(f"ptxas: flash_attention_{which}{design}kernel<{name}, D {dp}, "
             f"causal {causal}>: {info.get('regs')} registers, "
             f"{info.get('stack')} bytes stack frame, {info.get('spills')} "
             f"spill-store bytes, {smem} bytes of "
             "dynamic shared memory per CTA")
+        if which == "fwd_" and design == "wgmma_" and info.get("spills"):
+            spilled.append(f"{name} D {dp} causal {causal}")
+    if any(w == "fwd_" for w, *_ in found) and not any(
+            w == "fwd_" and d == "wgmma_" for w, d, *_ in found):
+        fail("ptxas: no wgmma forward instance in the build output")
+    if spilled:
+        fail(f"ptxas: the wgmma forward spills in {spilled}")
+    return found
 
 
 # -- phase 3: kernel K1 ------------------------------------------------------
@@ -985,8 +1019,11 @@ def profiled(what, attempt, complete):
 def _is_kernel(name, kernel):
     """Whether the device function ``name`` is the kernel whose launch
     count is ``kernel`` (any of its designs: flash_attention_bwd_dkv is
-    flash_attention_bwd_dkv_kernel, _wgmma_kernel or _mma16_kernel)."""
-    return re.search(rf"\b{kernel}_(?:wgmma_|mma16_)?kernel\b",
+    flash_attention_bwd_dkv_kernel, _wgmma_kernel or _mma16_kernel;
+    flash_attention is flash_attention_kernel, _fwd_wgmma_kernel or
+    _fwd_mma16_kernel; matmul_epilogue is matmul_epilogue_kernel or
+    _vec_kernel)."""
+    return re.search(rf"\b{kernel}_(?:fwd_|vec_)?(?:wgmma_|mma16_)?kernel\b",
                      name) is not None
 
 
@@ -1103,9 +1140,11 @@ def flash_cases():
     strided (B, S, H, D) views of one fused (B, S, 3HD) tensor, as
     fused_self_attention passes them; "bhsd" is contiguous [B, H, S, D];
     "3d" is [B, S, D] (H = 1). S_q 127, 128 and 129 sit at the edge of a
-    128-row CTA; S_q 300 against S_kv 200 under causal puts empty and
-    non-empty rows in one CTA; D 40 and 100 are not multiples of 8 (16-bit
-    rows of 80 and 200 bytes)."""
+    128-row CTA (the fp32 forward, the 16-bit one at D 128), S_q 63, 64
+    and 65 at that of the 16-bit forward's 64-row CTA at D 64; S_q 300
+    against S_kv 200 under causal puts empty and non-empty rows in one
+    CTA; D 40 and 100 are not multiples of 8 (16-bit rows of 80 and 200
+    bytes)."""
     return [
         ("slice", LONG_BATCH, LONG_HEADS, LONG_SEQ, LONG_SEQ, 64, False,
          "qkv"),
@@ -1138,6 +1177,9 @@ def flash_cases():
         ("q129", 1, 2, 129, 1100, 64, False, "bhsd"),
         ("q129_causal", 1, 2, 129, 1100, 64, True, "bhsd"),
         ("q_longer_straddle", 1, 2, 300, 200, 64, True, "bhsd"),
+        ("q63", 1, 2, 63, 1100, 64, False, "bhsd"),
+        ("q64_causal", 1, 2, 64, 1100, 64, True, "bhsd"),
+        ("q65_causal", 1, 2, 65, 1100, 64, True, "bhsd"),
     ]
 
 
@@ -1214,25 +1256,31 @@ def sdpa_ms(torch, q, k, v):
 
 
 def run_case_k3(torch, fa, case, dtype, timed=False):
+    """The kernel against flash_attention_plain on the same inputs (the
+    gate) and, on 16-bit inputs, against the plain version with p rounded
+    to the input dtype per 128-key block (the function the 16-bit kernels
+    compute; logged)."""
     name, b, h, s_q, s_kv, d, causal, form = case
     q, k, v = flash_inputs(torch, case, dtype)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
+    sixteen = dtype != torch.float32
     with torch.inference_mode():
         if form == "qkv":
             def kernel():
                 return fa.flash_attention_bshd(q, k, v, causal=causal)
 
-            def plain():
+            def plain(**kw):
                 return fa.flash_attention_plain(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=causal).transpose(1, 2)
+                    causal=causal, **kw).transpose(1, 2)
         else:
             def kernel():
                 return fa.flash_attention(q, k, v, causal=causal)
 
-            def plain():
-                return fa.flash_attention_plain(q, k, v, causal=causal)
+            def plain(**kw):
+                return fa.flash_attention_plain(q, k, v, causal=causal, **kw)
         got, want = kernel(), plain()
+        rounded = plain(block_size=128, round_to=dtype) if sixteen else None
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
@@ -1241,8 +1289,12 @@ def run_case_k3(torch, fa, case, dtype, timed=False):
             and got.dtype == want.dtype and bool(torch.isfinite(got).all())
         if causal and s_q > s_kv:       # rows with no allowed key: zeros
             ok = ok and not bool(got[..., :s_q - s_kv, :].any())
-        del got, want, diff
-        res = {"err": err}
+        res = {"err": err, "rel": err / scale, "rel_round": 0.0}
+        if sixteen:
+            res["rel_round"] = float((got.float() - rounded.float()).abs()
+                                     .max()) / float(rounded.float().abs()
+                                                     .max())
+        del got, want, diff, rounded
         if timed:
             res["ms"] = event_ms(torch, kernel, 5)
             res["plain_ms"] = event_ms(torch, plain, 2)
@@ -1262,7 +1314,9 @@ def run_case_k3(torch, fa, case, dtype, timed=False):
     log(f"  {name:18s} B={b} H={h} S_q={s_q} S_kv={s_kv} D={d} "
         f"causal={int(causal)} {form:4s} {str(dtype)[6:]:8s} "
         f"max_err={err:.3e} max|out|={scale:.3e} tol={tol:g} of max|out|"
-        f"{times} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+        + (f" (rel to the round_to version {res['rel_round']:.3e})"
+           if sixteen else "")
+        + f"{times} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
         f"bound_3xtf32_ms={res['bound_ms_3xtf32']:.4f} "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -1273,29 +1327,44 @@ def run_case_k3(torch, fa, case, dtype, timed=False):
 
 def phase_kernel_k3(torch, fa):
     log("kernel: flash_attention vs its plain version on the card")
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    errs = {dt: {"err": 0.0, "rel": 0.0, "rel_round": 0.0} for dt in dtypes}
     timed = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for case in flash_cases():
             want_times = case[0] == "slice"
             r = run_case_k3(torch, fa, case, dtype, timed=want_times)
-            errs[dtype] = max(errs[dtype], r["err"])
+            for key in errs[dtype]:
+                errs[dtype][key] = max(errs[dtype][key], r[key])
             if want_times:
                 timed[dtype] = r
     n = LONG_K3_PER_FORWARD
-    t16 = timed[torch.bfloat16]
-    bf16 = {"ms": n * t16["ms"], "plain_ms": n * t16["plain_ms"],
-            "library_ms": n * t16["library_ms"],
-            "library_kernel": t16["library_kernel"],
-            "bound_ms": n * t16["bound_ms_bf16_cores"],
-            "bound_by": t16["bound_by_bf16_cores"]}
-    log(f"kernel: the same attention in bfloat16 ({n} launches): kernel "
-        f"{bf16['ms']:.3f} ms, plain {bf16['plain_ms']:.3f} ms, "
-        f"scaled_dot_product_attention {bf16['library_ms']:.3f} ms (its "
-        f"kernel: {bf16['library_kernel'][:80]}), bound "
-        f"{bf16['bound_ms']:.3f} ms ({bf16['bound_by']} at the bf16 tensor "
-        f"cores' 989 TFLOP/s); kernel / SDPA "
-        f"{bf16['ms'] / bf16['library_ms']:.3f}")
+    sixteen = {}
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        t16, name = timed[dtype], str(dtype)[6:]
+        row = {"ms": n * t16["ms"], "plain_ms": n * t16["plain_ms"],
+               "library_ms": n * t16["library_ms"],
+               "library_kernel": t16["library_kernel"],
+               "bound_ms": n * t16["bound_ms_bf16_cores"],
+               "bound_by": t16["bound_by_bf16_cores"],
+               "max_abs_err": errs[dtype]["err"],
+               "max_rel_err": errs[dtype]["rel"],
+               "max_rel_err_vs_round_to": errs[dtype]["rel_round"]}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = n * t16["flops"] / (row["ms"] * 1e-3) / 1e12
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        sixteen[key] = row
+        log(f"kernel: the same attention in {name} ({n} launches): kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention {row['library_ms']:.3f} ms (its "
+            f"kernel: {row['library_kernel'][:80]}), bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']} at the 16-bit "
+            f"tensor cores' 989 TFLOP/s), share {row['bound_share']:.3f}, "
+            f"{row['tflops']:.1f} TFLOP/s over the 2 products; kernel / SDPA "
+            f"{row['vs_library']:.3f}; max relative error "
+            f"{row['max_rel_err']:.3e} of max|out| against the plain version,"
+            f" {row['max_rel_err_vs_round_to']:.3e} against its round_to="
+            f"{name} version (128-key blocks)")
     timed = timed[torch.float32]
     results = {"ms": n * timed["ms"], "plain_ms": n * timed["plain_ms"],
                "bound_ms": n * timed["bound_ms"],
@@ -1304,8 +1373,7 @@ def phase_kernel_k3(torch, fa):
                "bound_by_3xtf32": timed["bound_by_3xtf32"],
                "library_ms": n * timed["library_ms"],
                "library_kernel": timed["library_kernel"],
-               "max_abs_err": errs[torch.float32],
-               "max_abs_err_bf16": errs[torch.bfloat16], "bf16": bf16}
+               "max_abs_err": errs[torch.float32]["err"], **sixteen}
     log(f"kernel: one long-context BERT-base forward's attention (batch "
         f"{LONG_BATCH}, S {LONG_SEQ}, 12 heads, D 64, float32, {n} "
         f"launches): kernel {results['ms']:.3f} ms, plain "
@@ -2971,6 +3039,17 @@ def phase_train_sharded(torch, mx, card, ctx):
                        per[cfg], "sequences", b, card)
         log(f"train-sharded ({cfg}): {b * seq * 1e3 / res['step_ms']:.1f} "
             "tokens/s")
+        if cfg == "c":
+            km = {k: v or 0.0 for k, v in res["kernel_ms"].items()}
+            fwd = km["flash_attention"]
+            dkv, dq = km["flash_attention_bwd_dkv"], km[
+                "flash_attention_bwd_dq"]
+            res["k3_share"] = fwd / res["step_ms"]
+            log(f"train-sharded (c): step {res['step_ms']:.3f} ms; in one "
+                f"profiled graphed step flash_attention {fwd:.3f} ms "
+                f"({res['k3_share']:.3f} of the step), "
+                f"flash_attention_bwd_dkv {dkv:.3f} ms + _dq {dq:.3f} ms "
+                f"({(dkv + dq) / res['step_ms']:.3f})")
         res["graph_rel"], res["graph_equal"] = sh_graph_vs_eager(
             torch, mx, trainer, batch, grads, deterministic=False)
         res["gate_rel"] = sh_card_vs_cpu(
@@ -3025,9 +3104,18 @@ def phase_kernel_bf16(torch, ce, me):
                   "bound_ms": 12 * (ffn1["bound_ms"] + ffn2["bound_ms"]),
                   "bound_by": "bytes" if ffn1["bound_by"] == ffn2[
                       "bound_by"] == "bytes" else "operations",
-                  "library_ms": 12 * ffn2["library_ms"],
-                  "ms_identity": 12 * ffn2["ms"],
+                  "library_ms": None,
+                  "bias_add_ms": 12 * ffn2["library_ms"],
+                  "bias_add_covers": "torch.add(y, bias) on the 12 ffn_2 "
+                                     "shapes: the bias add alone, 4 of K2's 5 "
+                                     "bytes per element, not K2's function",
+                  "ms_dropout": 12 * ffn2["ms"],
+                  "bytes": 12 * (k2_bytes((rows, 3072), 2, "col", False)
+                                 + k2_bytes((rows, 768), 2, "col", True)),
                   "err": max(ffn1["err"], ffn2["err"])}}
+    out["k2"]["bound_share"] = out["k2"]["bound_ms"] / out["k2"]["ms"]
+    out["k2"]["gb_per_s"] = out["k2"]["bytes"] / (out["k2"]["ms"] * 1e-3) \
+        / 1e9
     log(f"kernel: one ResNet-50 forward at batch {SH_RN_BATCH}, bfloat16, 48 "
         f"launches: kernel {out['k1']['ms']:.6f} ms, plain "
         f"{out['k1']['plain_ms']:.6f} ms, bound {out['k1']['bound_ms']:.6f} "
@@ -3035,10 +3123,13 @@ def phase_kernel_bf16(torch, ce, me):
     log(f"kernel: one BERT-base MLM training forward at batch "
         f"{SH_BERT['b'][0]}, S {SH_BERT['b'][1]}, bfloat16, 24 launches: "
         f"kernel {out['k2']['ms']:.6f} ms, plain {out['k2']['plain_ms']:.6f} "
-        f"ms, bound {out['k2']['bound_ms']:.6f} ms; the 12 ffn_2 launches "
-        f"{out['k2']['ms_identity']:.6f} ms vs torch.add(y, bias) "
-        f"{out['k2']['library_ms']:.6f} ms (the bias add without the "
-        "dropout)")
+        f"ms, bound {out['k2']['bound_ms']:.6f} ms (bytes at 3.35 TB/s), "
+        f"share {out['k2']['bound_share']:.3f}, "
+        f"{out['k2']['gb_per_s']:.1f} GB/s over its "
+        f"{out['k2']['bytes'] / 1e6:.3f} MB; the 12 ffn_2 launches "
+        f"{out['k2']['ms_dropout']:.6f} ms beside torch.add(y, bias) "
+        f"{out['k2']['bias_add_ms']:.6f} ms (the bias add alone, 4 of K2's 5 "
+        "bytes per element: no PyTorch call computes K2's function)")
     return out
 
 
@@ -3148,6 +3239,23 @@ def main():
                               "cores)"}
         return rows
 
+    def k3_half_rows():
+        """The forward's 16-bit design (wgmma at the slice's D 64): its
+        bf16 and fp16 rows at the slice shape."""
+        rows = {}
+        for key, name in (("bf16", "bfloat16"), ("fp16", "float16")):
+            r = k3[key]
+            rows[key] = {
+                **{k: v for k, v in r.items() if k != "library_kernel"},
+                "per": f"one BERT-base forward at batch {LONG_BATCH}, S "
+                       f"{LONG_SEQ}, {name} ({LONG_K3_PER_FORWARD} "
+                       "launches); library: scaled_dot_product_attention "
+                       f"in {name}",
+                "bound_rate": "bytes at 3.35 TB/s with 2-byte elements, "
+                              "operations at 989 TFLOP/s (16-bit tensor "
+                              "cores)"}
+        return rows
+
     bwd_per = (f"one BERT-base training step at batch {LONG_BATCH}, "
                f"sequence {LONG_SEQ}, float32 ({LONG_K3_PER_FORWARD} "
                "launches)")
@@ -3218,8 +3326,9 @@ def main():
         **graphed_train(train, "matmul_epilogue"),
         **bf16_row(kb["k2"], f"one BERT-base MLM training forward at batch "
                    f"{SH_BERT['b'][0]}, S {SH_BERT['b'][1]}, bfloat16 (12 "
-                   "ffn_1 gelu, 12 ffn_2 dropout 0.1); library: torch.add("
-                   "y, bias) on the 12 ffn_2 shapes, without the dropout"),
+                   "ffn_1 gelu, 12 ffn_2 dropout 0.1); no PyTorch call "
+                   "computes dropout(act(y + bias)) with given bits: "
+                   "library_ms null, bias_add_ms beside it"),
         **sharded("matmul_epilogue", ("b", "c"))}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
@@ -3238,12 +3347,9 @@ def main():
         "library_covers": "torch.nn.functional.scaled_dot_product_attention"
                           " on the same inputs as [B, H, S, D]; its kernel: "
                           + k3["library_kernel"][:80],
-        "max_abs_err_bf16": k3["max_abs_err_bf16"],
         **graphed_fields(s3, "flash_attention"),
         **graphed_train(train, "flash_attention"),
-        **bf16_row(k3["bf16"], f"one BERT-base forward at batch "
-                   f"{LONG_BATCH}, S {LONG_SEQ}, bfloat16 (12 launches); "
-                   "library: scaled_dot_product_attention in bfloat16"),
+        **k3_half_rows(),
         **sharded("flash_attention", ("c",))}, {
         "name": "flash_attention_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"

@@ -66,22 +66,21 @@ inline int copy_width(const void* a, const void* b, int64_t esize,
 }
 
 // rows [r0, r0 + ROWS) of a (seq, D) operand with sequence stride ss into
-// hi (and lo) [ROWS][DP + 4] as tf32 words; rows past n and columns past
-// d are zeros
+// hi and lo [ROWS][DP + 4] as tf32 words; rows past n and columns past d
+// are zeros
 template <typename T, int DP, int ROWS, int NT>
 __device__ __forceinline__ void stage_split(uint32_t* hi, uint32_t* lo,
                                             const T* src, int64_t ss,
                                             int64_t r0, int64_t n, int d) {
-  constexpr bool EXACT = sizeof(T) < 4;
   for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
     const int r = idx / DP;
     const int c = idx - r * DP;
     const int64_t row = r0 + r;
     const float x = (row < n && c < d) ? to_f32(src[row * ss + c]) : 0.0f;
     uint32_t h, l;
-    split_tf32<EXACT>(x, h, l);
+    split_tf32(x, h, l);
     hi[r * (DP + 4) + c] = h;
-    if (!EXACT) lo[r * (DP + 4) + c] = l;
+    lo[r * (DP + 4) + c] = l;
   }
 }
 
@@ -127,7 +126,7 @@ __device__ __forceinline__ void issue_rows(T* dst, const T* src, int64_t ss,
 
 // A fragment of a resident split operand [row][DP + 4], rows row..row+15,
 // columns k0..k0+7 (contracted over D)
-template <bool EXACT, int RS>
+template <int RS>
 __device__ __forceinline__ void load_a_res(uint32_t (&h)[4], uint32_t (&l)[4],
                                            const uint32_t* H,
                                            const uint32_t* L, int row,
@@ -138,14 +137,10 @@ __device__ __forceinline__ void load_a_res(uint32_t (&h)[4], uint32_t (&l)[4],
   h[1] = H[i1];
   h[2] = H[i0 + 4];
   h[3] = H[i1 + 4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) l[e] = 0u;
-  if (!EXACT) {
-    l[0] = L[i0];
-    l[1] = L[i1];
-    l[2] = L[i0 + 4];
-    l[3] = L[i1 + 4];
-  }
+  l[0] = L[i0];
+  l[1] = L[i1];
+  l[2] = L[i0 + 4];
+  l[3] = L[i1 + 4];
 }
 
 // B fragment contracted over D: rows n0..n0+7 of a streamed tile are the
@@ -154,10 +149,9 @@ template <typename T, int RT>
 __device__ __forceinline__ void load_b_rows(uint32_t (&h)[2],
                                             uint32_t (&l)[2], const T* X,
                                             int n0, int k0, int g, int t) {
-  constexpr bool EXACT = sizeof(T) < 4;
   const T* x = X + (n0 + g) * RT + k0 + t;
-  split_tf32<EXACT>(to_f32(x[0]), h[0], l[0]);
-  split_tf32<EXACT>(to_f32(x[4]), h[1], l[1]);
+  split_tf32(to_f32(x[0]), h[0], l[0]);
+  split_tf32(to_f32(x[4]), h[1], l[1]);
 }
 
 // B fragment contracted over the tile's rows, k permuted: k = t is row
@@ -166,10 +160,9 @@ template <typename T, int RT>
 __device__ __forceinline__ void load_b_cols(uint32_t (&h)[2],
                                             uint32_t (&l)[2], const T* X,
                                             int k0, int col, int t) {
-  constexpr bool EXACT = sizeof(T) < 4;
   const T* x = X + (k0 + 2 * t) * RT + col;
-  split_tf32<EXACT>(to_f32(x[0]), h[0], l[0]);
-  split_tf32<EXACT>(to_f32(x[RT]), h[1], l[1]);
+  split_tf32(to_f32(x[0]), h[0], l[0]);
+  split_tf32(to_f32(x[RT]), h[1], l[1]);
 }
 
 // A fragment of p or ds [row][SS] with the same permuted k: the pairs of
@@ -182,10 +175,10 @@ __device__ __forceinline__ void load_a_pairs(uint32_t (&h)[4],
       *reinterpret_cast<const float2*>(W + (row + g) * SS + k0 + 2 * t);
   const float2 y =
       *reinterpret_cast<const float2*>(W + (row + g + 8) * SS + k0 + 2 * t);
-  split_tf32<false>(x.x, h[0], l[0]);
-  split_tf32<false>(y.x, h[1], l[1]);
-  split_tf32<false>(x.y, h[2], l[2]);
-  split_tf32<false>(y.y, h[3], l[3]);
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(y.x, h[1], l[1]);
+  split_tf32(x.y, h[2], l[2]);
+  split_tf32(y.y, h[3], l[3]);
 }
 
 template <int N>
@@ -244,7 +237,6 @@ __device__ __forceinline__ void product_over_d(float (&acc)[MT * N][4],
                                                const uint32_t* L,
                                                const T* X, int row0, int n0,
                                                int g, int t) {
-  constexpr bool EXACT = sizeof(T) < 4;
   float small[MT * N][4];         // the lo terms, added once at the end
   zero(small);
 #pragma unroll
@@ -252,7 +244,7 @@ __device__ __forceinline__ void product_over_d(float (&acc)[MT * N][4],
     uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      load_a_res<EXACT, RS>(ah[m], al[m], H, L, row0 + 16 * m, 8 * kk, g, t);
+      load_a_res<RS>(ah[m], al[m], H, L, row0 + 16 * m, 8 * kk, g, t);
     }
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -260,15 +252,13 @@ __device__ __forceinline__ void product_over_d(float (&acc)[MT * N][4],
       load_b_rows<T, RT>(bh, bl, X, n0 + 8 * j, 8 * kk, g, t);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        if (!EXACT) {
-          mma_tf32(small[m * N + j], al[m], bh);
-          mma_tf32(small[m * N + j], ah[m], bl);
-        }
+        mma_tf32(small[m * N + j], al[m], bh);
+        mma_tf32(small[m * N + j], ah[m], bl);
         mma_tf32(acc[m * N + j], ah[m], bh);
       }
     }
   }
-  if (!EXACT) promote(acc, small);
+  promote(acc, small);
 }
 
 // the contraction over the K tile rows of one tile step, in 3xTF32, into
@@ -280,7 +270,6 @@ __device__ __forceinline__ void product_over_rows(float (&acc)[MT * N][4],
                                                   const float* W, const T* X,
                                                   int row0, int col0, int g,
                                                   int t) {
-  constexpr bool EXACT = sizeof(T) < 4;
 #pragma unroll
   for (int kk = 0; kk < K / 8; ++kk) {
     uint32_t ah[MT][4], al[MT][4];
@@ -294,7 +283,7 @@ __device__ __forceinline__ void product_over_rows(float (&acc)[MT * N][4],
       load_b_cols<T, RT>(bh, bl, X, 8 * kk, col0 + 8 * j + g, t);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        mma_3xtf32<true, !EXACT>(part[m * N + j], ah[m], al[m], bh, bl);
+        mma_3xtf32(part[m * N + j], ah[m], al[m], bh, bl);
       }
     }
   }
@@ -310,19 +299,18 @@ __device__ __forceinline__ void product_over_regs(float (&acc)[N][4],
                                                   const float (&w)[K / 8][4],
                                                   const T* X, int col0, int g,
                                                   int t) {
-  constexpr bool EXACT = sizeof(T) < 4;
 #pragma unroll
   for (int kk = 0; kk < K / 8; ++kk) {
     uint32_t ah[4], al[4];
-    split_tf32<false>(w[kk][0], ah[0], al[0]);
-    split_tf32<false>(w[kk][2], ah[1], al[1]);
-    split_tf32<false>(w[kk][1], ah[2], al[2]);
-    split_tf32<false>(w[kk][3], ah[3], al[3]);
+    split_tf32(w[kk][0], ah[0], al[0]);
+    split_tf32(w[kk][2], ah[1], al[1]);
+    split_tf32(w[kk][1], ah[2], al[2]);
+    split_tf32(w[kk][3], ah[3], al[3]);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       uint32_t bh[2], bl[2];
       load_b_cols<T, RT>(bh, bl, X, 8 * kk, col0 + 8 * j + g, t);
-      mma_3xtf32<true, !EXACT>(part[j], ah, al, bh, bl);
+      mma_3xtf32(part[j], ah, al, bh, bl);
     }
   }
   promote(acc, part);

@@ -2,7 +2,8 @@
 // the m16n8k16 mma.sync with fp32 accumulation, ldmatrix fragment loads
 // (plain and transposed) from shared memory, the packing of two fp32 values
 // into one 16-bit pair (rounded to nearest even) and the fast exp2. Used by
-// the 16-bit backward of flash attention (flash_attention_bwd.cu).
+// the 16-bit forward and backward of flash attention (flash_attention.cu,
+// flash_attention_bwd.cu).
 //
 // m16n8k16 fragments (PTX ISA, "Matrix fragments for mma.m16n8k16",
 // .bf16 / .f16), for lane = 4 g + t of a warp; each register holds two
@@ -111,6 +112,8 @@ __device__ __forceinline__ void ldsm_block(uint32_t (&r)[4], const T* X,
   const int hc = ROWS_FIRST ? (i >> 1) : (i & 1);
   ldsm_x4<TRANS>(r, X + (row0 + (lane & 7) + 8 * hi) * rs + col0 + 8 * hc);
 }
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x (ex2.approx: relative error 2^-22, 0 for -inf)
 __device__ __forceinline__ float exp2_fast(float x) {

@@ -9,8 +9,7 @@
 // equals x within 2^-22 |x|.
 // a * b is then a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, the small terms
 // issued first (into the same fp32 accumulator, or into one of their own);
-// the dropped a_lo * b_lo is below 2^-22 of the product. An input that is already exact in tf32 (a
-// bf16 or f16 value) has lo = 0, and its terms are not issued.
+// the dropped a_lo * b_lo is below 2^-22 of the product.
 //
 // m16n8k8 fragments (PTX ISA, "Matrix fragments for mma.m16n8k8", .tf32),
 // for lane = 4 g + t of a warp:
@@ -33,18 +32,11 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = hi + lo within 2^-22 |x|; with EXACT (x already a tf32 value) lo is
-// not computed
-template <bool EXACT>
+// x = hi + lo within 2^-22 |x|
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  if (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    hi = tf32_rna(x);
-    lo = tf32_rna(x - __uint_as_float(hi));
-  }
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // d += a b on one m16n8k8 tile, tf32 operands, fp32 accumulator
@@ -56,16 +48,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a b in 3xTF32: the lo terms first, then hi * hi; A_LO / B_LO say
-// whether that operand has a lo part (false for an exact operand)
-template <bool A_LO, bool B_LO>
+// d += a b in 3xTF32: the lo terms first, then hi * hi
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
                                            const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4],
                                            const uint32_t (&bh)[2],
                                            const uint32_t (&bl)[2]) {
-  if (A_LO) mma_tf32(d, al, bh);
-  if (B_LO) mma_tf32(d, ah, bl);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
 }
 

@@ -1,6 +1,7 @@
 // Hopper's warpgroup matrix multiply (wgmma) for 16-bit operands (bf16 and
-// f16) with fp32 accumulation, as the 16-bit backward of flash attention
-// uses it (flash_attention_bwd.cu): shared-memory matrix descriptors for the
+// f16) with fp32 accumulation, as the 16-bit forward and backward of flash
+// attention use it (flash_attention.cu, flash_attention_bwd.cu; the tiles
+// in flash_wg.cuh): shared-memory matrix descriptors for the
 // 128-byte swizzle, the fences around an asynchronous group, and
 // wgmma.mma_async m64nNk16 (N 32, 64, 128) with A from shared memory or
 // from registers and B from shared memory, K-major or MN-major.

@@ -13,10 +13,13 @@ under ``jax.checkpoint``). The port has one forward kernel and one pair of
 backward kernels for both. Causal masking is bottom-right aligned (query i
 attends keys j <= i + S_kv - S_q); a query row with no allowed key comes
 out as zeros and gets zero gradients. All math is fp32 and the outputs
-have q's dtype, with one exception: on bf16 and fp16 inputs the backward
-kernels round p and scale * ds to the input dtype before the gradient
-products, as the library's backward kernels do on bf16 inputs
-(``flash_attention_bwd_plain(..., round_to=dtype)`` is that function).
+have q's dtype, with one exception: on bf16 and fp16 inputs the kernels
+compute the library's 16-bit function. The forward rounds p to v's dtype
+before p v, against the running max of each 128-key block, with l from
+the unrounded p (``flash_attention_plain(..., round_to=dtype,
+block_size=128)``); the backward rounds p and scale * ds to the input
+dtype before the gradient products (``flash_attention_bwd_plain(...,
+round_to=dtype)``), as the library's kernels do on bf16 inputs.
 
 - :func:`flash_attention_plain` is the plain PyTorch version of the
   forward, a mirror of ``_blockwise_impl``, and
@@ -88,7 +91,7 @@ def _causal_mask(s_q, s_k, start, block, device):
 
 
 def flash_attention_plain(q, k, v, block_size=512, causal=False,
-                          scale=None, return_lse=False):
+                          scale=None, return_lse=False, round_to=None):
     """The plain version (``_blockwise_impl``): ``block_size`` shrinks to
     a divisor of S_kv; per block the scores of fp32 q and k, masked with
     -1e30 under ``causal``, update the running max m, sum l and output o
@@ -96,7 +99,14 @@ def flash_attention_plain(q, k, v, block_size=512, causal=False,
     dtype and the rows with an empty allowed set are zeroed. Inputs
     ``[..., S, D]``; memory O(S_q * block). With ``return_lse`` it also
     returns the fp32 row log-sum-exp ``m + log l`` ([..., S_q], +inf for
-    an empty row), what the backward recomputes the probabilities from."""
+    an empty row), what the backward recomputes the probabilities from.
+
+    With ``round_to`` (a 16-bit dtype) each block's p is rounded to it
+    before the p v product, as the JAX library's Pallas forward rounds it
+    on bf16 inputs (``p.astype(v.dtype)``, against the running max of
+    each 128-key block: pass ``block_size=128``); l sums the unrounded p.
+    That is the function the card's 16-bit kernels compute. The CPU path,
+    a mirror of ``_blockwise_impl``, passes none."""
     d = q.shape[-1]
     s_q, s_k = q.shape[-2], k.shape[-2]
     scale = default_scale(d, q.dtype) if scale is None else scale
@@ -117,6 +127,8 @@ def flash_attention_plain(q, k, v, block_size=512, causal=False,
         alpha = torch.exp(m - m_new)
         p = torch.exp(scores - m_new[..., None])
         l = l * alpha + torch.sum(p, dim=-1)
+        if round_to is not None:
+            p = p.to(round_to).float()
         o = o * alpha[..., None] + torch.einsum("...qk,...kd->...qd", p,
                                                 v_blk)
         m = m_new

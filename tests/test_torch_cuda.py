@@ -125,21 +125,31 @@ def test_conv_epilogue_gradients_match_plain(cuda, shape, axis, vectors,
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
+                                       (torch.bfloat16, 1e-2),
+                                       (torch.float16, 1e-2)])
 @pytest.mark.parametrize("act", me.EPILOGUE_ACTS)
-@pytest.mark.parametrize("shape,vec,p", [
-    ((1024, 3072), "col", 0.0),
-    ((1024, 768), "col", 0.1),
-    ((8, 768), "col", 0.0),
-    ((77, 5), "row", 0.5),
-    ((3, 1), "col", 0.1),
+@pytest.mark.parametrize("shape,vec,p,offset", [
+    ((1024, 3072), "col", 0.0, 0),
+    ((1024, 768), "col", 0.1, 0),
+    ((8, 768), "col", 0.0, 0),
+    ((77, 5), "row", 0.5, 0),
+    ((3, 1), "col", 0.1, 0),
+    ((64, 772), "col", 0.1, 0),
+    ((64, 768), "col", 0.1, 1),
+    ((64, 768), "row", 0.0, 1),
 ])
-def test_matmul_epilogue_kernel_matches_plain(cuda, shape, vec, p, act,
-                                              dtype, tol):
+def test_matmul_epilogue_kernel_matches_plain(cuda, shape, vec, p, offset,
+                                              act, dtype, tol):
+    """The kernel against its plain version. C 3072 and 768 take the
+    vector pass (one 16-byte vector of y per thread); C 772 (not a
+    multiple of 8 in 16 bits), C 5 and 1, and a contiguous y that starts
+    at an odd element offset (``offset`` 1) take the element pass."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1)
     r, c = shape
-    y = (torch.randn(r, c, generator=gen, device=cuda) * 2).to(dtype)
+    y = (torch.randn(r * c + offset, generator=gen, device=cuda) * 2).to(
+        dtype)[offset:].view(r, c)
+    assert y.is_contiguous()
     b = (torch.randn(*((1, c) if vec == "col" else (r, 1)), generator=gen,
                      device=cuda) * 0.5).to(dtype)
     bits = torch.randint(0, 256, shape, generator=gen, device=cuda,
@@ -209,8 +219,9 @@ def test_matmul_epilogue_gradients_match_plain(cuda, act, p):
 
 # (B, H, S_q, S_kv, D, causal, form): "qkv" reads strided (B, S, H, D)
 # views of one fused (B, S, 3HD) tensor, "bhsd" contiguous [B, H, S, D],
-# "3d" [B, S, D]. S_q 127, 128 and 129 sit at the edge of the forward's
-# 128-row CTA; S_q 300 against S_kv 200 under causal puts empty and
+# "3d" [B, S, D]. S_q 127, 128 and 129 sit at the edge of a 128-row CTA
+# (the fp32 forward, the backward), S_q 65 at that of the 16-bit forward's
+# 64-row CTA at D 64; S_q 300 against S_kv 200 under causal puts empty and
 # non-empty rows in one CTA.
 FLASH_CASES = [
     (4, 12, 4096, 4096, 64, False, "qkv"),
@@ -232,6 +243,7 @@ FLASH_CASES = [
     (1, 2, 127, 1100, 64, True, "bhsd"),
     (1, 2, 128, 1100, 64, False, "bhsd"),
     (1, 2, 129, 1100, 64, True, "bhsd"),
+    (1, 2, 65, 1100, 64, True, "bhsd"),
     (1, 2, 300, 200, 64, True, "bhsd"),
 ]
 
@@ -257,26 +269,46 @@ def flash_inputs(case, dtype, device, seed=0):
                                        (torch.bfloat16, 1e-2),
                                        (torch.float16, 1e-2)])
 @pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol,
+                                              record_property):
+    """The forward kernel against ``flash_attention_plain``, within
+    ``tol`` of max |out|. The 16-bit kernels round p to the input dtype
+    before p v, as the JAX library's TPU forward does against the running
+    max of each 128-key block: they are also held, within the same
+    tolerance, against the plain version with ``round_to`` the input dtype
+    and ``block_size=128``, and that error is recorded
+    (``rel_vs_round_to``)."""
     q, k, v = flash_inputs(case, dtype, cuda)
     causal, form = case[5], case[6]
+    sixteen = dtype != torch.float32
     kernels.reset_launch_counts()
     with torch.inference_mode():
         if form == "qkv":
             got = fa.flash_attention_bshd(q, k, v, causal=causal)
-            want = fa.flash_attention_plain(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal).transpose(1, 2)
+
+            def plain(**kw):
+                return fa.flash_attention_plain(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, **kw).transpose(1, 2)
         else:
             got = fa.flash_attention(q, k, v, causal=causal)
-            want = fa.flash_attention_plain(q, k, v, causal=causal)
-    assert kernels.launch_counts() == dict(_NONE, flash_attention=1)
+
+            def plain(**kw):
+                return fa.flash_attention_plain(q, k, v, causal=causal, **kw)
+        assert kernels.launch_counts() == dict(_NONE, flash_attention=1)
+        want = plain()
+        rounded = plain(block_size=128, round_to=dtype) if sixteen else None
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     assert err <= tol * scale, (err, scale)
+    if sixteen:
+        top = rounded.float().abs().max().item()
+        err = (got.float() - rounded.float()).abs().max().item()
+        assert err <= tol * top, (err, top)
+        record_property("rel_vs_round_to", err / top)
     s_q, s_kv = case[2], case[3]
     if causal and s_q > s_kv:            # rows with no allowed key: zeros
         assert not got[..., :s_q - s_kv, :].any()
@@ -407,6 +439,29 @@ def test_flash_attention_bwd_smem_is_16_bit_for_16_bit_inputs(cuda):
         assert fn(which, 0, 64) >= 4 * 128 * 68 * 4
 
 
+def test_flash_attention_smem_is_16_bit_for_16_bit_inputs(cuda):
+    """The 16-bit forward (dtype codes 1 and 2) keeps q and the streamed
+    K and V tiles as 16-bit values, with no tf32 hi or lo words: at D 64 a
+    CTA holds 1024 bytes of alignment slack, 64 rows of q and a
+    three-stage ring of two 128 x 64 tiles (two CTAs share an SM); at D
+    128 128 rows of q and a three-stage ring of two 128 x 128 tiles; at D
+    256 (mma.sync) 64 rows of q and a three-stage ring of two 32-row
+    tiles, rows of 264 16-bit elements. The fp32 kernel keeps its 3xTF32
+    layout: 4-byte hi and lo words for 128 rows of q at D 64."""
+    import ctypes
+    fn = fa._lib().flash_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    want = {64: 1024 + 64 * 64 * 2 + 3 * 2 * 128 * 64 * 2,
+            128: 1024 + 128 * 128 * 2 + 3 * 2 * 128 * 128 * 2,
+            256: (3 * 2 * 32 + 64) * 264 * 2}
+    for d, bytes_ in want.items():
+        for code in (1, 2):
+            assert fn(code, d) == bytes_
+            assert fn(code, d - 1) == bytes_     # D rides in the next DP
+    assert fn(0, 64) >= 2 * 128 * 68 * 4
+
+
 def test_flash_attention_forward_writes_lse_only_for_a_gradient(cuda):
     q, k, v = flash_inputs((1, 2, 300, 1100, 64, True, "bhsd"),
                            torch.float32, cuda)
@@ -420,6 +475,8 @@ def test_flash_attention_forward_writes_lse_only_for_a_gradient(cuda):
     assert none is None
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", [
     (1, 2, 300, 1100, 64, True, "bhsd"),
     (1, 2, 129, 1100, 64, False, "bhsd"),
@@ -427,13 +484,16 @@ def test_flash_attention_forward_writes_lse_only_for_a_gradient(cuda):
     (1, 2, 129, 1100, 128, True, "bhsd"),
     (1, 2, 200, 130, 256, True, "bhsd"),
 ])
-def test_flash_attention_forward_lse_matches_plain(cuda, case):
+def test_flash_attention_forward_lse_matches_plain(cuda, case, dtype):
     """The forward's fp32 row log-sum-exp against the plain version's
     ``return_lse=True``: within 1e-5 of max |lse| on the rows with an
-    allowed key, +inf on exactly the rows without one. D 128 and 256 split
-    a row's keys across warps (the row max and sum are combined through
-    shared memory)."""
-    q, k, v = flash_inputs(case, torch.float32, cuda)
+    allowed key, +inf on exactly the rows without one. In fp32, D 128 and
+    256 split a row's keys across warps (the row max and sum are combined
+    through shared memory). In 16 bits l sums the unrounded p, so lse is
+    the same function as in fp32: the scores are exact products of 16-bit
+    values summed in fp32, and the kernel's exp2 with the scale folded
+    into log2 e differs from expf by a few ulps, far below 1e-5."""
+    q, k, v = flash_inputs(case, dtype, cuda)
     causal = case[5]
     _, want = fa.flash_attention_plain(q, k, v, causal=causal,
                                        return_lse=True)
