@@ -168,9 +168,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                Dense from their shapes, forward x 3) and its share of
                the 67 TFLOP/s peak. Gate: one batch-1 step from the same
                weights and running statistics on the card and on the
-               CPU; the loss, five gradients and two BatchNorms' running
-               mean and var within 1e-3 of each one's max |value|. Then
-               net.hybridize() from the eager run's initial weights and
+               CPU (the card's relu decisions and stem max pool choices
+               replayed there: ReluTape, PoolTape); the loss, five
+               gradients and two BatchNorms' running mean and var within
+               1e-3 of each one's max |value|. Then net.hybridize() from the eager run's initial weights and
                running statistics with a fresh SGD: 6 graphed steps, the
                first capturing the forward graph (BatchNorm's running
                statistics updated in place in it, K1) and the backward
@@ -223,10 +224,39 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                losses of the first 3 steps within 5% of the same
                trainer's fp32 ones (compute_dtype None, same weights and
                batch), whose step time is printed beside them.
+16. train-   — (d) the BERT pretraining recipe on (b)'s model and batch
+    recipe     (bert_12_768_12 MLM, batch 64, S 128, dropout 0.1, bf16
+               compute, fp32 masters): LAMB lr 1e-4 wd 0.01 with
+               PolyScheduler(max_update=1000, base_lr=1e-4, pwr=1,
+               warmup_steps=10), wd multiplier 0 on every bias, gamma
+               and beta (by trainable index), GuardConfig(clip_norm=1.0),
+               steps taken as ShardedTrainer.run_steps(num_steps=8), each
+               window one CUDA graph replay. The first window captures; 3
+               timed windows with the launches counted from 0 (24 K2 per
+               inner step, nothing else); the lrs each window's graph read
+               must equal PolyScheduler's on the host; the losses finite
+               and falling. Printed: window and per-step ms, tokens/s,
+               capture s, pool, peak and reserved memory, one profiled
+               window's busy share, host launch calls (1 graph launch plus
+               the dropout generator's 2 fills required) and K2 launches,
+               the update of one inner step alone (a CUDA graph of the
+               trainer's _update, CUDA events) and its share of the
+               window, and graphed step() ms beside run_steps. Gates: at
+               dropout 0, run_steps(8) bit-equal to 8 graphed step() calls
+               from one state; (d) at batch 1, card against CPU within
+               3e-2 (the card's dropout bits replayed); for each of the 13
+               optimizers with a functional rule, fp32 and bf16, one
+               graphed step of an MLP bit-equal to an eager one (with a
+               scheduler, wd, clip_gradient and multipliers); a guarded
+               graphed step fed an Inf leaves weights, optimizer state and
+               BatchNorm statistics bit-unchanged, journals
+               nonfinite_grad, and the third in a row raises
+               TrainingDiverged.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
-(eager, then graphed; phase 15 per configuration). A graph's replay
+(eager, then graphed; phase 15 per configuration; phase 16 after the
+capturing window). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -2308,6 +2338,62 @@ class ReluTape:
         ce.act_fn, ops_nn.activation = self._saved
 
 
+class PoolTape:
+    """The window each max pool output took its value from, recorded on
+    the card (``return_indices``) and replayed on the CPU, as ReluTape
+    replays the relu decisions. The CPU's own choices are counted against
+    the card's; with ``apply`` the card's are taken by a gather, so the
+    gradient reaches the position the card chose. An fp32 ResNet-50's
+    stem max pool has, now and then, a window whose two largest inputs
+    the card and the CPU order differently: one such choice in 200704
+    moves features.0.weight's batch-1 gradient by 1.3e-2 of its max
+    |value| (``python3 tools/resnet_probes.py gate-flips`` on the card,
+    1 trial of 8; the others 0 choices and <= 9.5e-5)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.choices = []
+        self.replay = self.apply = False
+        self.differ = self.total = 0
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import nn as ops_nn
+        torch, tape = self.torch, self
+        F = torch.nn.functional
+        self._saved = ops_nn.pooling
+        pooling = self._saved
+        recorded = iter(self.choices) if self.replay else None
+
+        def pool(x, kernel=(), pool_type="max", global_pool=False,
+                 stride=None, pad=None, **kwargs):
+            if pool_type != "max" or global_pool or x.ndim != 4 \
+                    or kwargs.get("pooling_convention", "valid") != "valid":
+                return pooling(x, kernel, pool_type, global_pool, stride,
+                               pad, **kwargs)
+            pad = ops_nn._pair(pad or 0, 2)
+            xp = F.pad(x, (pad[1], pad[1], pad[0], pad[0]),
+                       value=-float("inf"))
+            out, idx = F.max_pool2d(xp, ops_nn._pair(kernel, 2),
+                                    ops_nn._pair(stride or 1, 2),
+                                    return_indices=True)
+            if not tape.replay:
+                tape.choices.append(idx.cpu())
+                return out
+            card = next(recorded).to(x.device)
+            tape.differ += int((idx != card).sum())
+            tape.total += idx.numel()
+            if not tape.apply:
+                return out
+            return xp.flatten(2).gather(2, card.flatten(2)).view_as(out)
+
+        ops_nn.pooling = pool
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.ops import nn as ops_nn
+        ops_nn.pooling = self._saved
+
+
 def phase_train_resnet(torch, mx, card, ctx):
     """Train full-width ResNet-50 v1 at batch RN_BATCH on ``ctx`` through
     record -> SoftmaxCrossEntropyLoss -> backward -> Trainer("sgd"), then
@@ -2412,20 +2498,22 @@ def phase_train_resnet(torch, mx, card, ctx):
         got["loss"] = loss.detach().cpu().numpy()
         return got
 
-    tape = ReluTape(torch)
-    with tape:
+    tape, pool = ReluTape(torch), PoolTape(torch)
+    with tape, pool:
         card_q = gate_step(net, x[:1], y[:1])
     cpu_net = resnet50_v1()
     cpu_net.load_dict(state, ctx=mx.cpu())
     t0 = time.perf_counter()
-    tape.replay = True
-    with tape:
+    tape.replay = pool.replay = pool.apply = True
+    with tape, pool:
         cpu_q = gate_step(cpu_net, x[:1].cpu(), y[:1].cpu())
     log(f"train: the CPU step at batch 1 took "
         f"{time.perf_counter() - t0:.1f} s; {len(tape.act)} stem and "
         f"{len(tape.k1)} epilogue relu decisions replayed from the card, "
         f"{tape.differ} of {tape.total} relu inputs the CPU alone would "
-        "have decided the other way")
+        f"have decided the other way; {len(pool.choices)} max pool's "
+        f"choices replayed, {pool.differ} of {pool.total} windows the CPU "
+        "alone would have taken from another position")
     worst = gate(card_q, cpu_q)
     del cpu_net
     graphed = train_resnet_graphed(torch, mx, net, x, y, loss_fn,
@@ -2581,11 +2669,10 @@ def sh_resnet(torch, mx, ctx, dtype, state=None):
     return net, trainer
 
 
-def sh_bert(torch, mx, ctx, dtype, seq, state=None):
-    """examples/pretrain_bert.py's trainer: bert_12_768_12, vocab 30522,
-    max_length max(512, S), no pooler or classifier, dropout 0.1,
-    Normal(0.02) from SEED (or ``state``), the MLM logits kept 3-D by
-    its wrapper, Adam lr 1e-4."""
+def mlm_model(torch, mx, ctx, seq, state=None, dropout=0.1):
+    """examples/pretrain_bert.py's model: bert_12_768_12, vocab 30522,
+    max_length max(512, S), no pooler or classifier, Normal(0.02) from
+    SEED (or ``state``), the MLM logits kept 3-D by its wrapper."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert_model
 
     class MLMWrapper(mx.gluon.HybridBlock):
@@ -2597,8 +2684,8 @@ def sh_bert(torch, mx, ctx, dtype, seq, state=None):
             return self.inner(tokens)[1]
 
     net = get_bert_model("bert_12_768_12", vocab_size=BERT_VOCAB,
-                         max_length=max(512, seq), use_pooler=False,
-                         use_classifier=False)
+                         max_length=max(512, seq), dropout=dropout,
+                         use_pooler=False, use_classifier=False)
     net.initialize(mx.init.Normal(0.02), ctx=ctx,
                    generator=mx.random.generator(SEED))
     model = MLMWrapper(net)
@@ -2607,6 +2694,13 @@ def sh_bert(torch, mx, ctx, dtype, seq, state=None):
             model(torch.zeros(1, 8, dtype=torch.int32,
                               device=ctx.torch_device))
         model.load_dict(state)
+    return model
+
+
+def sh_bert(torch, mx, ctx, dtype, seq, state=None):
+    """examples/pretrain_bert.py's trainer: :func:`mlm_model` at dropout
+    0.1, Adam lr 1e-4."""
+    model = mlm_model(torch, mx, ctx, seq, state)
     trainer = mx.parallel.ShardedTrainer(
         model, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
         optimizer_params={"learning_rate": TRAIN_LR}, mesh=sh_mesh(mx, ctx),
@@ -2640,9 +2734,9 @@ def sh_params(trainer, names):
             for k in names}
 
 
-def sh_profile(torch, step, wall_ms):
-    """One profiled step: device time, busy share of ``wall_ms``, host
-    launch calls and the top kernels."""
+def sh_profile(torch, step, wall_ms, what="step"):
+    """One profiled step (or ``what``): device time, busy share of
+    ``wall_ms``, host launch calls and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -2658,14 +2752,14 @@ def sh_profile(torch, step, wall_ms):
                  and "GraphLaunch" in e.key)
     if device_ms <= 0:
         log(f"profile: device time not measured (the profiler saw no "
-            f"kernels); {calls} host launch calls per step ({graphs} graph "
-            "launches)")
+            f"kernels); {calls} host launch calls per {what} ({graphs} "
+            "graph launches)")
         return {"device_ms": None, "busy": None, "host_launch_calls": calls,
                 "graph_launches": graphs, "rows": {}}
-    log(f"profile: one graphed step: kernels {device_ms:.3f} ms on the "
+    log(f"profile: one graphed {what}: kernels {device_ms:.3f} ms on the "
         f"device ({sum(c for c, _ in dev.values()):.0f} launches), busy "
-        f"{device_ms / wall_ms:.3f} of the median step's {wall_ms:.3f} ms; "
-        f"{calls} host launch calls per step, {graphs} of them graph "
+        f"{device_ms / wall_ms:.3f} of the median {what}'s {wall_ms:.3f} ms;"
+        f" {calls} host launch calls per {what}, {graphs} of them graph "
         "launches")
     for key, (c, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"  {ms:9.4f} ms {c:5.0f}x  {key[:90]}")
@@ -3071,6 +3165,520 @@ def phase_train_sharded(torch, mx, card, ctx):
     return out
 
 
+# -- phase 16: train-recipe --------------------------------------------------
+RC_BATCH, RC_SEQ = SH_BERT["b"][:2]  # examples/pretrain_bert.py's defaults
+RC_WINDOW = 8                        # run_steps(num_steps=8)
+RC_WINDOWS = 3                       # timed windows after the capturing one
+RC_STEPS = 5                         # graphed step() calls; the first captures
+RC_LAMB = {"learning_rate": 1e-4, "wd": 0.01}
+RC_SCHED = {"max_update": 1000, "base_lr": 1e-4, "pwr": 1,
+            "warmup_steps": 10}
+RC_CLIP = 1.0                        # GuardConfig(clip_norm=)
+RC_NO_DECAY = r".*bias|.*gamma|.*beta"
+RC_K2 = 24                           # K2 launches per inner step
+RC_MLP = (32, 128, 256, 64)          # batch, in, hidden, out
+RC_OPTIMIZERS = {                    # the functional rules, as in
+    "sgd": {"learning_rate": 0.1, "momentum": 0.9},   # tests/test_torch_
+    "nag": {"learning_rate": 0.1, "momentum": 0.9},   # optimizers.py
+    "adam": {"learning_rate": 0.01},
+    "adamw": {"learning_rate": 0.01},
+    "lamb": {"learning_rate": 0.01},
+    "rmsprop": {"learning_rate": 0.01},
+    "adagrad": {"learning_rate": 0.1},
+    "ftrl": {"learning_rate": 0.1},
+    "signum": {"learning_rate": 0.01, "momentum": 0.9, "wd_lh": 0.01},
+    "adadelta": {"rho": 0.9},
+    "nadam": {"learning_rate": 0.01},
+    "dcasgd": {"learning_rate": 0.1, "momentum": 0.9},
+    "ftml": {"learning_rate": 0.01},
+}
+
+
+def rc_trainer(torch, mx, ctx, dropout=0.1, state=None):
+    """The recipe: :func:`mlm_model`, bf16 compute and fp32 masters on a
+    one-device mesh; LAMB (lr 1e-4, wd 0.01) with PolyScheduler
+    (max_update 1000, pwr 1, warm-up 10); wd multiplier 0 on every
+    bias, gamma and beta, by trainable index; GuardConfig(clip_norm=1)."""
+    model = mlm_model(torch, mx, ctx, RC_SEQ, state, dropout)
+    opt = mx.optimizer.create(
+        "lamb", **RC_LAMB,
+        lr_scheduler=mx.lr_scheduler.PolyScheduler(**RC_SCHED))
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    opt.set_wd_mult({i: 0.0 for i, n in enumerate(names)
+                     if re.fullmatch(RC_NO_DECAY, n)})
+    trainer = mx.parallel.ShardedTrainer(
+        model, mx.gluon.loss.SoftmaxCrossEntropyLoss(), opt,
+        mesh=sh_mesh(mx, ctx), compute_dtype="bfloat16",
+        guard=mx.guardrails.GuardConfig(clip_norm=RC_CLIP))
+    return model, trainer
+
+
+def rc_program(trainer, steps):
+    progs = [p for k, p in trainer._programs.items() if k[0] == steps]
+    if len(progs) != 1:
+        fail(f"train-recipe: {len(progs)} programs of {steps} steps, want 1")
+    return progs[0]
+
+
+def rc_update_ms(torch, trainer, batch, reps=20):
+    """Device ms of one inner step's update of every weight (the
+    trainer's own ``_update``: LAMB with the multipliers and the guard's
+    select) captured alone in a CUDA graph, CUDA events around ``reps``
+    replays: as the trainer runs it, each step's powers of t computed
+    once (``_Powers``), and with every weight computing its own, in turns
+    (shared, own, own, shared). Returns the two means; the weights and
+    the state are put back."""
+    from mxnet_tpu_torch.parallel import sharded
+    snap = sh_snapshot(trainer)
+    dev = trainer.device
+    _, grads, _ = trainer._loss_and_grads(list(batch[:-1]), batch[-1])
+    scalars = [torch.tensor(v, device=dev) for v in (1e-4, 20.0, 1.0)]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def timed():
+        with torch.no_grad():
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                trainer._update(grads, *scalars, finite)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                trainer._update(grads, *scalars, finite)
+            return event_ms(torch, graph.replay, reps)
+
+    memo = sharded._Powers.get
+    times = {True: [], False: []}
+    for shared in (True, False, False, True):
+        sharded._Powers.get = memo if shared else \
+            (lambda self, key, fn: fn(self.t))
+        try:
+            times[shared].append(timed())
+        finally:
+            sharded._Powers.get = memo
+    sh_restore(torch, snap)
+    del grads
+    torch.cuda.empty_cache()
+    return sum(times[True]) / 2, sum(times[False]) / 2
+
+
+def rc_replays_ms(torch, trainer, batch, reps=3):
+    """Median ms per inner step of RC_WINDOW back-to-back replays of
+    step()'s program, each after writing its lr and t, with one host read
+    of the steps' (loss, flag, norm) rows at the end: run_steps made of
+    step()'s program instead of an unrolled graph. The steps count as
+    updates; the monitor is not fed."""
+    from mxnet_tpu_torch.guardrails import fused
+    from mxnet_tpu_torch.parallel import sharded
+    prog, opt = rc_program(trainer, 1), trainer._optimizer
+    times = []
+    for _ in range(reps):
+        t = trainer.num_update + 1
+        t0 = time.perf_counter()
+        rows = []
+        for i, lr in enumerate(sharded._lr_sequence(opt, t, RC_WINDOW)):
+            prog.load(list(batch) + [trainer._scalar_tensor(
+                [lr], t + i, opt.rescale_grad, 1.0)])
+            prog.replay_forward()
+            rows.append(prog.out[0].clone())
+        fused.host_fetch(torch.stack(rows))
+        times.append((time.perf_counter() - t0) * 1e3 / RC_WINDOW)
+        trainer._num_update = opt.num_update = t + RC_WINDOW - 1
+    return _median(times)
+
+
+def rc_card_vs_cpu(torch, mx, trainer, batch1):
+    """One full batch-1 step() of the recipe on the card (its graph, the
+    dropout bits it drew recorded) against the CPU trainer from the same
+    weights, LAMB moments and update count: the loss and the gated
+    weights' gradients, the CPU's own from the card's bits; then every
+    weight, both LAMB moments and each weight's update (new - old) after
+    the CPU's step() given the card's loss and gradients (the update
+    alone: clip_norm in the rescale, the wd multipliers, LAMB's two
+    phases, the guard's select), each within SH_GATE_RTOL of max |value|.
+    The card's gradients are its eager step's with the graph's bits,
+    which the update gate then checks against the graph's own result."""
+    def host(t):                        # a copy, also of a CPU tensor
+        return t.detach().to("cpu", torch.float32, copy=True)
+
+    snap = sh_snapshot(trainer)
+    count = trainer.num_update
+    names = [n for n, _ in trainer._named]
+    state = {k: v.detach().cpu().numpy().copy()
+             for k, v in trainer._block.collect_params().items()}
+    moments = [[host(s) for s in st] for st in trainer._states]
+    old = [host(w) for w in trainer._trainable]
+    with mx.random.bits_tape() as rec:
+        trainer.step(*batch1)
+        drawn = [b.to("cpu", copy=True) for b in rec.drawn]
+    card = [[host(w)] + [host(s) for s in st]
+            for w, st in zip(trainer._trainable, trainer._states)]
+    sh_restore(torch, snap)
+    trainer._num_update = trainer._optimizer.num_update = count
+    dev = trainer.device
+    with mx.random.bits_tape(replay=drawn):
+        loss, grads, _ = trainer._loss_and_grads(
+            [x.to(dev) for x in batch1[:-1]], batch1[-1].to(dev))
+    card_loss, card_grads = loss.cpu(), [g.cpu() for g in grads]
+    del loss, grads
+    cpu_tr = rc_trainer(torch, mx, mx.cpu(), state=state)[1]
+    xs = [x.cpu() for x in batch1]
+    cpu_tr.prepare(xs[0])
+    if [n for n, _ in cpu_tr._named] != names:
+        fail("train-recipe: the CPU trainer's weights are not the card's")
+    with torch.no_grad():
+        for st, saved in zip(cpu_tr._states, moments):
+            for a, b in zip(st, saved):
+                a.copy_(b)
+    cpu_tr._num_update = cpu_tr._optimizer.num_update = count
+    t0 = time.perf_counter()
+    with mx.random.bits_tape(replay=drawn):
+        loss, grads, _ = cpu_tr._loss_and_grads(xs[:-1], xs[-1])
+    by_name = dict(zip(names, grads))
+    gated = {f"inner.{k}" for k in GATE_PARAMS}
+    grad_card = {n: g.float().numpy() for n, g in zip(names, card_grads)
+                 if n in gated}
+    grad_cpu = {n: by_name[n].float().numpy() for n in grad_card}
+    grad_card["loss"], grad_cpu["loss"] = card_loss.numpy(), loss.numpy()
+    log(f"train-recipe: the CPU's batch-1 forward and backward took "
+        f"{time.perf_counter() - t0:.1f} s ({len(drawn)} dropout draws "
+        "replayed from the card's graph)")
+    worst = gate(grad_card, grad_cpu, SH_GATE_RTOL)
+    cpu_tr._loss_and_grads = lambda inputs, label, lscale=1.0: (
+        card_loss, card_grads, [])
+    cpu_tr.step(*xs)
+    worst_of = dict.fromkeys(("weight", "update", "mean", "var"),
+                             (0.0, None))
+    bad = []
+    for n, w0, got, w, st in zip(names, old, card, cpu_tr._trainable,
+                                 cpu_tr._states):
+        want = [w.detach().float()] + [s.detach().float() for s in st]
+        pairs = {"weight": (got[0], want[0]),
+                 "update": (got[0] - w0, want[0] - w0),
+                 "mean": (got[1], want[1]), "var": (got[2], want[2])}
+        for what, (a, b) in pairs.items():
+            scale = max(float(b.abs().max()), 1e-30)
+            rel = float((a - b).abs().max()) / scale
+            if not (bool(torch.isfinite(a).all()) and rel <= SH_GATE_RTOL):
+                bad.append(f"{what} of {n}: {rel}")
+            if rel >= worst_of[what][0]:
+                worst_of[what] = (rel, n)
+    for what, (rel, n) in worst_of.items():
+        log(f"train-recipe: gate each weight's {what} after one batch-1 "
+            f"step() on the card vs the CPU's step() from the card's loss "
+            f"and gradients ({len(names)} weights): worst relative "
+            f"{rel:.3e} of max |value|, at {n} (tolerance {SH_GATE_RTOL:g})")
+    if bad:
+        fail(f"train-recipe: the update on the card differs from the CPU's "
+             f"by more than {SH_GATE_RTOL} of max |value| in {bad[:8]} "
+             f"({len(bad)} in all)")
+    del cpu_tr
+    return max([worst] + [w for w, _ in worst_of.values()])
+
+
+def rc_window_vs_steps(torch, mx, ctx, batch, init):
+    """The recipe at dropout 0 from ``init``: one run_steps(8) window
+    against eight graphed step() calls from the same state, bit for bit
+    in the last loss, every weight and every optimizer state."""
+    model, trainer = rc_trainer(torch, mx, ctx, dropout=0.0, state=init)
+    trainer.prepare(batch[0])
+    snap = sh_snapshot(trainer)
+    window_loss = trainer.run_steps(*batch, num_steps=RC_WINDOW)
+    after = [t.detach().clone() for t in snap[0]]
+    sh_restore(torch, snap)
+    trainer._num_update = trainer._optimizer.num_update = snap[2]
+    losses = [trainer.step(*batch) for _ in range(RC_WINDOW)]
+    differ = sum(not torch.equal(a, b) for a, b in zip(after, snap[0]))
+    equal = torch.equal(window_loss, losses[-1]) and differ == 0
+    log(f"train-recipe: dropout 0, run_steps({RC_WINDOW}) vs {RC_WINDOW} "
+        f"graphed step() calls from one state: last loss "
+        f"{float(window_loss):.6f} vs {float(losses[-1]):.6f}, "
+        f"{differ} of {len(after)} weights and states differ; bit-equal "
+        f"{equal}")
+    sh_release(torch, trainer)
+    del model, trainer, after
+    torch.cuda.empty_cache()
+    if not equal:
+        fail("train-recipe: run_steps differs from the same number of "
+             "step() calls")
+    return equal
+
+
+def rc_mlp(mx, ctx, batchnorm=False):
+    _, n_in, hidden, n_out = RC_MLP
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(hidden, in_units=n_in, activation="relu"))
+    if batchnorm:
+        net.add(mx.gluon.nn.BatchNorm(in_channels=hidden))
+    net.add(mx.gluon.nn.Dense(n_out, in_units=hidden))
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=mx.random.generator(SEED))
+    return net
+
+
+def rc_mlp_batch(torch, dev):
+    import numpy as np
+    b, n_in, _, n_out = RC_MLP
+    rng = np.random.RandomState(0)
+    return (torch.from_numpy(rng.randn(b, n_in).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.randn(b, n_out).astype(np.float32)).to(dev))
+
+
+def rc_optimizers(torch, mx, ctx):
+    """Each functional optimizer, in fp32 and bf16 compute, with a
+    PolyScheduler, wd 1e-3, clip_gradient 0.1 and the multipliers lr 2,
+    wd 0 and wd 2: one graphed ShardedTrainer step of the MLP against
+    one eager step from the same weights on the card, bit for bit in
+    the loss, the weights and the optimizer state."""
+    dev = ctx.torch_device
+    x, y = rc_mlp_batch(torch, dev)
+    bad, rows = [], {}
+    for dtype in ("float32", "bfloat16"):
+        for name, hyper in RC_OPTIMIZERS.items():
+            got = []
+            for graphed in (True, False):
+                net = rc_mlp(mx, ctx)
+                lr = hyper.get("learning_rate", 1.0)
+                opt = mx.optimizer.create(
+                    name, **hyper, wd=1e-3, clip_gradient=0.1,
+                    lr_scheduler=mx.lr_scheduler.PolyScheduler(
+                        max_update=10, pwr=1, warmup_steps=2,
+                        warmup_begin_lr=lr / 4))
+                opt.set_lr_mult({0: 2.0})
+                opt.set_wd_mult({1: 0.0, 2: 2.0})
+                tr = mx.parallel.ShardedTrainer(
+                    net, mx.gluon.loss.L2Loss(), opt, mesh=sh_mesh(mx, ctx),
+                    compute_dtype=None if dtype == "float32" else dtype)
+                if not graphed:
+                    tr._backend = None
+                loss = tr.step(x, y)
+                got.append([loss] + list(tr._trainable)
+                           + [s for st in tr._states for s in st])
+                if graphed and len(tr._programs) != 1:
+                    fail(f"train-recipe: {name} {dtype} captured "
+                         f"{len(tr._programs)} programs")
+                tr._release()
+            equal = all(torch.equal(a, b) for a, b in zip(*got))
+            rows[f"{name} {dtype}"] = equal
+            if not equal:
+                bad.append(f"{name} {dtype}")
+    log(f"train-recipe: graphed vs eager ShardedTrainer step on the card, "
+        f"{len(rows)} (optimizer, dtype) pairs: "
+        f"{sum(rows.values())} bit-equal" + (f"; differ: {bad}" if bad
+                                              else ""))
+    if bad:
+        fail(f"train-recipe: a graphed step differs from the eager one for "
+             f"{bad}")
+    return rows
+
+
+def rc_guard(torch, mx, ctx):
+    """A guarded graphed step (Adam, GuardConfig(max_consecutive_skips=3))
+    of the MLP with a BatchNorm, fed a batch with an Inf after a finite
+    step: weights, optimizer state and BatchNorm statistics
+    bit-unchanged, one nonfinite_grad record per step, and
+    TrainingDiverged at the third."""
+    from mxnet_tpu_torch.diagnostics import journal
+    from mxnet_tpu_torch.guardrails import GuardConfig, TrainingDiverged
+    dev = ctx.torch_device
+    x, y = rc_mlp_batch(torch, dev)
+    bad = x.clone()
+    bad[0, 0] = float("inf")
+    jr = journal.reset_journal("off")
+    try:
+        net = rc_mlp(mx, ctx, batchnorm=True)
+        tr = mx.parallel.ShardedTrainer(
+            net, mx.gluon.loss.L2Loss(), "adam", mesh=sh_mesh(mx, ctx),
+            guard=GuardConfig(max_consecutive_skips=3))
+        tr.step(x, y)
+        tensors = list(net.parameters()) + list(net.buffers()) \
+            + [s for st in tr._states for s in st]
+        before = [t.detach().clone() for t in tensors]
+        diverged = False
+        for i in range(1, 4):
+            try:
+                tr.step(bad, y)
+            except TrainingDiverged as err:
+                diverged = i == 3
+                log(f"train-recipe: guarded step {i + 1} raised "
+                    f"TrainingDiverged: {err}")
+            unchanged = all(torch.equal(a, b)
+                            for a, b in zip(tensors, before))
+            records = [r for r in jr.recent()
+                       if r["kind"] == "nonfinite_grad"]
+            if not unchanged or len(records) != i:
+                fail(f"train-recipe: guarded non-finite step {i}: state "
+                     f"unchanged {unchanged}, {len(records)} nonfinite_grad "
+                     "records")
+        programs, skipped = len(tr._programs), tr.skipped_steps
+        tr._release()
+    finally:
+        journal.reset_journal()
+    log(f"train-recipe: 3 guarded graphed steps on a batch with an Inf: "
+        f"weights, state and BatchNorm statistics bit-unchanged, 3 "
+        f"nonfinite_grad records, {skipped} skipped, TrainingDiverged at the"
+        f" third {diverged}, {programs} program")
+    if not diverged or skipped != 3 or programs != 1:
+        fail("train-recipe: the guard did not skip three steps and raise "
+             "TrainingDiverged at the third in one graph")
+    return {"skipped": skipped, "diverged": diverged,
+            "records": [{k: v for k, v in r.items()
+                         if k not in ("ts", "up_s")} for r in records]}
+
+
+def phase_train_recipe(torch, mx, card, ctx):
+    """(d) examples/pretrain_bert.py's model and batch through the BERT
+    pretraining recipe of :func:`rc_trainer`, RC_WINDOW steps per
+    run_steps window, each window one CUDA graph replay; then the gates."""
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    dev = ctx.torch_device
+    torch.cuda.empty_cache()
+    tokens = np.random.RandomState(0).randint(0, BERT_VOCAB,
+                                              (RC_BATCH, RC_SEQ))
+    ids = torch.from_numpy(tokens.astype(np.int32)).to(dev)
+    batch = (ids, ids)                  # pretrain_bert.py: the ids as labels
+    model, trainer = rc_trainer(torch, mx, ctx)
+    trainer.prepare(ids)
+    init = {k: v.detach().cpu().numpy().copy()
+            for k, v in model.collect_params().items()}
+    no_decay = trainer._optimizer.wd_mult
+    log(f"train-recipe (d): bert_12_768_12 MLM, batch {RC_BATCH}, S {RC_SEQ},"
+        f" vocab {BERT_VOCAB}, dropout 0.1, bf16 compute, fp32 masters; LAMB "
+        f"lr {RC_LAMB['learning_rate']:g} wd {RC_LAMB['wd']:g}, "
+        f"PolyScheduler({RC_SCHED}), wd_mult 0 on {len(no_decay)} of "
+        f"{len(trainer._trainable)} weights ({RC_NO_DECAY}), "
+        f"GuardConfig(clip_norm={RC_CLIP}); run_steps(num_steps={RC_WINDOW})"
+        f" on {card}")
+    host = mx.lr_scheduler.PolyScheduler(**RC_SCHED)
+    lrs_seen = []
+
+    def check_lrs(prog, start):
+        seen = prog.static_in[-1][:RC_WINDOW].tolist()
+        want = [float(np.float32(host(start + i))) for i in range(RC_WINDOW)]
+        lrs_seen.append({"first_step": start, "lrs": seen})
+        if seen != want:
+            fail(f"train-recipe: the window from step {start} saw lrs {seen},"
+                 f" PolyScheduler gives {want}")
+
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    first = float(trainer.run_steps(*batch, num_steps=RC_WINDOW))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    prog = rc_program(trainer, RC_WINDOW)
+    check_lrs(prog, 1)
+    _sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(RC_WINDOWS):
+        start = trainer.num_update + 1
+        t0 = time.perf_counter()
+        loss = trainer.run_steps(*batch, num_steps=RC_WINDOW)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        check_lrs(prog, start)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want["matmul_epilogue"] = RC_K2 * RC_WINDOW * RC_WINDOWS
+    if launches != want:
+        fail(f"train-recipe: launches {launches} over {RC_WINDOWS} windows, "
+             f"want {want}")
+    if not all(math.isfinite(v) for v in [first] + losses) \
+            or not losses[-1] < first:
+        fail(f"train-recipe: window losses {[first] + losses} are not "
+             "finite or did not fall")
+    window_ms = _median(times)
+    step_ms = window_ms / RC_WINDOW
+    rate = RC_BATCH * RC_SEQ * 1e3 / step_ms
+    log(f"train-recipe (d): last loss of each window "
+        f"{[round(v, 6) for v in [first] + losses]} (the first window "
+        f"captures, {first_ms:.1f} ms); window ms "
+        f"{[round(t, 3) for t in times]}, median {window_ms:.3f} ms, "
+        f"{step_ms:.3f} ms per inner step, "
+        f"{RC_BATCH * 1e3 / step_ms:.3f} sequences/s, {rate:.1f} tokens/s "
+        f"on {card}")
+    log(f"train-recipe (d): capture {prog.capture_s:.3f} s, graph pool "
+        f"{_gib(prog.pool_bytes)}; over the timed windows peak allocated "
+        f"{peak / 2**30:.3f} GiB (the pool's blocks not counted), reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB; matmul_epilogue {launches['matmul_epilogue']} launches (= "
+        f"{RC_K2} x {RC_WINDOW} x {RC_WINDOWS}), every other kernel 0; "
+        f"lrs seen in every window equal PolyScheduler's (steps 1-"
+        f"{trainer.num_update}: {lrs_seen[0]['lrs'][0]:.3e} .. "
+        f"{lrs_seen[-1]['lrs'][-1]:.6e})")
+    prof = profiled(
+        "train-recipe window",
+        lambda: sh_profile(torch, lambda: trainer.run_steps(
+            *batch, num_steps=RC_WINDOW), window_ms, what="window"),
+        lambda p: not p["rows"] or _kernel_count(
+            p["rows"], "matmul_epilogue") == RC_K2 * RC_WINDOW)
+    want_calls = 1 + 2 * prog.generators
+    if prof["host_launch_calls"] != want_calls \
+            or prof["graph_launches"] != 1:
+        fail(f"train-recipe: {prof['host_launch_calls']} host launch calls "
+             f"({prof['graph_launches']} graph launches) per window, want "
+             f"{want_calls} (1)")
+    k2_seen = _kernel_count(prof["rows"], "matmul_epilogue")
+    if prof["rows"] and k2_seen != RC_K2 * RC_WINDOW:
+        fail(f"train-recipe: the profiler saw {k2_seen} matmul_epilogue "
+             f"launches in a window, want {RC_K2 * RC_WINDOW}")
+    k2_ms = sum(ms for k, (_, ms) in prof["rows"].items()
+                if _is_kernel(k, "matmul_epilogue"))
+    update_ms, own_powers_ms = rc_update_ms(torch, trainer, batch)
+    share = (None if not prof["device_ms"]
+             else RC_WINDOW * update_ms / prof["device_ms"])
+    log(f"train-recipe (d): host launch calls per window {want_calls} (1 "
+        f"graph launch + {2 * prog.generators} for the seed and offset of "
+        f"{prog.generators} dropout generator(s)); K2 {k2_seen} launches, "
+        f"{k2_ms:.3f} ms in the profiled window; the update of one inner "
+        f"step alone (LAMB over {len(trainer._trainable)} weights, graphed, "
+        f"CUDA events) {update_ms:.3f} ms, x {RC_WINDOW} = "
+        f"{RC_WINDOW * update_ms:.3f} ms"
+        + ("" if share is None else
+           f", {share:.3f} of the profiled window's device time")
+        + f"; with every weight computing its own powers of t "
+          f"{own_powers_ms:.3f} ms")
+    step_times = []
+    for _ in range(RC_STEPS):
+        t0 = time.perf_counter()
+        trainer.step(*batch)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - t0) * 1e3)
+    single = rc_program(trainer, 1)
+    single_ms = _median(step_times[1:])
+    log(f"train-recipe (d): step() ms {[round(t, 3) for t in step_times]} "
+        f"(the first captures, {single.capture_s:.3f} s, pool "
+        f"{_gib(single.pool_bytes)}), median {single_ms:.3f} ms, "
+        f"{RC_BATCH * RC_SEQ * 1e3 / single_ms:.1f} tokens/s; run_steps "
+        f"saves {single_ms - step_ms:.3f} ms per step")
+    replays_ms = rc_replays_ms(torch, trainer, batch)
+    log(f"train-recipe (d): {RC_WINDOW} replays of step()'s program with "
+        f"one host read at the end: {replays_ms:.3f} ms per inner step, "
+        f"against the unrolled window's {step_ms:.3f}")
+    gate_rel = rc_card_vs_cpu(torch, mx, trainer, [t[:1] for t in batch])
+    res = {"losses": [first] + losses, "window_ms": window_ms,
+           "step_ms": step_ms, "tokens_per_s": rate,
+           "single_step_ms": single_ms, "launches": launches,
+           "capture_s": prog.capture_s, "pool_bytes": prog.pool_bytes,
+           "single_capture_s": single.capture_s,
+           "single_pool_bytes": single.pool_bytes, "peak_bytes": peak,
+           "host_launch_calls": prof["host_launch_calls"],
+           "device_ms": prof["device_ms"], "busy": prof["busy"],
+           "k2_ms": k2_ms, "update_ms": update_ms,
+           "update_own_powers_ms": own_powers_ms,
+           "step_replays_ms": replays_ms, "lrs": lrs_seen,
+           "gate_rel": gate_rel}
+    sh_release(torch, trainer)
+    del model, trainer
+    torch.cuda.empty_cache()
+    res["window_equal"] = rc_window_vs_steps(torch, mx, ctx, batch, init)
+    res["optimizers"] = rc_optimizers(torch, mx, ctx)
+    res["guard"] = rc_guard(torch, mx, ctx)
+    return res
+
+
 def phase_kernel_bf16(torch, ce, me):
     """K1 and K2 in bfloat16 at this phase's shapes: the 48 epilogues of a
     ResNet-50 forward at batch 256 and the 24 of a BERT-base MLM training
@@ -3170,6 +3778,8 @@ def main():
     run("kernel bf16", lambda: phase_kernel_bf16(torch, ce, me))
     run("train-sharded", lambda: phase_train_sharded(torch, mx, card,
                                                      mx.gpu(0)))
+    run("train-recipe", lambda: phase_train_recipe(torch, mx, card,
+                                                   mx.gpu(0)))
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -3178,6 +3788,7 @@ def main():
     k3b, train = out["kernel K3 backward"], out["train long BERT"]
     k1t, rn = out["kernel K1 training"], out["train ResNet"]
     kb, sh = out["kernel bf16"], out["train-sharded"]
+    rc = out["train-recipe"]
 
     def sharded(kernel, cfgs):
         """The kernel in the train-sharded phase: launches across each
@@ -3329,7 +3940,13 @@ def main():
                    "ffn_1 gelu, 12 ffn_2 dropout 0.1); no PyTorch call "
                    "computes dropout(act(y + bias)) with given bits: "
                    "library_ms null, bias_add_ms beside it"),
-        **sharded("matmul_epilogue", ("b", "c"))}, {
+        **sharded("matmul_epilogue", ("b", "c")),
+        "train_recipe_launches": rc["launches"]["matmul_epilogue"],
+        "train_recipe_ms": rc["k2_ms"],
+        "train_recipe_per": f"launches: {RC_WINDOWS} run_steps windows of "
+                            f"{RC_WINDOW} steps of the BERT-base LAMB recipe "
+                            "(one graph replay each); ms: one profiled "
+                            "window"}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "

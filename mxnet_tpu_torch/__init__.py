@@ -12,15 +12,16 @@ This package imports ``torch`` and numpy, never ``jax`` and nothing of
 """
 from __future__ import annotations
 
-from . import (autograd, contrib, convert, gluon, guardrails, initializer,
-               kernels, ops, optimizer, parallel, random, serving)
+from . import (autograd, contrib, convert, diagnostics, gluon, guardrails,
+               initializer, kernels, lr_scheduler, ops, optimizer, parallel,
+               random, serving)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 init = initializer
 
 __all__ = ["Context", "MXNetError", "autograd", "contrib", "convert", "cpu",
-           "current_context", "gluon", "gpu", "guardrails", "init",
-           "initializer", "kernels", "ops", "optimizer", "parallel", "random",
-           "serving"]
+           "current_context", "diagnostics", "gluon", "gpu", "guardrails",
+           "init", "initializer", "kernels", "lr_scheduler", "ops",
+           "optimizer", "parallel", "random", "serving"]
 __version__ = "0.1.0"

@@ -35,7 +35,23 @@ from .cached_graph import (CudaGraphs, GraphCache, in_capture,
                            structure_changed)
 from .parameter import DeferredParams
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "ParameterDict"]
+
+
+class ParameterDict(OrderedDict):
+    """Structural name → parameter or buffer, as ``collect_params``
+    returns it (ref: gluon.ParameterDict)."""
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every tensor in the dict (ref:
+        ParameterDict.setattr), e.g. ``net.collect_params(".*bias")
+        .setattr("wd_mult", 0.0)``. ``gluon.Trainer`` hands the tensors
+        to its optimizer as ``param_dict``, so ``lr_mult`` and
+        ``wd_mult`` reach its update; ``parallel.ShardedTrainer`` does
+        not read them, as in the reference: give its optimizer
+        ``param_dict`` or ``set_wd_mult`` by trainable index there."""
+        for t in self.values():
+            setattr(t, name, value)
 
 
 class Block(nn.Module):
@@ -94,12 +110,12 @@ class Block(nn.Module):
         self._clear_cached_op()
         return self
 
-    def collect_params(self, select=None) -> "OrderedDict[str, torch.Tensor]":
+    def collect_params(self, select=None) -> ParameterDict:
         """Structural name → parameter or buffer of this block and its
         descendants (ref: Block.collect_params; keys as
         ``_structural_names``). ``select`` is a regex on the name."""
         pattern = None if select is None else re.compile(select)
-        return OrderedDict(
+        return ParameterDict(
             (k, v) for k, v in self.state_dict(keep_vars=True).items()
             if pattern is None or pattern.match(k))
 

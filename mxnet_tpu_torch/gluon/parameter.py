@@ -24,6 +24,8 @@ from ..base import MXNetError, as_torch_dtype
 
 __all__ = ["DeferredInitializationError", "DeferredParams", "ParamSpec"]
 
+MULTIPLIERS = ("lr_mult", "wd_mult")
+
 
 class DeferredInitializationError(MXNetError):
     """A forward reached parameters that were neither initialized
@@ -42,6 +44,8 @@ class ParamSpec:
     dtype: torch.dtype = torch.float32
     aux: bool = False
     differentiable: bool = True
+    lr_mult: float = 1.0
+    wd_mult: float = 1.0
 
     @property
     def complete(self) -> bool:
@@ -59,20 +63,27 @@ class DeferredParams(LazyModuleMixin):
         self._init_plan = None       # (initializer, generator, device)
 
     def _declare(self, name, shape, init=None, dtype="float32", aux=False,
-                 differentiable=True):
+                 differentiable=True, lr_mult=1.0, wd_mult=1.0):
         spec = ParamSpec(tuple(int(s) for s in shape), init,
-                         as_torch_dtype(dtype), aux, differentiable)
+                         as_torch_dtype(dtype), aux, differentiable,
+                         lr_mult, wd_mult)
         self._specs[name] = spec
         self._reset_lazy(name, spec, None)
 
     def _reset_lazy(self, name, spec, device):
+        """A new uninitialized tensor for ``name`` on ``device``, with the
+        multipliers of the tensor it replaces (the declared ones at
+        first)."""
+        table = self._buffers if spec.aux else self._parameters
+        old = table.get(name)
         if spec.aux:
-            self._buffers[name] = UninitializedBuffer(device=device,
-                                                      dtype=spec.dtype)
+            new = UninitializedBuffer(device=device, dtype=spec.dtype)
         else:
-            self._parameters[name] = UninitializedParameter(
-                requires_grad=spec.differentiable, device=device,
-                dtype=spec.dtype)
+            new = UninitializedParameter(requires_grad=spec.differentiable,
+                                         device=device, dtype=spec.dtype)
+        for attr in MULTIPLIERS:
+            setattr(new, attr, getattr(old, attr, getattr(spec, attr)))
+        table[name] = new
 
     def _tensor(self, name):
         return self._buffers[name] if self._specs[name].aux \

@@ -8,13 +8,20 @@ trained). ``step(batch_size)`` sets ``rescale_grad = scale / batch_size``
 and applies the optimizer to every weight with its ``.grad``, in place.
 A weight that no backward reached is updated with a zero gradient, as the
 reference's zero-filled gradient buffer gives. There is no KVStore: on
-one device ``allreduce_grads`` has nothing to do.
+one device ``allreduce_grads`` has nothing to do. Weight ``i`` of the
+dict (buffers counted) is the optimizer's index ``i``, and the tensors
+go to the optimizer as its ``param_dict``, so their ``lr_mult`` and
+``wd_mult`` attributes scale its lr and wd.
 
 With fp16 AMP (``contrib.amp.init("float16")`` and ``amp.init_trainer``)
+or a ``guard=`` (:class:`~mxnet_tpu_torch.guardrails.GuardConfig`),
 ``step`` checks every gradient with one fused reduction and one host
 read: a non-finite step skips the update, leaving weights and optimizer
-state untouched, and halves the loss scale. bf16 has fp32's exponent
-range, so no check runs.
+state untouched, journals a ``nonfinite_grad`` record, halves the loss
+scale if there is one and counts against the guard's divergence budget;
+``GuardConfig.clip_norm`` clips the gradients' global norm off the same
+reduction. bf16 has fp32's exponent range, so without a guard no check
+runs.
 """
 from __future__ import annotations
 
@@ -22,6 +29,10 @@ import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
+from ..guardrails import fused
+from ..guardrails.monitor import (AnomalyMonitor, GuardConfig,
+                                  handle_divergence,
+                                  journal_scaler_only_skip, refuse_rollback)
 
 __all__ = ["Trainer"]
 
@@ -30,7 +41,8 @@ class Trainer:
     """ref: gluon.Trainer — ``step(batch_size)`` = allreduce (nothing on
     one device) + update."""
 
-    def __init__(self, params, optimizer, optimizer_params=None):
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 guard=None):
         if hasattr(params, "values"):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -39,17 +51,36 @@ class Trainer:
         for p in params:
             if not isinstance(p, torch.Tensor):
                 raise MXNetError(f"invalid parameter {p!r}")
-        self._params = [p for p in params if p.requires_grad]
+        self._index = [i for i, p in enumerate(params) if p.requires_grad]
+        self._params = [params[i] for i in self._index]
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        param_dict = dict(enumerate(params))
         if isinstance(optimizer, opt.Optimizer):
             if set(optimizer_params) - {"rescale_grad"}:
                 raise MXNetError("optimizer_params must be None when "
                                  "optimizer is an Optimizer instance")
             self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
         else:
-            self._optimizer = opt.create(optimizer, **optimizer_params)
+            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                         **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        self._guard_cfg = GuardConfig.coerce(guard)
+        if self._guard_cfg is not None \
+                and self._guard_cfg.mode == "deferred":
+            # the eager path decides every step on the host, so deferred
+            # mode's promise of no per-step read cannot hold here
+            raise MXNetError(
+                "GuardConfig(mode='deferred') needs a fused trainer "
+                "(parallel.ShardedTrainer / PipelinedTrainer): the "
+                "eager Trainer makes its skip decision on the host "
+                "every step — use mode='step' (docs/guardrails.md)")
+        refuse_rollback(self._guard_cfg)
+        self._monitor = (AnomalyMonitor(self._guard_cfg,
+                                        consumer="gluon_trainer")
+                         if self._guard_cfg is not None else None)
+        self._step_count = 0
         self._skipped_steps = 0
 
     @property
@@ -80,34 +111,116 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False, loss=None):
         """Rescale by ``1 / batch_size`` and update (ref: Trainer.step).
-        With an fp16 loss scaler, one fused finiteness check over the
-        gradients (and ``loss``'s mean, when given) and one host read
-        decide the step: on overflow the update is skipped and the scale
-        halved. A weight no backward reached is updated with a zero
-        gradient either way (``ignore_stale_grad`` changes nothing)."""
+        With an fp16 loss scaler or a guard, one fused finiteness check
+        over the gradients (and ``loss``'s mean, when given: it also
+        feeds the monitor's loss-spike detection) and one host read
+        decide the step: a non-finite step skips the update, journals,
+        halves the scale and counts against the budget; the guard's
+        ``clip_norm`` then scales the gradients. A weight no backward
+        reached is updated with a zero gradient either way
+        (``ignore_stale_grad`` changes nothing)."""
         self.allreduce_grads()
+        self._guarded_update(batch_size, loss)
+
+    def _guard_ok(self, loss):
+        """The fused check of a step with an fp16 scaler or a guard, and
+        the clip; True when the update may run."""
         scaler = self._active_scaler()
+        if scaler is None and self._guard_cfg is None:
+            return True
+        grads = [p.grad for p in self._params if p.grad is not None]
+        mean = None if loss is None else torch.mean(loss.float())
+        finite, gnorm = fused.guard_stats(grads, mean)
+        row = [finite.float(), gnorm] + ([] if mean is None else [mean])
+        ok, gn, *loss_v = fused.host_fetch(torch.stack(row))[0]
+        if not self._note_guard_outcome(bool(ok), gn, scaler,
+                                        loss_v[0] if loss_v else None):
+            return False
+        self._apply_guard_clip(grads, gnorm)
+        return True
+
+    def _note_guard_outcome(self, ok, gn, scaler, loss=None):
+        """Counters, loss-scale feedback, the monitor and divergence
+        (ref: Trainer._note_guard_outcome). True when the update may
+        run."""
+        if scaler is not None and gn is not None:
+            # journal the norm the gradients carry before the scale
+            gn = gn * self._scale
+        if ok:
+            if self._monitor is not None:
+                verdict = self._monitor.observe(self._step_count, True,
+                                                loss=loss, grad_norm=gn)
+                if verdict == "diverged":    # sustained finite-loss spike
+                    self._handle_divergence()
+                    return False
+            return True
+        self._skipped_steps += 1
         if scaler is not None:
-            from ..guardrails import fused
-            grads = [p.grad for p in self._params if p.grad is not None]
-            mean = None if loss is None else torch.mean(loss.float())
-            finite, _ = fused.guard_stats(grads, mean)
-            if not fused.host_fetch(finite)[0]:
-                self._skipped_steps += 1
-                scaler.update_scale(True)
-                return
-        self.update(batch_size)
-        if scaler is not None:
-            scaler.update_scale(False)
+            scaler.update_scale(True)
+        if self._monitor is not None:
+            verdict = self._monitor.observe(self._step_count, False,
+                                            loss=loss, grad_norm=gn)
+            if verdict == "diverged":
+                self._handle_divergence()
+        else:
+            journal_scaler_only_skip(self._step_count, gn, loss,
+                                     "gluon_trainer",
+                                     total_skips=self._skipped_steps)
+        return False
+
+    def _apply_guard_clip(self, grads, gnorm):
+        """The guard's global-norm clip off its own norm: the threshold
+        is on the rescaled gradients' norm (ref: Trainer._apply_guard_clip
+        → clip_global_norm(..., global_norm=))."""
+        cfg = self._guard_cfg
+        if cfg is None or cfg.clip_norm is None:
+            return
+        scale = fused.clip_scale(
+            gnorm, cfg.clip_norm / max(self._optimizer.rescale_grad, 1e-30))
+        with torch.no_grad():
+            for g in grads:
+                g.mul_(scale.to(g.dtype))
+
+    def _handle_divergence(self):
+        handle_divergence(
+            self._monitor, self._step_count,
+            restore_fn=lambda: self.restore(self._guard_cfg.ckpt_root),
+            optimizer=lambda: self._optimizer)
+
+    def _queued(self, name):
+        raise MXNetError(f"Trainer.{name} is not ported yet (ROADMAP Queue "
+                         "1 item 4: the checkpoint family)")
+
+    def save_states(self, fname):
+        self._queued("save_states")
+
+    def load_states(self, fname):
+        self._queued("load_states")
+
+    def checkpoint(self, ckpt_dir, step=None, keep_last=None):
+        self._queued("checkpoint")
+
+    def restore(self, ckpt_dir, step=None):
+        self._queued("restore")
 
     def allreduce_grads(self):
         """Nothing to reduce on one device (ref: Trainer.allreduce_grads)."""
 
-    def update(self, batch_size):
-        """The update half of ``step`` (ref: Trainer.update)."""
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The update half of ``step`` (ref: Trainer.update), guarded as
+        ``step`` is."""
+        self._guarded_update(batch_size, None)
+
+    def _guarded_update(self, batch_size, loss):
+        self._step_count += 1
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, weight in enumerate(self._params):
+        if not self._guard_ok(loss):
+            return
+        for i, weight in zip(self._index, self._params):
             grad = weight.grad
             if grad is None:
                 grad = torch.zeros_like(weight)
             self._updater(i, grad, weight)
+        scaler = self._active_scaler()
+        if scaler is not None:
+            scaler.update_scale(False)

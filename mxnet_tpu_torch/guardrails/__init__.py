@@ -1,8 +1,16 @@
-"""Training guardrails (counterpart of ``mxnet_tpu/guardrails``): the
-fused in-step guard math (:mod:`.fused`). The divergence monitor and
-rollback (``GuardConfig``, ``AnomalyMonitor``) are not ported yet."""
+"""Training anomaly guardrails (counterpart of ``mxnet_tpu/guardrails``):
+the fused in-step guard math (:mod:`.fused`), the host-side divergence
+monitor and its policy (:mod:`.monitor`: ``GuardConfig``,
+``AnomalyMonitor``, ``TrainingDiverged``), the trainers' shared
+bookkeeping (:mod:`.trainer_mixin`) and the journal summary
+(:mod:`.report`). Rollback to a checkpoint waits for the checkpoint
+family (ROADMAP Queue 1 item 4)."""
 from __future__ import annotations
 
 from . import fused
+from .monitor import (AnomalyMonitor, GuardConfig, TrainingDiverged,
+                      handle_divergence)
+from .report import guard_report
 
-__all__ = ["fused"]
+__all__ = ["AnomalyMonitor", "GuardConfig", "TrainingDiverged", "fused",
+           "guard_report", "handle_divergence"]

@@ -13,8 +13,13 @@ package's jitted step:
   per tensor, so a skipped step leaves every value bit-unchanged.
 - :func:`init_guard_state` / :func:`update_guard_state` carry (total
   skips, consecutive skips) as two int32 device scalars.
-- :func:`host_fetch` is the one device-to-host read of guard values: one
-  copy of the values it is given.
+- :func:`host_fetch` is the device-to-host read of guard values: a copy
+  of each value it is given, with no device work. The trainers give it
+  one tensor, a step's or a window's (loss, flag, norm) rows stacked on
+  the device (inside the step's graph on the card), so a step reads
+  once.
+- :func:`clip_scale` is the global-norm clip factor, folded into the
+  update's rescale.
 """
 from __future__ import annotations
 
@@ -74,12 +79,16 @@ def update_guard_state(gstate, finite):
 
 
 def host_fetch(*vals):
-    """The one device-to-host read of guard values: the 0-d tensors (or
-    numbers) ``vals`` gathered into one fp64 host copy, returned as
-    Python bools, ints and floats by dtype."""
-    tensors = [torch.as_tensor(v) for v in vals]
-    dev = tensors[0].device
-    host = torch.stack([t.to(dev, torch.float64) for t in tensors]).tolist()
-    return [bool(h) if t.dtype == torch.bool else
-            (h if t.is_floating_point() else int(h))
-            for h, t in zip(host, tensors)]
+    """The device-to-host read of guard values: each of the tensors or
+    numbers ``vals`` copied to the host as it is (one copy each, with no
+    work on the device: a graph replay stays the only launch of a step),
+    and returned by dtype as Python bools, ints and floats; a tensor of
+    more than 0 dimensions as a flat list of them."""
+    out = []
+    for v in vals:
+        t = torch.as_tensor(v).detach()
+        kind = bool if t.dtype == torch.bool else (
+            float if t.is_floating_point() else int)
+        got = [kind(h) for h in t.reshape(-1).cpu().double().tolist()]
+        out.append(got[0] if t.ndim == 0 else got)
+    return out

@@ -18,32 +18,42 @@ counterpart of ``jax.jit`` tracing once per shape:
   ``amp_safe``; the step differentiates ``mean(loss) * loss_scale`` and
   returns the unscaled mean;
 - one fused reduction (``guardrails.fused.guard_stats``) gives the
-  non-finite flag and the global norm; with an fp16 loss scaler the step
-  is guarded: a non-finite step leaves the parameters, the optimizer
-  state and the BatchNorm statistics (updated in place by the forward,
-  so restored from a copy) bit-unchanged;
-- the update runs in place, SGD (with or without momentum) or Adam
-  (bias correction from an fp32 device scalar ``t``).
+  non-finite flag and the global norm; ``guard=`` (a ``GuardConfig``)
+  folds ``clip_norm`` into the update's rescale from that norm. A step
+  with a guard or an fp16 loss scaler is guarded: a non-finite step
+  leaves the parameters, the optimizer state and the BatchNorm
+  statistics (updated in place by the forward, so restored from a copy)
+  bit-unchanged, and the host half (``guardrails.trainer_mixin``) feeds
+  the scaler and the ``AnomalyMonitor``;
+- the update runs in place, with the functional rule of each of the
+  optimizers the reference has one for (SGD, NAG, Adam, AdamW, LAMB,
+  RMSProp, AdaGrad, FTRL, Signum, AdaDelta, Nadam, DCASGD, FTML), each
+  weight with its wd and lr multiplier.
 
-The learning rate, ``t``, ``rescale_grad`` and the loss scale are 0-d
-device tensors written before each replay, the counterpart of the JAX
-step's traced scalars: a new lr or scale never recaptures. The capture
-reuses the machinery of ``gluon/cached_graph.py``: warm-up passes on a
-side stream, a private pool, the dropout generators registered with the
-graph (each replay draws new bits, as an eager step does), and the
-state (parameters, optimizer state, buffers, generators) put back after
+The learning rate (per step, from the optimizer's scheduler), ``t``,
+``rescale_grad`` and the loss scale are device scalars written before
+each replay, the counterpart of the JAX step's traced scalars: a new lr
+or scale never recaptures. ``run_steps(*batch, num_steps=n)`` captures
+``n`` copies of the step back to back in one graph, with the lrs of its
+``n`` updates in one tensor. The capture reuses the machinery of
+``gluon/cached_graph.py``: warm-up passes on a side stream, a private
+pool, the dropout generators registered with the graph (each replay
+draws new bits, as an eager step does), and the state (parameters,
+optimizer state, buffers, guard counters, generators) put back after
 the warm-up and the capture, so only replays move it. Before each
 replay the program checks the addresses of the parameters and buffers
 it captured: a rebound one (``Block.cast``, a reinit) makes the step
 capture anew. A capture that fails on the card raises; nothing falls
 back to an eager step there. On the CPU, which a caller asks for with
-``make_mesh(devices=[mx.cpu()])``, the same step runs eagerly.
+``make_mesh(devices=[mx.cpu()])``, the same steps run eagerly.
 
-Not ported yet (ROADMAP Queue 1 item 4): ``run_steps``, the checkpoint
-family, ``remat``, ``guard=`` (``GuardConfig``/``AnomalyMonitor``) and
-optimizers other than SGD and Adam; multi-device meshes and sharded
-``param_rules`` are Queue 1 item 9. On one device every spec projects to
-replication, so ``param_rules`` is accepted and changes nothing.
+Not ported yet: the checkpoint family (``save_states``,
+``load_states``, ``save_checkpoint``, ``load_checkpoint``,
+``checkpoint``, ``restore``), and with it a guard's rollback
+(``GuardConfig(ckpt_root=)``), and ``remat``: ROADMAP Queue 1 item 4.
+Multi-device meshes, ``rebuild_mesh`` and sharded ``param_rules`` are
+Queue 1 item 9; on one device every spec projects to replication, so
+``param_rules`` is accepted and changes nothing.
 """
 from __future__ import annotations
 
@@ -61,6 +71,8 @@ from .. import autograd as _autograd
 from ..base import MXNetError, as_torch_dtype
 from ..gluon import cached_graph as _cg
 from ..guardrails import fused as _guard
+from ..guardrails.monitor import AnomalyMonitor, GuardConfig, refuse_rollback
+from ..guardrails.trainer_mixin import GuardedTrainerMixin
 from ..ops import optimizer_op as _ops
 from .mesh import PartitionSpec, current_mesh
 
@@ -82,66 +94,212 @@ def project_spec(mesh, spec):
 
 
 # -- functional optimizer rules ------------------------------------------------
-def _lr_at(optimizer):
-    """The lr of the next update: the optimizer's (lr schedulers are
-    ROADMAP Queue 1 item 4)."""
+def _lr_at(optimizer, t):
+    """The lr one update at step ``t`` sees: the scheduler's, else the
+    optimizer's. One rule for ``step`` and ``run_steps``."""
+    if optimizer.lr_scheduler is not None:
+        return float(optimizer.lr_scheduler(t))
     return float(optimizer.learning_rate)
 
 
-def _not_ported_optimizer(opt):
-    return MXNetError(
-        f"ShardedTrainer has no functional rule for optimizer "
-        f"{type(opt).__name__!r} yet (ROADMAP Queue 1 item 4: the other "
-        "optimizers); use SGD or Adam, or the eager gluon.Trainer")
+def _lr_sequence(optimizer, t, num_steps):
+    """The lrs of steps ``t .. t + num_steps - 1``, evaluated on the host:
+    each inner step of a window sees the lr a separate ``step()`` would."""
+    return [_lr_at(optimizer, t + i) for i in range(num_steps)]
+
+
+class _Powers:
+    """Device scalars of one step's ``t`` that every weight's rule reads
+    (``beta ** t``, Nadam's schedule terms), computed once per step: each
+    is the value each weight's rule would compute. For BERT-base's 155
+    LAMB weights this spares 620 kernels, 1.4 ms of a 17.6 ms update per
+    step on an H100 (PERF.md §6)."""
+
+    def __init__(self, t):
+        self.t = t
+        self._memo = {}
+
+    def get(self, key, fn):
+        if key not in self._memo:
+            self._memo[key] = fn(self.t)
+        return self._memo[key]
+
+    def power(self, base):
+        return self.get(("pow", base), lambda t: base ** t)
+
+    def one_minus_power(self, base):
+        return self.get(("1-pow", base), lambda t: 1 - self.power(base))
 
 
 def _opt_init_state(opt, w):
-    """The optimizer state of weight ``w``: zeros in ``w``'s dtype."""
+    """The optimizer state of weight ``w`` (ref:
+    ``mxnet_tpu/parallel/sharded.py`` ``_opt_init_state``): zeros in
+    ``w``'s dtype; Nadam adds its schedule product, an fp32 scalar one;
+    DCASGD keeps a copy of the weight."""
     name = type(opt).__name__
-    if name == "SGD":
-        return (torch.zeros_like(w),) if opt.momentum != 0.0 else ()
-    if name == "Adam":
-        return (torch.zeros_like(w), torch.zeros_like(w))
-    raise _not_ported_optimizer(opt)
+    zeros = torch.zeros_like
+    if name in ("SGD", "NAG", "Signum"):
+        return (zeros(w),) if getattr(opt, "momentum", 0.0) != 0.0 else ()
+    if name in ("Adam", "AdamW", "LAMB", "FTRL", "AdaDelta", "Nadam"):
+        state = (zeros(w), zeros(w))
+        if name == "Nadam":
+            state += (torch.ones((), dtype=torch.float32, device=w.device),)
+        return state
+    if name in ("RMSProp", "AdaGrad"):
+        return (zeros(w),)
+    if name == "DCASGD":
+        prev = w.detach().clone()
+        if getattr(opt, "momentum", 0.0) != 0.0:
+            return (zeros(w), prev)
+        return (prev,)
+    if name == "FTML":
+        return (zeros(w), zeros(w), zeros(w))
+    if name == "SGLD":
+        return ()
+    raise MXNetError(
+        f"ShardedTrainer has no functional rule for optimizer "
+        f"{name!r}; use the eager gluon.Trainer for it")
 
 
-def _step_lr(opt, lr, t):
-    """The lr of step ``t`` as the update takes it: Adam folds its bias
-    correction ``sqrt(1 - beta2^t) / (1 - beta1^t)`` in, computed in fp32
-    from the 0-d fp32 tensor ``t`` (as the JAX step's traced ``t``)."""
-    if type(opt).__name__ == "Adam":
-        return lr * (torch.sqrt(1 - opt.beta2 ** t) / (1 - opt.beta1 ** t))
-    return lr
+def _check_rule(opt):
+    """SGLD has a state rule and no update rule, as in the reference."""
+    if type(opt).__name__ == "SGLD":
+        raise MXNetError("no functional update for SGLD")
 
 
-def _opt_apply(opt, w, g, state, lr, wd, rescale, clip):
-    """One update, out of place: ``(new_w, new_state)``. ``lr`` (from
-    :func:`_step_lr`) and ``rescale`` are 0-d fp32 tensors."""
+def _opt_apply(opt, w, g, state, lr, pw, wd, rescale, clip):
+    """One weight's update, out of place: ``(new_w, new_state)`` (ref:
+    ``mxnet_tpu/parallel/sharded.py`` ``_opt_apply``). ``lr`` (the
+    weight's, its multiplier in) and ``rescale`` are 0-d fp32 tensors;
+    ``pw`` the step's :class:`_Powers`; ``wd`` and ``clip`` numbers.
+
+    Nadam keeps its schedule product per weight, in the state, where the
+    eager rule keeps one per optimizer; the reference's two rules differ
+    the same way."""
     name = type(opt).__name__
     kw = dict(lr=lr, wd=wd, rescale_grad=rescale, clip_gradient=clip)
-    if name == "SGD":
+    if name in ("SGD", "NAG"):
         if not state:
             return _ops._sgd_update(w, g, **kw), ()
-        w2, m2 = _ops._sgd_mom_update(w, g, state[0], momentum=opt.momentum,
-                                      **kw)
+        fn = _ops._sgd_mom_update if name == "SGD" else _ops._nag_mom_update
+        w2, m2 = fn(w, g, state[0], momentum=opt.momentum, **kw)
         return w2, (m2,)
-    if name == "Adam":
-        w2, m2, v2 = _ops._adam_update(w, g, state[0], state[1],
-                                       beta1=opt.beta1, beta2=opt.beta2,
-                                       epsilon=opt.epsilon, **kw)
+    if name in ("Adam", "AdamW"):
+        corr = pw.get(("adam", opt.beta1, opt.beta2), lambda t: torch.sqrt(
+            1 - opt.beta2 ** t) / (1 - opt.beta1 ** t))
+        fn = _ops._adam_update if name == "Adam" else _ops._adamw_update
+        w2, m2, v2 = fn(w, g, state[0], state[1], beta1=opt.beta1,
+                        beta2=opt.beta2, epsilon=opt.epsilon,
+                        **dict(kw, lr=lr * corr))
         return w2, (m2, v2)
-    raise _not_ported_optimizer(opt)
+    if name == "LAMB":
+        gp, m2, v2 = _ops._lamb_phase1(
+            w, g, state[0], state[1], beta1=opt.beta1, beta2=opt.beta2,
+            epsilon=opt.epsilon, bias_correction=opt.bias_correction,
+            wd=wd, rescale_grad=rescale, clip_gradient=clip,
+            corrections=(pw.one_minus_power(opt.beta1),
+                         pw.one_minus_power(opt.beta2))
+            if opt.bias_correction else None)
+        r1 = torch.linalg.vector_norm(w, dtype=torch.float32)
+        r2 = torch.linalg.vector_norm(gp)
+        w2 = _ops._lamb_phase2(
+            w, gp, r1, r2, lr=lr,
+            lower_bound=opt.lower_bound if opt.lower_bound else -1.0,
+            upper_bound=opt.upper_bound if opt.upper_bound else -1.0)
+        return w2, (m2, v2)
+    if name == "RMSProp":
+        w2, n2 = _ops._rmsprop_update(w, g, state[0], gamma1=opt.gamma1,
+                                      epsilon=opt.epsilon, **kw)
+        return w2, (n2,)
+    if name == "AdaGrad":
+        w2, h2 = _ops._adagrad_update(w, g, state[0],
+                                      epsilon=opt.float_stable_eps, **kw)
+        return w2, (h2,)
+    if name == "FTRL":
+        w2, z2, n2 = _ops._ftrl_update(w, g, state[0], state[1],
+                                       lamda1=opt.lamda1, beta=opt.beta, **kw)
+        return w2, (z2, n2)
+    if name == "Signum":
+        if not state:
+            return _ops._signsgd_update(w, g, **kw), ()
+        g32 = _rescaled(g, rescale, clip)
+        m2 = state[0] * opt.momentum - g32 * (1 - opt.momentum)
+        w2 = w * (1 - lr * opt.wd_lh) + torch.sign(m2) * lr
+        return w2.to(w.dtype), (m2,)
+    if name == "AdaDelta":
+        acc_g, acc_d = state
+        gg = _rescaled(g, rescale, clip) + wd * w.float()
+        acc_g2 = opt.rho * acc_g + (1 - opt.rho) * gg * gg
+        delta = torch.sqrt(acc_d + opt.epsilon) / \
+            torch.sqrt(acc_g2 + opt.epsilon) * gg
+        acc_d2 = opt.rho * acc_d + (1 - opt.rho) * delta * delta
+        return (w.float() - delta).to(w.dtype), (acc_g2, acc_d2)
+    if name == "Nadam":
+        return _nadam(opt, w, g, state, lr, pw, wd, rescale, clip)
+    if name == "DCASGD":
+        gg = _rescaled(g, rescale, clip)
+        prev = state[-1]
+        w32 = w.float()
+        comp = gg + wd * w32 + opt.lamda * gg * gg * (w32 - prev)
+        if len(state) == 1:
+            return (w32 - lr * comp).to(w.dtype), (w32,)
+        m2 = opt.momentum * state[0] - lr * comp
+        return (w32 + m2).to(w.dtype), (m2, w32)
+    if name == "FTML":
+        dst, vst, zst = state
+        gg = _rescaled(g, rescale, clip) + wd * w.float()
+        v2 = opt.beta2 * vst + (1 - opt.beta2) * gg * gg
+        d2 = pw.one_minus_power(opt.beta1) / lr * (
+            torch.sqrt(v2 / pw.one_minus_power(opt.beta2)) + opt.epsilon)
+        sigma = d2 - opt.beta1 * dst
+        z2 = opt.beta1 * zst + (1 - opt.beta1) * gg - sigma * w.float()
+        return (-z2 / d2).to(w.dtype), (d2, v2, z2)
+    raise MXNetError(f"no functional update for {name}")
 
 
-def _queued(name, item):
+def _rescaled(g, rescale, clip):
+    """``rescale * g`` in fp32, clipped when ``clip > 0``."""
+    g32 = g.float() * rescale
+    return torch.clamp(g32, -clip, clip) if clip > 0 else g32
+
+
+def _nadam(opt, w, g, state, lr, pw, wd, rescale, clip):
+    mean, var, msched = state
+    gg = _rescaled(g, rescale, clip) + wd * w.float()
+    d = opt.schedule_decay
+    mom_t, mom_t1 = pw.get(("nadam", opt.beta1, d), lambda t: (
+        opt.beta1 * (1 - 0.5 * 0.96 ** (t * d)),
+        opt.beta1 * (1 - 0.5 * 0.96 ** ((t + 1) * d))))
+    msched2 = msched * mom_t
+    msched_next = msched2 * mom_t1
+    m2 = opt.beta1 * mean + (1 - opt.beta1) * gg
+    v2 = opt.beta2 * var + (1 - opt.beta2) * gg * gg
+    g_p = gg / (1 - msched2)
+    m_p = m2 / (1 - msched_next)
+    v_p = v2 / pw.one_minus_power(opt.beta2)
+    m_bar = (1 - mom_t) * g_p + mom_t1 * m_p
+    w2 = w.float() - lr * m_bar / (torch.sqrt(v_p) + opt.epsilon)
+    return w2.to(w.dtype), (m2, v2, msched2)
+
+
+def _lr_mult(opt, index):
+    """Weight ``index``'s lr multiplier, looked up as ``_get_lr`` does.
+    The reference divides ``_get_lr(index)`` by ``learning_rate`` at the
+    first step, which is the same number unless the lr is 0 then (a
+    warm-up from 0): there the reference's quotient is 0 and every lr of
+    the trainer stays 0; the port keeps the multiplier."""
+    return opt._mult(index, "lr_mult", opt.lr_mult)
+
+
+def _queued(name, item, what):
     def method(self, *args, **kwargs):
-        raise MXNetError(f"ShardedTrainer.{name} is not ported yet "
-                         f"(ROADMAP Queue 1 item {item})")
+        raise MXNetError(f"ShardedTrainer.{name} is not ported yet: it "
+                         f"needs {what} (ROADMAP Queue 1 item {item})")
     method.__name__ = name
     return method
 
 
-class ShardedTrainer:
+class ShardedTrainer(GuardedTrainerMixin):
     """Gluon-level front end of the one-program training step (ref: the JAX
     package's ``parallel.ShardedTrainer``)::
 
@@ -150,14 +308,30 @@ class ShardedTrainer:
             optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
             mesh=mesh, compute_dtype="bfloat16")
         loss = trainer.step(x, y)      # one CUDA graph replay on the card
+        loss = trainer.run_steps(x, y, num_steps=8)   # one replay, 8 steps
 
     ``step(*batch)`` takes the model's inputs and, last, the label, as
     numpy arrays or tensors (float64 and int64 arrays become float32 and
     int32, as the JAX package's default types), and returns the mean
-    loss as a 0-d tensor on the device, without a host sync;
-    ``last_outputs`` holds the model's outputs. The parameters' ``.grad``
-    is not touched.
+    loss as a 0-d tensor on the device; ``last_outputs`` holds the
+    model's outputs. The parameters' ``.grad`` is not touched.
+
+    The optimizer's lr and wd multipliers are read by trainable index
+    (the order of the block's trainable parameters) at the first step:
+    give them through the optimizer's ``param_dict`` or
+    ``set_lr_mult`` / ``set_wd_mult``. A tensor's ``wd_mult`` attribute
+    alone does not reach this trainer, as in the reference.
+
+    ``guard=`` (``True`` or a ``GuardConfig``) makes every step guarded:
+    a non-finite step leaves weights, optimizer state and BatchNorm
+    statistics bit-unchanged; in ``mode="step"`` each step's (flag,
+    loss, norm) is read once and fed to the ``AnomalyMonitor``, which
+    journals skips and raises ``TrainingDiverged`` when its budget is
+    spent; ``mode="deferred"`` reads nothing per step (``guard_poll``).
+    ``clip_norm`` clips the global gradient norm inside the step.
     """
+
+    _guard_consumer = "sharded_trainer"
 
     def __init__(self, block, loss_fn, optimizer, optimizer_params=None,
                  mesh=None, param_rules=None, *, compute_dtype=None,
@@ -166,9 +340,6 @@ class ShardedTrainer:
         if remat is not None:
             raise MXNetError(f"remat={remat!r} is not ported yet (ROADMAP "
                              "Queue 1 item 4)")
-        if guard is not None:
-            raise MXNetError("guard= (GuardConfig, AnomalyMonitor) is not "
-                             "ported yet (ROADMAP Queue 1 item 4)")
         self._block = block
         self._loss = loss_fn
         self._optimizer = (optimizer if isinstance(optimizer,
@@ -195,12 +366,19 @@ class ShardedTrainer:
             re.compile(pat)
             PartitionSpec(*spec)
         self._prepared = False
-        self._num_update = 0
+        self._num_update = self._optimizer.begin_num_update
+        self._hyper = None                 # (wds, lr multipliers)
+        self._guard_cfg = GuardConfig.coerce(guard)
+        refuse_rollback(self._guard_cfg)
+        self._monitor = (AnomalyMonitor(self._guard_cfg,
+                                        consumer=self._guard_consumer)
+                         if self._guard_cfg is not None else None)
         self._scaler = None
         self._resolve_scaler()
         self._guard_state = None
+        self._skipped_offset = 0
         self._backend = _cg.CudaGraphs()   # captures on the card
-        self._programs = {}                # input signature -> Program
+        self._programs = {}                # (steps, signature) -> Program
         self.last_outputs = None
 
     def _resolve_scaler(self):
@@ -218,6 +396,16 @@ class ShardedTrainer:
                 self._scaler = DynamicLossScaler()
         else:
             self._scaler = None
+        self._validate_guard_mode()
+
+    def _guarded(self):
+        """A guarded step is a bitwise no-op on a non-finite gradient;
+        with neither a scaler nor a guard the update always applies, as
+        an unwatched skip would freeze training unseen."""
+        return self._scaler is not None or self._guard_cfg is not None
+
+    def _reinit_guard_state(self):
+        return _guard.init_guard_state(self.device)
 
     # -- placement -----------------------------------------------------------
     @property
@@ -275,7 +463,7 @@ class ShardedTrainer:
                      if not t.requires_grad]
         self._states = [_opt_init_state(self._optimizer, p)
                         for p in self._trainable]
-        self._guard_state = _guard.init_guard_state(dev)
+        self._guard_state = self._reinit_guard_state()
         self._prepared = True
 
     def _check_params(self):
@@ -294,6 +482,20 @@ class ShardedTrainer:
         """Place the parameters and create the optimizer state without
         running a step."""
         self._prepare(example_args)
+
+    def _begin(self, batch):
+        """Everything a step or a window needs before its scalars."""
+        self._prepare(batch[:-1])
+        if self._structure != _cg._structure[0]:
+            self._check_params()
+        self._resolve_scaler()
+        _check_rule(self._optimizer)
+        if self._hyper is None:
+            # per-index wd and lr multipliers, read once as the
+            # reference's program reads them when it is built
+            opt, n = self._optimizer, len(self._trainable)
+            self._hyper = ([opt._get_wd(i) for i in range(n)],
+                           [_lr_mult(opt, i) for i in range(n)])
 
     # -- the step ------------------------------------------------------------
     def _loss_and_grads(self, inputs, label, lscale=1.0):
@@ -325,13 +527,34 @@ class ShardedTrainer:
                  for p, g in zip(self._trainable, grads)]
         return loss.detach(), grads, [o.detach() for o in outs]
 
-    def _body(self, inputs, label, scalars):
-        """One training step on device tensors, in place; ``scalars`` a
-        (4,) fp32 device tensor (lr, t, rescale_grad, loss scale). Returns
-        [loss, finite, global norm, *model outputs]."""
+    def _update(self, grads, lr, t, rescale, finite):
+        """Every trainable weight's update, in place: weight ``i`` takes
+        ``lr`` times its multiplier and its wd; a guarded update keeps
+        the old weight and state where ``finite`` is false."""
         opt = self._optimizer
-        guarded = self._scaler is not None
-        lr, t, rescale, lscale = scalars.unbind()
+        guarded = self._guarded()
+        wds, mults = self._hyper
+        clip = opt.clip_gradient if opt.clip_gradient is not None else -1.0
+        pw = _Powers(t)
+        for i, (w, g, s) in enumerate(zip(self._trainable, grads,
+                                          self._states)):
+            lr_i = lr if mults[i] == 1.0 else lr * mults[i]
+            w2, s2 = _opt_apply(opt, w, g, s, lr_i, pw, wds[i], rescale,
+                                clip)
+            if guarded:
+                w2 = torch.where(finite, w2, w)
+                s2 = _guard.select(finite, s2, s)
+            # the state first: DCASGD's new state is the old weight,
+            # which w.float() gives without a copy for an fp32 weight
+            for a, b in zip(s, s2):
+                a.copy_(b)
+            w.copy_(w2)
+
+    def _body(self, inputs, label, lr, t, rescale, lscale):
+        """One training step on device tensors, in place; ``lr``, ``t``,
+        ``rescale`` and ``lscale`` 0-d fp32 tensors. Returns [loss,
+        finite, global norm, *model outputs]."""
+        guarded = self._guarded()
         with torch.no_grad():
             saved = [a.clone() for a in self._aux] if guarded else None
         loss, grads, outs = self._loss_and_grads(inputs, label, lscale)
@@ -340,19 +563,13 @@ class ShardedTrainer:
             finite, gnorm = _guard.guard_stats(grads, loss)
             gnorm = gnorm * inv
             rescale_all = rescale * inv
-            clip = (opt.clip_gradient if opt.clip_gradient is not None
-                    else -1.0)
-            lr_t = _step_lr(opt, lr, t)
-            for i, (w, g, s) in enumerate(zip(self._trainable, grads,
-                                              self._states)):
-                w2, s2 = _opt_apply(opt, w, g, s, lr_t, opt._get_wd(i),
-                                    rescale_all, clip)
-                if guarded:
-                    w2 = torch.where(finite, w2, w)
-                    s2 = _guard.select(finite, s2, s)
-                w.copy_(w2)
-                for a, b in zip(s, s2):
-                    a.copy_(b)
+            cfg = self._guard_cfg
+            if cfg is not None and cfg.clip_norm is not None:
+                # the global-norm clip folded into the rescale, off the
+                # norm the guard has already taken
+                rescale_all = rescale_all * _guard.clip_scale(
+                    gnorm * rescale, cfg.clip_norm)
+            self._update(grads, lr, t, rescale_all, finite)
             if guarded:
                 for a, a0 in zip(self._aux, saved):
                     a.copy_(torch.where(finite, a, a0))
@@ -361,18 +578,44 @@ class ShardedTrainer:
                     c.copy_(v)
         return [loss, finite, gnorm] + outs
 
-    def _scalar_tensor(self, lr, t, rescale, lscale):
-        return torch.tensor([lr, t, rescale, lscale], dtype=torch.float32)
+    def _window(self, inputs, label, scalars, n):
+        """``n`` steps on one batch; ``scalars`` the (n + 3,) fp32 tensor
+        (n lrs, t of the first step, rescale_grad, loss scale). Returns
+        [stats, *model outputs] for one step and [stats] for a window:
+        ``stats`` holds each step's (loss, finite flag, global norm) as a
+        row of fp32, (3,) for one step and (n, 3) for a window, so the
+        host reads a step or a window with one copy."""
+        lrs = scalars[:n]
+        t, rescale, lscale = scalars[n:].unbind()
+        rows = []
+        for i in range(n):
+            loss, finite, gnorm, *outs = self._body(
+                inputs, label, lrs[i], t + i if i else t, rescale, lscale)
+            rows.append(torch.stack([loss, finite.float(), gnorm]))
+        if n == 1:
+            return [rows[0]] + outs
+        return [torch.stack(rows)]
 
-    def _eager_step(self, batch, scalars):
+    def _scalar_tensor(self, lrs, t, rescale, lscale):
+        return torch.tensor([*lrs, t, rescale, lscale], dtype=torch.float32)
+
+    def _run(self, batch, lrs, t):
+        """``len(lrs)`` steps from step ``t``: a graph replay on the card,
+        eager on the CPU."""
+        lscale = self._scaler.loss_scale if self._scaler is not None else 1.0
+        scalars = self._scalar_tensor(lrs, t, self._optimizer.rescale_grad,
+                                      lscale)
+        backend, n = self._backend, len(lrs)
+        if backend is not None and backend.accepts(self.device):
+            return self._graph_steps(batch, scalars, n)
         xs = [self._on_device(b) for b in batch]
         with _cg._inside():
-            return self._body(xs[:-1], xs[-1],
-                              scalars.to(self.device, non_blocking=True))
+            return self._window(xs[:-1], xs[-1],
+                                scalars.to(self.device, non_blocking=True), n)
 
-    def _graph_step(self, batch, scalars):
+    def _graph_steps(self, batch, scalars, n):
         tensors = [self._host(b) for b in batch] + [scalars]
-        key = (tuple((tuple(x.shape), x.dtype) for x in tensors),
+        key = (n, tuple((tuple(x.shape), x.dtype) for x in tensors),
                self._compute_dtype, self._scaler is not None)
         prog = self._programs.get(key)
         if prog is not None and prog.stale(self._block):
@@ -381,14 +624,13 @@ class ShardedTrainer:
             self._release()
             prog = None
         if prog is None:
-            prog = self._programs[key] = self._capture(tensors)
+            prog = self._programs[key] = self._capture(tensors, n)
         prog.load(tensors)
         prog.replay_forward()
-        loss, finite, gnorm, *outs = prog.out
-        return [loss.clone(), finite, gnorm] + [o.clone() for o in outs]
+        return [o.clone() for o in prog.out]
 
-    def _capture(self, tensors):
-        """Warm up and capture the step at the signature of ``tensors``
+    def _capture(self, tensors, n):
+        """Warm up and capture ``n`` steps at the signature of ``tensors``
         (the batch, then the scalars) with the backend; the parameters,
         the optimizer state, the buffers, the guard counters and the
         generators are left as they were."""
@@ -400,9 +642,9 @@ class ShardedTrainer:
                               .copy_(x) for x in tensors]
         *inputs, label, scalars = prog.static_in
 
-        def step():
+        def steps():
             with _cg._inside():
-                return self._body(inputs, label, scalars)
+                return self._window(inputs, label, scalars, n)
 
         kept = list(block.parameters()) + [s for st in self._states
                                            for s in st] \
@@ -410,13 +652,13 @@ class ShardedTrainer:
         pool = backend.new_pool(dev)
         with _cg._capture_lock, torch.inference_mode(False), \
                 _cg._state_kept(block, kept) as warm:
-            backend.warm_up(step, dev)
+            backend.warm_up(steps, dev)
             if dev.type == "cuda":
                 # the warm-up's blocks back to the device: the capture's
                 # private pool needs about as much again
                 torch.cuda.empty_cache()
             prog.fwd, prog.out, prog.fwd_launches, prog.bits = _cg._record(
-                backend, step, pool, list(warm.states), dev)
+                backend, steps, pool, list(warm.states), dev)
             prog.generators = len(warm.states)
         _cg._finish(prog, backend, block, pool, dev, t0)
         return prog
@@ -432,27 +674,34 @@ class ShardedTrainer:
         Returns the mean loss as a 0-d fp32 tensor on the device. On the
         card the step is a CUDA graph replay (captured at the first step
         of each input signature); on the CPU it runs eagerly."""
-        self._prepare(batch[:-1])
-        if self._structure != _cg._structure[0]:
-            self._check_params()
-        self._resolve_scaler()
+        self._begin(batch)
         self._num_update += 1
         t = self._num_update
         self._optimizer.num_update = t
-        lscale = self._scaler.loss_scale if self._scaler is not None else 1.0
-        scalars = self._scalar_tensor(_lr_at(self._optimizer), t,
-                                      self._optimizer.rescale_grad, lscale)
-        backend = self._backend
-        if backend is not None and backend.accepts(self.device):
-            loss, finite, gnorm, *outs = self._graph_step(batch, scalars)
-        else:
-            loss, finite, gnorm, *outs = self._eager_step(batch, scalars)
+        stats, *outs = self._run(batch, [_lr_at(self._optimizer, t)], t)
         self.last_outputs = outs
-        if self._scaler is not None:
-            # the one host read of an fp16 step: the scale follows the flag
-            ok, _, _ = _guard.host_fetch(finite, loss, gnorm)
-            self._scaler.update_scale(not ok)
-        return loss
+        self._after_step(t, stats)
+        return stats[0]
+
+    def run_steps(self, *batch, num_steps=8):
+        """``num_steps`` training steps on one batch as one program (ref:
+        the JAX package's ``run_steps``, a ``lax.scan`` of the step):
+        on the card one CUDA graph per (input signature, ``num_steps``)
+        holding ``num_steps`` copies of the step, so a window costs one
+        replay. Inner step ``i`` takes the lr ``step()`` would at its
+        update count (``_lr_sequence``, written before each replay) and
+        its own dropout bits; the loss scale is frozen for the window,
+        and its per-step flags, losses and norms go to the scaler and
+        the monitor after it. Returns the last step's loss."""
+        self._begin(batch)
+        t = self._num_update + 1
+        self._num_update += num_steps
+        self._optimizer.num_update = self._num_update
+        stats = self._run(batch, _lr_sequence(self._optimizer, t,
+                                              num_steps), t)[0]
+        stats = stats.reshape(num_steps, 3)   # one step: step()'s program
+        self._after_run_steps(t, stats)
+        return stats[-1, 0]
 
     def evaluate(self, *batch):
         """The model's forward in predict mode and the mean loss, in the
@@ -469,14 +718,6 @@ class ShardedTrainer:
 
     # -- counters and hyperparameters ------------------------------------------
     @property
-    def skipped_steps(self):
-        """Steps skipped on a non-finite gradient so far (one host read
-        of the in-step counter)."""
-        if self._guard_state is None:
-            return 0
-        return int(_guard.host_fetch(self._guard_state[0])[0])
-
-    @property
     def num_update(self):
         """Completed optimizer updates."""
         return self._num_update
@@ -488,11 +729,13 @@ class ShardedTrainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    run_steps = _queued("run_steps", 4)
-    save_states = _queued("save_states", 4)
-    load_states = _queued("load_states", 4)
-    save_checkpoint = _queued("save_checkpoint", 4)
-    load_checkpoint = _queued("load_checkpoint", 4)
-    checkpoint = _queued("checkpoint", 4)
-    restore = _queued("restore", 4)
-    rebuild_mesh = _queued("rebuild_mesh", 9)
+    save_states = _queued("save_states", 4, "the optimizer state files")
+    load_states = _queued("load_states", 4, "the optimizer state files")
+    save_checkpoint = _queued("save_checkpoint", 4,
+                              "the .params v3 container (item 6)")
+    load_checkpoint = _queued("load_checkpoint", 4,
+                              "the .params v3 container (item 6)")
+    checkpoint = _queued("checkpoint", 4, "resilience.commit")
+    restore = _queued("restore", 4, "resilience.commit")
+    rebuild_mesh = _queued("rebuild_mesh", 9, "meshes of more than one "
+                           "device")

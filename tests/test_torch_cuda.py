@@ -6,7 +6,9 @@ versions' autograd and plain backward, their launch counts, and their refusals;
 then CUDA graphs: each kernel captured and replayed against its launch,
 hybridized narrow models against eager twins, the server's graphed
 predictors, and ``parallel.ShardedTrainer``'s whole step as one graph
-(an fp16 overflow skipped inside it; graphed steps against eager ones).
+(an fp16 overflow skipped inside it; graphed steps against eager ones,
+for every optimizer with a functional rule; ``run_steps`` windows against
+their eager loop and against ``step()`` calls).
 Without a card they skip; on the card run them with ``python -m pytest
 -m cuda --noconftest tests/test_torch_cuda.py`` (the suite's conftest
 imports the JAX package)."""
@@ -973,3 +975,130 @@ def test_graphed_sharded_step_recaptures_after_a_rebind(cuda, deterministic,
     for sa, sb in zip(graphed._states, eager._states):
         for a, b in zip(sa, sb):
             _close_rel(a, b, 1e-5, "optimizer state")
+
+
+_FUNCTIONAL = {"sgd": {"learning_rate": 0.1, "momentum": 0.9},
+               "nag": {"learning_rate": 0.1, "momentum": 0.9},
+               "adam": {"learning_rate": 0.01},
+               "adamw": {"learning_rate": 0.01},
+               "lamb": {"learning_rate": 0.01},
+               "rmsprop": {"learning_rate": 0.01},
+               "adagrad": {"learning_rate": 0.1},
+               "ftrl": {"learning_rate": 0.1},
+               "signum": {"learning_rate": 0.01, "momentum": 0.9},
+               "adadelta": {"rho": 0.9},
+               "nadam": {"learning_rate": 0.01},
+               "dcasgd": {"learning_rate": 0.1, "momentum": 0.9},
+               "ftml": {"learning_rate": 0.01}}
+
+
+def _mlp(cuda):
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(32, in_units=16, activation="relu"),
+            nn.Dense(8, in_units=32))
+    net.initialize(tinit.Xavier(), ctx=cuda, generator=trandom.generator(0))
+    return net
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("name", sorted(_FUNCTIONAL))
+def test_graphed_functional_optimizer_step_equals_eager(cuda, name, dtype):
+    """Each optimizer with a functional rule, a PolyScheduler, wd,
+    clip_gradient and lr / wd multipliers: two ShardedTrainer steps of
+    an MLP captured as one CUDA graph against two eager steps from the
+    same weights, bit for bit in the losses, weights and state."""
+    from mxnet_tpu_torch import gluon, lr_scheduler, optimizer, parallel
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    x = torch.randn(16, 16, generator=gen, device=cuda)
+    y = torch.randn(16, 8, generator=gen, device=cuda)
+    runs = []
+    for graphed in (True, False):
+        hyper = _FUNCTIONAL[name]
+        opt = optimizer.create(
+            name, **hyper, wd=1e-3, clip_gradient=0.1,
+            lr_scheduler=lr_scheduler.PolyScheduler(
+                max_update=10, pwr=1, warmup_steps=2,
+                warmup_begin_lr=hyper.get("learning_rate", 1.0) / 4))
+        opt.set_lr_mult({0: 2.0})
+        opt.set_wd_mult({1: 0.0, 2: 2.0})
+        trainer = parallel.ShardedTrainer(
+            _mlp(cuda), gluon.loss.L2Loss(), opt,
+            mesh=parallel.make_mesh({"data": 1, "model": 1}),
+            compute_dtype=dtype)
+        if not graphed:
+            trainer._backend = None
+        losses = [trainer.step(x, y) for _ in range(2)]
+        runs.append(losses + list(trainer._trainable)
+                    + [s for st in trainer._states for s in st])
+        assert len(trainer._programs) == int(graphed)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_graphed_run_steps_equals_its_eager_loop(cuda):
+    """The narrow BERT MLM through the LAMB recipe (PolyScheduler, wd
+    multiplier 0 on biases and LayerNorms, GuardConfig(clip_norm=1)),
+    dropout 0.1, bf16: two run_steps(3) windows, each one graph replay,
+    against the eager window replaying the graph's dropout bits; the
+    losses, weights and state within 1e-5 of max |value|, one program,
+    and the graphed window bit-equal to three graphed step() calls at
+    dropout 0."""
+    from mxnet_tpu_torch import gluon, guardrails, lr_scheduler, optimizer
+    from mxnet_tpu_torch import parallel
+
+    class MLM(gluon.HybridBlock):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, tokens):
+            return self.inner(tokens)[1]
+
+    def trainer_of(net):
+        opt = optimizer.create("lamb", learning_rate=1e-3, wd=0.01,
+                               lr_scheduler=lr_scheduler.PolyScheduler(
+                                   max_update=100, pwr=1, warmup_steps=4))
+        names = [n for n, p in net.named_parameters() if p.requires_grad]
+        opt.set_wd_mult({i: 0.0 for i, n in enumerate(names)
+                         if n.endswith(("bias", "gamma", "beta"))})
+        return parallel.ShardedTrainer(
+            MLM(net), gluon.loss.SoftmaxCrossEntropyLoss(), opt,
+            mesh=parallel.make_mesh({"data": 1, "model": 1}),
+            compute_dtype="bfloat16",
+            guard=guardrails.GuardConfig(clip_norm=1.0))
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    x = torch.randint(0, 100, (4, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+
+    def make(dev):
+        return _narrow_bert(dev, dropout=0.1)
+
+    net = make(cuda)
+    graphed, eager = trainer_of(net), trainer_of(_twin(net, make, cuda))
+    eager._backend = None
+    for _ in range(2):
+        with trandom.bits_tape() as tape:
+            gl = graphed.run_steps(x, x, num_steps=3)
+        bits = [b.clone() for b in tape.drawn]
+        with trandom.bits_tape(replay=bits):
+            el = eager.run_steps(x, x, num_steps=3)
+        _close_rel(gl, el, 1e-5, "loss")
+    assert len(graphed._programs) == 1 and not eager._programs
+    for sa, sb in zip(graphed._trainable + [s for st in graphed._states
+                                            for s in st],
+                      eager._trainable + [s for st in eager._states
+                                          for s in st]):
+        _close_rel(sa.float(), sb.float(), 1e-5, "weights and state")
+
+    net = _narrow_bert(cuda)
+    window, steps = trainer_of(net), trainer_of(_twin(net, _narrow_bert,
+                                                      cuda))
+    last = window.run_steps(x, x, num_steps=3)
+    losses = [steps.step(x, x) for _ in range(3)]
+    assert torch.equal(last, losses[-1])
+    for a, b in zip(window._trainable, steps._trainable):
+        assert torch.equal(a, b)

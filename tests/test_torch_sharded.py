@@ -27,8 +27,10 @@ examples/pretrain_bert.py's wrapper keeps them), three steps each.
   tests/test_torch_hybridize.py equals the eager step; an lr change and
   a new loss scale replay the same program; a rebound parameter
   (``Block.cast``, a copy) makes it capture anew.
-- Refusals: a multi-device mesh, ``run_steps``, ``remat``, ``guard=``
-  and the checkpoint family raise naming their ROADMAP item.
+- Refusals: a multi-device mesh, ``rebuild_mesh``, ``remat``,
+  ``GuardConfig(ckpt_root=)`` and the checkpoint family raise naming
+  their ROADMAP item; SGLD and an optimizer without a functional rule
+  raise the reference's messages.
 """
 import copy
 
@@ -413,10 +415,11 @@ def test_graph_step_recaptures_after_a_rebind(rebind):
 
 
 def test_refusals_name_their_roadmap_items():
-    """A multi-device mesh (Queue 1 item 9), run_steps, remat, guard= and
-    the checkpoint family (item 4), a block given new trainable
-    parameters after its trainer's first step, and an optimizer without
-    a functional rule raise."""
+    """A multi-device mesh and rebuild_mesh (Queue 1 item 9), remat, a
+    guard that promises a rollback (GuardConfig(ckpt_root=...)) and the
+    checkpoint family (item 4), a block given new trainable parameters
+    after its trainer's first step, SGLD (no functional update, as in
+    the reference) and an optimizer without a functional rule raise."""
     with pytest.raises(MXNetError, match="Queue 1 item 9"):
         tpar.make_mesh({"data": 2}, devices=[tmx.cpu(0), tmx.cpu(1)])
     with pytest.raises(MXNetError, match="do not tile"):
@@ -429,16 +432,19 @@ def test_refusals_name_their_roadmap_items():
         "model", "data", None)
     net = tmx.gluon.nn.Dense(3, in_units=4).initialize(ctx=tmx.cpu())
     loss = tmx.gluon.loss.L2Loss()
-    for kw in ({"remat": "full"}, {"guard": True}):
+    for kw in ({"remat": "full"},
+               {"guard": tmx.guardrails.GuardConfig(ckpt_root="ckpt")}):
         with pytest.raises(MXNetError, match="Queue 1 item 4"):
             tpar.ShardedTrainer(net, loss, "sgd", mesh=mesh, **kw)
     tr = tpar.ShardedTrainer(
         net, loss, "sgd", mesh=mesh,
         param_rules=[(r".*weight", tpar.PartitionSpec("model", None))])
-    for name in ("run_steps", "save_checkpoint", "load_checkpoint",
-                 "checkpoint", "restore", "save_states", "load_states"):
+    for name in ("save_checkpoint", "load_checkpoint", "checkpoint",
+                 "restore", "save_states", "load_states"):
         with pytest.raises(MXNetError, match="Queue 1 item 4"):
             getattr(tr, name)(np.zeros((2, 4)), np.zeros((2, 3)))
+    with pytest.raises(MXNetError, match="Queue 1 item 9"):
+        tr.rebuild_mesh(mesh)
 
     tr.step(np.zeros((2, 4)), np.zeros((2, 3)))
     net.extra = tmx.gluon.nn.Dense(3, in_units=4)
@@ -446,9 +452,19 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(MXNetError, match="make a new trainer"):
         tr.step(np.zeros((2, 4)), np.zeros((2, 3)))
 
+    tr = tpar.ShardedTrainer(net, loss, "sgld", mesh=mesh)
+    w0 = net.weight.detach().clone()
+    for call in (tr.step, tr.run_steps):
+        with pytest.raises(MXNetError, match="no functional update for "
+                                             "SGLD"):
+            call(np.zeros((2, 4)), np.zeros((2, 3)))
+    assert torch.equal(net.weight.detach(), w0) and tr.num_update == 0
+
     class Other(tmx.optimizer.Optimizer):
         pass
 
     tr = tpar.ShardedTrainer(net, loss, Other(), mesh=mesh)
-    with pytest.raises(MXNetError, match="Queue 1 item 4"):
+    with pytest.raises(MXNetError, match="has no functional rule for "
+                                         "optimizer 'Other'.*use the eager "
+                                         "gluon.Trainer"):
         tr.step(np.zeros((2, 4)), np.zeros((2, 3)))

@@ -6,6 +6,7 @@ Run from the root of a checkout:
     python3 tools/resnet_probes.py gate-sensitivity [--steps N]
     python3 tools/resnet_probes.py ab-forward DIR_A DIR_B
     python3 tools/resnet_probes.py bf16-divergence
+    python3 tools/resnet_probes.py gate-flips [--trials N]
 
 ``gate-sensitivity`` (CPU) asks how far a batch-1 training step's
 gradients, the ones ``chip_smoke.py``'s ResNet gate compares, move when
@@ -211,6 +212,72 @@ def bf16_divergence():
                          for k in cs.RN_GATE_PARAMS}}), flush=True)
 
 
+def gate_flips(trials):
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    card = cs.phase_card(torch)
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(cs.RN_BATCH, 3, cs.RN_SIZE, cs.RN_SIZE)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, (cs.RN_BATCH,))
+                         .astype(np.float32)).to(dev)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def gate_step(model, xb, yb):
+        with mx.autograd.record():
+            loss = loss_fn(model(xb), yb)
+        mx.autograd.backward(loss)
+        params = model.collect_params()
+        return {k: params[k].grad.detach().cpu().numpy().copy()
+                for k in cs.RN_GATE_PARAMS}
+
+    def rel(got, want):
+        return {k: float(np.abs(got[k] - want[k]).max()
+                         / np.abs(want[k]).max()) for k in want}
+
+    for trial in range(trials):
+        net = resnet50_v1()
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+                       generator=mx.random.generator(cs.SEED))
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(cs.RN_SGD))
+        losses = []
+        for _ in range(cs.TRAIN_STEPS + 1):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(cs.RN_BATCH)
+            losses.append(round(float(loss.detach().mean()), 6))
+        state = {k: v.detach().cpu().numpy().copy()
+                 for k, v in net.collect_params().items()}
+        relu, pool = cs.ReluTape(torch), cs.PoolTape(torch)
+        with relu, pool:
+            card_g = gate_step(net, x[:1], y[:1])
+        relu.replay = pool.replay = True
+        out = {}
+        for what, apply in (("relu replayed", False),
+                            ("relu and max pool replayed", True)):
+            pool.apply, pool.differ, pool.total = apply, 0, 0
+            cpu_net = resnet50_v1()
+            cpu_net.load_dict(state, ctx=mx.cpu())
+            with relu, pool:
+                cpu_g = gate_step(cpu_net, x[:1].cpu(), y[:1].cpu())
+            out[what] = rel(card_g, cpu_g)
+        print(json.dumps({"trial": trial, "card": card, "losses": losses,
+                          "max_pool_choices_differ": pool.differ,
+                          "max_pool_outputs": pool.total,
+                          "relu_inputs_differ": relu.differ,
+                          "grad_rel": out}), flush=True)
+        del net, trainer
+        torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="probe", required=True)
@@ -220,11 +287,15 @@ def main():
     ab.add_argument("dir_a")
     ab.add_argument("dir_b")
     sub.add_parser("bf16-divergence")
+    flips = sub.add_parser("gate-flips")
+    flips.add_argument("--trials", type=int, default=8)
     args = parser.parse_args()
     if args.probe == "gate-sensitivity":
         gate_sensitivity(args.steps)
     elif args.probe == "bf16-divergence":
         bf16_divergence()
+    elif args.probe == "gate-flips":
+        gate_flips(args.trials)
     else:
         ab_forward(args.dir_a, args.dir_b)
 
