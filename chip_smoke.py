@@ -252,11 +252,33 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                BatchNorm statistics bit-unchanged, journals
                nonfinite_grad, and the third in a row raises
                TrainingDiverged.
+17. train-   — (e) the checkpoint family on (d)'s model, batch and
+    checkpoint trainer: 4 run_steps(8) windows, each followed by
+               checkpoint(keep_last=3) into build/chip_smoke_ckpt
+               (removed at the end), K2 counted from 0 over windows 2-4
+               (192 per window). Gates: a fresh trainer from another
+               seed restores step 16 and its windows 3-4 (lrs
+               PolyScheduler(t), t = 17..32) are bit-equal to the
+               uninterrupted ones in the losses, every fp32 master
+               weight and LAMB's m and v; the first trainer, which has
+               captured, restores the newest step in place and its next
+               window is bit-equal to the fresh trainer's window from
+               that step, with the same program (no new capture); a
+               byte flipped in the newest step's ckpt.states makes
+               restore() fall back one step with a journaled
+               ckpt_fallback; under GuardConfig(clip_norm=1.0,
+               ckpt_root=, max_consecutive_skips=2) an inf written into
+               a weight after a committed step makes the window skip and
+               roll back to that step (divergence_rollback, lr_backoff
+               0.5), the restored weights finite and the next window's
+               lrs backed off. Printed: bytes per step directory, save
+               seconds and GB/s, restore seconds (fresh and in place),
+               the fresh trainer's capture seconds, the steps lost.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
-(eager, then graphed; phase 15 per configuration; phase 16 after the
-capturing window). A graph's replay
+(eager, then graphed; phase 15 per configuration; phases 16 and 17
+after the capturing window). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -2669,10 +2691,10 @@ def sh_resnet(torch, mx, ctx, dtype, state=None):
     return net, trainer
 
 
-def mlm_model(torch, mx, ctx, seq, state=None, dropout=0.1):
+def mlm_model(torch, mx, ctx, seq, state=None, dropout=0.1, seed=SEED):
     """examples/pretrain_bert.py's model: bert_12_768_12, vocab 30522,
     max_length max(512, S), no pooler or classifier, Normal(0.02) from
-    SEED (or ``state``), the MLM logits kept 3-D by its wrapper."""
+    ``seed`` (or ``state``), the MLM logits kept 3-D by its wrapper."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert_model
 
     class MLMWrapper(mx.gluon.HybridBlock):
@@ -2687,7 +2709,7 @@ def mlm_model(torch, mx, ctx, seq, state=None, dropout=0.1):
                          max_length=max(512, seq), dropout=dropout,
                          use_pooler=False, use_classifier=False)
     net.initialize(mx.init.Normal(0.02), ctx=ctx,
-                   generator=mx.random.generator(SEED))
+                   generator=mx.random.generator(seed))
     model = MLMWrapper(net)
     if state is not None:
         with torch.no_grad():
@@ -3194,12 +3216,14 @@ RC_OPTIMIZERS = {                    # the functional rules, as in
 }
 
 
-def rc_trainer(torch, mx, ctx, dropout=0.1, state=None):
+def rc_trainer(torch, mx, ctx, dropout=0.1, state=None, seed=SEED,
+               guard=None):
     """The recipe: :func:`mlm_model`, bf16 compute and fp32 masters on a
     one-device mesh; LAMB (lr 1e-4, wd 0.01) with PolyScheduler
     (max_update 1000, pwr 1, warm-up 10); wd multiplier 0 on every
-    bias, gamma and beta, by trainable index; GuardConfig(clip_norm=1)."""
-    model = mlm_model(torch, mx, ctx, RC_SEQ, state, dropout)
+    bias, gamma and beta, by trainable index; GuardConfig(clip_norm=1),
+    or ``guard``."""
+    model = mlm_model(torch, mx, ctx, RC_SEQ, state, dropout, seed)
     opt = mx.optimizer.create(
         "lamb", **RC_LAMB,
         lr_scheduler=mx.lr_scheduler.PolyScheduler(**RC_SCHED))
@@ -3209,7 +3233,7 @@ def rc_trainer(torch, mx, ctx, dropout=0.1, state=None):
     trainer = mx.parallel.ShardedTrainer(
         model, mx.gluon.loss.SoftmaxCrossEntropyLoss(), opt,
         mesh=sh_mesh(mx, ctx), compute_dtype="bfloat16",
-        guard=mx.guardrails.GuardConfig(clip_norm=RC_CLIP))
+        guard=guard or mx.guardrails.GuardConfig(clip_norm=RC_CLIP))
     return model, trainer
 
 
@@ -3679,6 +3703,237 @@ def phase_train_recipe(torch, mx, card, ctx):
     return res
 
 
+# -- phase 17: train-checkpoint -----------------------------------------------
+CK_WINDOWS = 4                       # uninterrupted run_steps(8) windows
+CK_KEEP = 3                          # keep_last: steps 16, 24 and 32 stay
+CK_RESUME = 16                       # the fresh trainer's restored step
+CK_SEED = 1                          # the fresh trainer's initial weights
+CK_POISON = "inner.encoder.transformer_cells.0.ffn.ffn_1.weight"
+CK_ROOT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+
+
+def ck_tensors(trainer):
+    """The trainable weights (fp32 masters) and LAMB's m and v."""
+    return list(trainer._trainable) + [s for st in trainer._states
+                                       for s in st]
+
+
+def ck_differ(torch, got, want):
+    """How many tensors of ``got`` differ from ``want`` in any bit."""
+    return sum(not torch.equal(a, b) for a, b in zip(got, want))
+
+
+def ck_dir_bytes(root, step):
+    from mxnet_tpu_torch.resilience import commit
+    d = commit.step_dir(root, step)
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+
+
+def phase_train_checkpoint(torch, mx, card, ctx):
+    """(e) the checkpoint family on (d)'s model, batch and trainer:
+    commit, bit-equal resume in a fresh trainer, an in-place restore of a
+    trainer that has captured, fallback past a torn step, and rollback
+    under GuardConfig(ckpt_root=). The checkpoints go to CK_ROOT, removed
+    at the end."""
+    import shutil
+
+    from mxnet_tpu_torch.diagnostics import journal
+    try:
+        shutil.rmtree(CK_ROOT, ignore_errors=True)
+        jr = journal.reset_journal("off")
+        return _train_checkpoint(torch, mx, card, ctx, jr)
+    finally:
+        journal.reset_journal()
+        shutil.rmtree(CK_ROOT, ignore_errors=True)
+
+
+def _train_checkpoint(torch, mx, card, ctx, jr):
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.resilience import commit
+    dev = ctx.torch_device
+    torch.cuda.empty_cache()
+    tokens = np.random.RandomState(0).randint(0, BERT_VOCAB,
+                                              (RC_BATCH, RC_SEQ))
+    ids = torch.from_numpy(tokens.astype(np.int32)).to(dev)
+    batch = (ids, ids)
+    host = mx.lr_scheduler.PolyScheduler(**RC_SCHED)
+    lrs_seen = []
+
+    def window(trainer, backoff=1.0):
+        """One run_steps window; the lrs its graph read must be
+        PolyScheduler's (times the rollback's backoff)."""
+        start = trainer.num_update + 1
+        loss = float(trainer.run_steps(*batch, num_steps=RC_WINDOW))
+        seen = rc_program(trainer, RC_WINDOW).static_in[-1][:RC_WINDOW] \
+            .tolist()
+        want = [float(np.float32(host(start + i) * backoff))
+                for i in range(RC_WINDOW)]
+        lrs_seen.append({"first_step": start, "backoff": backoff,
+                         "lrs": seen})
+        if seen != want:
+            fail(f"train-checkpoint: the window from step {start} saw lrs "
+                 f"{seen}, PolyScheduler x {backoff} gives {want}")
+        return loss
+
+    def events(kind):
+        return [r for r in jr.recent() if r["kind"] == kind]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 1. uninterrupted: 4 windows, a checkpoint after each
+    model, trainer = rc_trainer(torch, mx, ctx)
+    trainer.prepare(ids)
+    n_bytes = 4 * sum(t.numel() for t in ck_tensors(trainer))
+    log(f"train-checkpoint (e): (d)'s model, batch and trainer on {card}; "
+        f"{len(trainer._trainable)} fp32 master weights and LAMB's m and v"
+        f" = {n_bytes / 1e9:.3f} GB of tensors per step; checkpoint("
+        f"keep_last={CK_KEEP}) after each of {CK_WINDOWS} windows of "
+        f"run_steps({RC_WINDOW}) into {CK_ROOT}")
+    mx.random.seed(SEED)
+    losses, saves = [], []
+    for w in range(CK_WINDOWS):
+        if w == 1:                   # after the capturing window
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        losses.append(window(trainer))
+        saves.append(timed(lambda: trainer.checkpoint(
+            CK_ROOT, keep_last=CK_KEEP))[1])
+    launches = kernels.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["matmul_epilogue"] = RC_K2 * RC_WINDOW * (CK_WINDOWS - 1)
+    if launches != want:
+        fail(f"train-checkpoint: launches {launches} over windows 2-"
+             f"{CK_WINDOWS}, want {want}")
+    kept = commit.committed_steps(CK_ROOT)
+    newest = RC_WINDOW * CK_WINDOWS
+    if kept != [newest - RC_WINDOW * i for i in range(CK_KEEP)][::-1] \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"train-checkpoint: committed steps {kept}, losses {losses}")
+    step_bytes = ck_dir_bytes(CK_ROOT, newest)
+    final = [t.detach().clone() for t in ck_tensors(trainer)]
+    prog = rc_program(trainer, RC_WINDOW)
+    log(f"train-checkpoint (e): window losses {losses}; committed steps "
+        f"{kept}; {step_bytes} bytes per step directory; save s "
+        f"{[round(v, 3) for v in saves]}, median {_median(saves):.3f} s, "
+        f"{step_bytes / 1e9 / _median(saves):.3f} GB/s; K2 "
+        f"{launches['matmul_epilogue'] // (CK_WINDOWS - 1)} launches per "
+        "window, every other kernel 0")
+
+    # 2. resumed: a fresh trainer from another seed restores step 16
+    model2, tr2 = rc_trainer(torch, mx, ctx, seed=CK_SEED)
+    tr2.prepare(ids)
+    before = ck_differ(torch, ck_tensors(tr2), final)
+    got, restore_fresh_s = timed(lambda: tr2.restore(CK_ROOT,
+                                                     step=CK_RESUME))
+    if got != CK_RESUME or tr2.num_update != CK_RESUME:
+        fail(f"train-checkpoint: restore(step={CK_RESUME}) gave {got}, "
+             f"num_update {tr2.num_update}")
+    resumed = [window(tr2) for _ in range(CK_WINDOWS - 2)]
+    capture_s = rc_program(tr2, RC_WINDOW).capture_s
+    differ = ck_differ(torch, ck_tensors(tr2), final)
+    log(f"train-checkpoint (e): a fresh trainer (seed {CK_SEED}, {before} "
+        f"of {len(final)} tensors differing) restored step {got} in "
+        f"{restore_fresh_s:.3f} s; windows 3-{CK_WINDOWS} (the first "
+        f"captures, {capture_s:.3f} s): losses {resumed} against {losses[2:]}"
+        f", {differ} of {len(final)} weights, m and v differ; lrs = "
+        f"PolyScheduler(t), t = {CK_RESUME + 1}..{newest}")
+    if resumed != losses[2:] or differ:
+        fail("train-checkpoint: the resumed windows are not bit-equal to "
+             "the uninterrupted ones")
+
+    # 3. in place: the first trainer, which has captured, restores
+    ref_loss = window(tr2)           # window 5 from step 32: the reference
+    ref = [t.detach().clone() for t in ck_tensors(tr2)]
+    sh_release(torch, tr2)
+    del model2, tr2
+    torch.cuda.empty_cache()
+    replaced = window(trainer)       # steps 33-40 from other dropout bits
+    got, restore_inplace_s = timed(lambda: trainer.restore(CK_ROOT))
+    again = window(trainer)
+    same_prog = (len(trainer._programs) == 1
+                 and rc_program(trainer, RC_WINDOW) is prog)
+    differ = ck_differ(torch, ck_tensors(trainer), ref)
+    log(f"train-checkpoint (e): in place on the captured trainer: "
+        f"restore() gave step {got} in {restore_inplace_s:.3f} s; the next "
+        f"window's loss {again} against the reference's {ref_loss} (the "
+        f"window it replaces: {replaced}); {differ} of {len(ref)} tensors "
+        f"differ; the same program, no new capture: {same_prog}")
+    if got != newest or again != ref_loss or differ or not same_prog:
+        fail("train-checkpoint: an in-place restore did not reach the "
+             "captured program")
+
+    # 4. a torn newest step: the restore falls back
+    path = os.path.join(commit.step_dir(CK_ROOT, newest), "ckpt.states")
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        byte = f.read(1)[0]
+        f.seek(size // 2)
+        f.write(bytes([byte ^ 0xFF]))
+    n_fallback = len(events("ckpt_fallback"))
+    got = trainer.restore(CK_ROOT)
+    fallback = events("ckpt_fallback")[n_fallback:]
+    log(f"train-checkpoint (e): a byte of step {newest}'s ckpt.states "
+        f"flipped: restore() gave step {got}, journaled "
+        f"{[(r['step'], r['detail']) for r in fallback]}")
+    if got != newest - RC_WINDOW or [r["step"] for r in fallback] \
+            != [newest]:
+        fail("train-checkpoint: no fallback past the torn step")
+    sh_release(torch, trainer)
+    del model, trainer, final, ref
+    torch.cuda.empty_cache()
+
+    # 5. rollback under GuardConfig(ckpt_root=)
+    guard = mx.guardrails.GuardConfig(clip_norm=RC_CLIP, ckpt_root=CK_ROOT,
+                                      max_consecutive_skips=2)
+    model3, tr3 = rc_trainer(torch, mx, ctx, guard=guard)
+    tr3.prepare(ids)
+    tr3.restore(CK_ROOT)             # step 24: 32 is torn
+    window(tr3)
+    prog3 = rc_program(tr3, RC_WINDOW)
+    committed = tr3.checkpoint(CK_ROOT, keep_last=CK_KEEP)  # 32 anew
+    with torch.no_grad():
+        model3.collect_params()[CK_POISON].view(-1)[0] = float("inf")
+    n_rb = len(events("divergence_rollback"))
+    bad = float(tr3.run_steps(*batch, num_steps=RC_WINDOW))
+    lost = committed + RC_WINDOW - tr3.num_update
+    rollbacks = events("divergence_rollback")[n_rb:]
+    finite = all(bool(torch.isfinite(t).all()) for t in ck_tensors(tr3))
+    after = window(tr3, backoff=guard.lr_backoff)
+    same_prog = (len(tr3._programs) == 1
+                 and rc_program(tr3, RC_WINDOW) is prog3)
+    rec = rollbacks[0] if rollbacks else {}
+    log(f"train-checkpoint (e): step {committed} committed, inf written "
+        f"into {CK_POISON}[0, 0]: the guarded window's loss {bad}, "
+        f"divergence_rollback {({k: rec.get(k) for k in ('step', 'restored_step', 'lr_backoff', 'reason')})}"
+        f"; restored weights finite {finite}; the next window's loss {after}"
+        f" with lrs x {guard.lr_backoff}, the same program (no new capture)"
+        f" {same_prog}; steps lost {lost} (the poisoned window's)")
+    if len(rollbacks) != 1 or rec["restored_step"] != committed \
+            or rec["lr_backoff"] != guard.lr_backoff or not finite \
+            or not math.isfinite(after) or not same_prog:
+        fail("train-checkpoint: the guard did not roll back to the "
+             "committed step with a backed-off lr")
+    sh_release(torch, tr3)
+    del model3, tr3
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "resumed": resumed,
+            "step_bytes": step_bytes, "tensor_bytes": n_bytes,
+            "save_s": saves, "save_gb_per_s": step_bytes / 1e9
+            / _median(saves), "restore_fresh_s": restore_fresh_s,
+            "restore_inplace_s": restore_inplace_s,
+            "fresh_capture_s": capture_s, "steps_lost": lost,
+            "rollback": {k: rec.get(k) for k in ("step", "restored_step",
+                                                 "lr_backoff")},
+            "lrs": lrs_seen}
+
+
 def phase_kernel_bf16(torch, ce, me):
     """K1 and K2 in bfloat16 at this phase's shapes: the 48 epilogues of a
     ResNet-50 forward at batch 256 and the 24 of a BERT-base MLM training
@@ -3780,6 +4035,8 @@ def main():
                                                      mx.gpu(0)))
     run("train-recipe", lambda: phase_train_recipe(torch, mx, card,
                                                    mx.gpu(0)))
+    run("train-checkpoint", lambda: phase_train_checkpoint(torch, mx, card,
+                                                           mx.gpu(0)))
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -3788,7 +4045,7 @@ def main():
     k3b, train = out["kernel K3 backward"], out["train long BERT"]
     k1t, rn = out["kernel K1 training"], out["train ResNet"]
     kb, sh = out["kernel bf16"], out["train-sharded"]
-    rc = out["train-recipe"]
+    rc, ck = out["train-recipe"], out["train-checkpoint"]
 
     def sharded(kernel, cfgs):
         """The kernel in the train-sharded phase: launches across each
@@ -3946,7 +4203,10 @@ def main():
         "train_recipe_per": f"launches: {RC_WINDOWS} run_steps windows of "
                             f"{RC_WINDOW} steps of the BERT-base LAMB recipe "
                             "(one graph replay each); ms: one profiled "
-                            "window"}, {
+                            "window",
+        "train_checkpoint_launches": ck["launches"]["matmul_epilogue"],
+        "train_checkpoint_per": f"windows 2-{CK_WINDOWS} of the recipe, "
+                                "each followed by a committed checkpoint"}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "

@@ -13,15 +13,18 @@ This package imports ``torch`` and numpy, never ``jax`` and nothing of
 from __future__ import annotations
 
 from . import (autograd, contrib, convert, diagnostics, gluon, guardrails,
-               initializer, kernels, lr_scheduler, ops, optimizer, parallel,
-               random, serving)
+               initializer, kernels, lr_scheduler, ndarray, ops, optimizer,
+               parallel, random, resilience, serving)
+from . import elastic           # after parallel, whose files it reads
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 init = initializer
+nd = ndarray
 
 __all__ = ["Context", "MXNetError", "autograd", "contrib", "convert", "cpu",
-           "current_context", "diagnostics", "gluon", "gpu", "guardrails",
-           "init", "initializer", "kernels", "lr_scheduler", "ops",
-           "optimizer", "parallel", "random", "serving"]
+           "current_context", "diagnostics", "elastic", "gluon", "gpu",
+           "guardrails", "init", "initializer", "kernels", "lr_scheduler",
+           "nd", "ndarray", "ops", "optimizer", "parallel", "random",
+           "resilience", "serving"]
 __version__ = "0.1.0"

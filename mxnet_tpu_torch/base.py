@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MXNetError", "as_torch_dtype"]
+__all__ = ["MXNetError", "as_torch_dtype", "dtype_name"]
 
 
 class MXNetError(RuntimeError):
@@ -33,3 +33,9 @@ def as_torch_dtype(dtype) -> torch.dtype:
     except KeyError:
         raise MXNetError(f"unsupported dtype {dtype!r}; one of "
                          f"{sorted(_DTYPES)}") from None
+
+
+def dtype_name(dtype) -> str:
+    """The MXNet name of a ``torch.dtype`` (``torch.bfloat16`` →
+    ``"bfloat16"``), as the JAX package's files spell dtypes."""
+    return str(dtype).replace("torch.", "")

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ...base import MXNetError
+from ...base import MXNetError, dtype_name
 
 __all__ = ["DynamicLossScaler", "amp_dtype", "convert_hybrid_block", "init",
            "init_trainer", "reset", "scale_loss", "unscale"]
@@ -32,7 +32,7 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
     """ref: amp.init — enable mixed precision process-wide at
     ``target_dtype`` ("bfloat16" or "float16"). Op lists (a per-op cast
     policy) raise: they need the op registry, ROADMAP Queue 1 item 6."""
-    name = str(target_dtype).replace("torch.", "")
+    name = dtype_name(target_dtype)
     if name not in ("float16", "bfloat16"):
         raise MXNetError("AMP target_dtype must be float16 or bfloat16 "
                          "(bfloat16 recommended)")

@@ -4,8 +4,16 @@
 Every record is one JSON line, written and flushed at once, so the tail
 of a killed process's sink still names its last phase. The training
 guardrails write their ``nonfinite_grad``, ``loss_spike``,
-``divergence_rollback`` and ``guard_poll`` records here, and
-``guardrails.guard_report`` reads them back.
+``divergence_rollback`` (step, restored_step, reason, lr_backoff,
+rollback, max_rollbacks, consumer) and ``guard_poll`` records here, and
+``guardrails.guard_report`` reads them back. The checkpoint family
+writes ``ckpt_committed`` and ``ckpt_skip_existing`` (root, step),
+``ckpt_fallback`` (root, step, detail: why the step was skipped),
+``ckpt_restored`` (root, step), ``reshard_restore`` (root, step, n_old,
+n_new, entries, bytes, consumer), ``rng_not_restored`` (a checkpoint's
+generator state of another implementation, left alone), and
+``resilience`` its ``retry``, ``disk_full`` and ``fsync_dir_failed``
+records, with the reference's fields.
 
 Record schema (all records)::
 

@@ -29,6 +29,7 @@ from torch.nn.parameter import is_lazy
 
 from .. import autograd as _autograd
 from .. import initializer as _init_mod
+from .. import ndarray as nd
 from ..base import MXNetError, as_torch_dtype
 from ..context import resolve_device
 from .cached_graph import (CudaGraphs, GraphCache, in_capture,
@@ -119,13 +120,18 @@ class Block(nn.Module):
             (k, v) for k, v in self.state_dict(keep_vars=True).items()
             if pattern is None or pattern.match(k))
 
-    # -- checkpointing over numpy dicts --------------------------------------
+    # -- checkpointing (ref: Block.save_parameters / load_parameters) --------
     def load_dict(self, arrays, ctx=None, allow_missing=False,
                   ignore_extra=False, source="<param dict>"):
-        """Load ``{structural name: array}``; missing keys, extra keys and
-        shape mismatches raise unless allowed. Uninitialized parameters
+        """Load ``{structural name: array}`` (tensors or numpy arrays);
+        missing keys, extra keys and shape mismatches raise unless
+        allowed. ``arg:``/``aux:`` prefixes (a trainer checkpoint's) are
+        stripped, as in the reference. Uninitialized parameters
         materialize from the loaded shapes on the device ``initialize``
         chose, else on ``ctx`` (default ``cuda:0``)."""
+        arrays = {k.partition(":")[2] if k.partition(":")[0] in
+                  ("arg", "aux") and ":" in k else k: v
+                  for k, v in arrays.items()}
         params = self.collect_params()
         missing = [k for k in params if k not in arrays]
         if missing and not allow_missing:
@@ -152,25 +158,29 @@ class Block(nn.Module):
                         device = resolve_device(ctx)
                     module._reset_lazy(name, spec, device)
                     rebound = True
-        state = {k: torch.tensor(np.asarray(v)) for k, v in arrays.items()
-                 if k in params}
+        state = {k: v if isinstance(v, torch.Tensor)
+                 else torch.tensor(np.asarray(v))
+                 for k, v in arrays.items() if k in params}
         self.load_state_dict(state, strict=False)   # in place where live
         if rebound:
             self._clear_cached_op()
         return self
 
-    def save_parameters(self, filename):
-        """Write every parameter and buffer to ``filename`` as a numpy
-        ``.npz`` keyed by structural name (not the MXNet ``.params``
-        container)."""
-        np.savez(filename, **{k: v.detach().cpu().numpy()
-                              for k, v in self.collect_params().items()})
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter and buffer to ``filename`` as the
+        ``.params`` container keyed by structural name (``nd.save``), the
+        file the JAX package's ``save_parameters`` writes and its
+        ``load_parameters`` reads."""
+        nd.save(filename, dict(self.collect_params()))
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False):
-        with np.load(filename) as data:
-            arrays = {k: data[k] for k in data.files}
-        return self.load_dict(arrays, ctx=ctx, allow_missing=allow_missing,
+        """Load a ``.params`` file of either package (``nd.load``) through
+        :meth:`load_dict`."""
+        loaded = nd.load(filename)
+        if not isinstance(loaded, dict):
+            raise MXNetError(f"{filename} is not a parameter dict file")
+        return self.load_dict(loaded, ctx=ctx, allow_missing=allow_missing,
                               ignore_extra=ignore_extra, source=filename)
 
     def cast(self, dtype):

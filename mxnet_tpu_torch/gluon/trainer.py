@@ -22,17 +22,28 @@ scale if there is one and counts against the guard's divergence budget;
 ``GuardConfig.clip_norm`` clips the gradients' global norm off the same
 reduction. bf16 has fp32's exponent range, so without a guard no check
 runs.
+
+``save_states``/``load_states`` write and read the updater's pickle
+(the states and the optimizer); ``checkpoint``/``restore`` commit and
+restore a step directory (``resilience.commit``) holding every tensor
+of the dict (weights and buffers, ``<prefix>.params``, keyed by the
+dict's names) and the states. A load copies into the live tensors in
+place. With ``GuardConfig(ckpt_root=)`` a divergence restores the
+newest valid step and backs the lr off.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..guardrails import fused
 from ..guardrails.monitor import (AnomalyMonitor, GuardConfig,
                                   handle_divergence,
-                                  journal_scaler_only_skip, refuse_rollback)
+                                  journal_scaler_only_skip)
+from ..parallel import _ckpt
+from ..resilience.atomic import atomic_write
 
 __all__ = ["Trainer"]
 
@@ -44,13 +55,17 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  guard=None):
         if hasattr(params, "values"):
+            self._names = [str(k) for k in params.keys()]
             params = list(params.values())
+        else:
+            self._names = [str(i) for i in range(len(params))]
         if not isinstance(params, (list, tuple)):
             raise MXNetError("Trainer expects a dict of parameters (e.g. "
                              "collect_params()) or a list of tensors")
         for p in params:
             if not isinstance(p, torch.Tensor):
                 raise MXNetError(f"invalid parameter {p!r}")
+        self._all = list(params)
         self._index = [i for i, p in enumerate(params) if p.requires_grad]
         self._params = [params[i] for i in self._index]
         optimizer_params = dict(optimizer_params or {})
@@ -76,7 +91,6 @@ class Trainer:
                 "(parallel.ShardedTrainer / PipelinedTrainer): the "
                 "eager Trainer makes its skip decision on the host "
                 "every step — use mode='step' (docs/guardrails.md)")
-        refuse_rollback(self._guard_cfg)
         self._monitor = (AnomalyMonitor(self._guard_cfg,
                                         consumer="gluon_trainer")
                          if self._guard_cfg is not None else None)
@@ -182,26 +196,74 @@ class Trainer:
                 g.mul_(scale.to(g.dtype))
 
     def _handle_divergence(self):
+        # the optimizer as a getter: restore() -> load_states replaces
+        # self._optimizer, and the lr backoff must land on the new one
         handle_divergence(
             self._monitor, self._step_count,
             restore_fn=lambda: self.restore(self._guard_cfg.ckpt_root),
             optimizer=lambda: self._optimizer)
 
-    def _queued(self, name):
-        raise MXNetError(f"Trainer.{name} is not ported yet (ROADMAP Queue "
-                         "1 item 4: the checkpoint family)")
-
-    def save_states(self, fname):
-        self._queued("save_states")
-
-    def load_states(self, fname):
-        self._queued("load_states")
-
+    # -- checkpoints (ref: Trainer.checkpoint / restore / save_states) -------
     def checkpoint(self, ckpt_dir, step=None, keep_last=None):
-        self._queued("checkpoint")
+        """Stage the tensors and the states under
+        ``<ckpt_dir>/step-N.tmp`` and publish them behind a CRC manifest
+        and a rename. ``step`` defaults to the count of ``step()`` calls.
+        Returns the committed step."""
+        def save_cb(prefix):
+            self._save_params_file(f"{prefix}.params")
+            self.save_states(f"{prefix}.states")
+
+        step = int(self._step_count if step is None else step)
+        return _ckpt.commit_checkpoint(ckpt_dir, step, save_cb,
+                                       keep_last=keep_last)
 
     def restore(self, ckpt_dir, step=None):
-        self._queued("restore")
+        """Restore the newest valid committed step (a corrupt or torn
+        newer one is skipped and journaled as ``ckpt_fallback``), or the
+        pinned ``step``. Returns the restored step."""
+        def load_cb(prefix):
+            self._load_params_file(f"{prefix}.params")
+            self.load_states(f"{prefix}.states")
+
+        restored = _ckpt.restore_checkpoint(ckpt_dir, load_cb, step=step)
+        self._step_count = restored
+        return restored
+
+    def _save_params_file(self, fname):
+        nd.save(fname, dict(zip(self._names, self._all)))
+
+    def _load_params_file(self, fname):
+        """Every tensor of the dict from ``fname``, each checked before
+        any is copied in place."""
+        loaded = nd.load(fname)
+        if not isinstance(loaded, dict):
+            raise MXNetError(f"{fname} is not a parameter dict file")
+        pairs = []
+        for name, p in zip(self._names, self._all):
+            if name not in loaded:
+                raise MXNetError(f"checkpoint {fname} is missing "
+                                 f"parameter {name!r}")
+            value = loaded[name]
+            if tuple(value.shape) != tuple(p.shape):
+                raise MXNetError(f"set_data shape {tuple(value.shape)} != "
+                                 f"parameter shape {tuple(p.shape)} for "
+                                 f"{name}")
+            pairs.append((p, value))
+        _ckpt.copy_into(pairs)
+
+    def save_states(self, fname):
+        """The updater's states and the optimizer, atomically (ref:
+        Trainer.save_states)."""
+        with atomic_write(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Restore ``save_states``' file: the states in place where they
+        exist, and the pickled optimizer in place of this one (ref:
+        Trainer.load_states)."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer
 
     def allreduce_grads(self):
         """Nothing to reduce on one device (ref: Trainer.allreduce_grads)."""

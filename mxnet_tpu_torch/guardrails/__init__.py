@@ -3,8 +3,8 @@ the fused in-step guard math (:mod:`.fused`), the host-side divergence
 monitor and its policy (:mod:`.monitor`: ``GuardConfig``,
 ``AnomalyMonitor``, ``TrainingDiverged``), the trainers' shared
 bookkeeping (:mod:`.trainer_mixin`) and the journal summary
-(:mod:`.report`). Rollback to a checkpoint waits for the checkpoint
-family (ROADMAP Queue 1 item 4)."""
+(:mod:`.report`). With ``GuardConfig(ckpt_root=)`` a divergence rolls
+back to the newest valid committed checkpoint."""
 from __future__ import annotations
 
 from . import fused

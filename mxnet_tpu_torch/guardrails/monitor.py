@@ -9,14 +9,13 @@ and what to do when the anomaly budget is exhausted — roll back to the
 newest CRC-valid committed checkpoint with a learning-rate backoff
 (bounded retries), or surface a structured :class:`TrainingDiverged`.
 
-Import-light (numpy and the diagnostics journal): the monitor is
-built before any device is touched.
+Import-light (numpy, the diagnostics journal and ``resilience.retry``'s
+environment readers): the monitor is built before any device is
+touched.
 
-Rollback restores a committed checkpoint, and the checkpoint family is
-not ported yet (ROADMAP Queue 1 item 4): the port's trainers refuse a
-``GuardConfig`` with ``ckpt_root`` when they are built, so here
-:func:`handle_divergence` raises :class:`TrainingDiverged` at the first
-divergence.
+Rollback restores through the trainer's own ``restore(ckpt_root)`` (the
+commit protocol's newest valid step) and backs the lr off, compounded
+across rollbacks (:func:`set_cumulative_lr_backoff`).
 
 Journal records (the JAX package's docs/guardrails.md has the full schema):
 
@@ -44,30 +43,16 @@ Knobs (all overridable per-:class:`GuardConfig`):
 from __future__ import annotations
 
 import collections
-import os
 
 import numpy as np
 
 from ..base import MXNetError
 from ..diagnostics.journal import get_journal
+from ..resilience.retry import _env_float, _env_int
 
 __all__ = ["AnomalyMonitor", "GuardConfig", "TrainingDiverged",
            "handle_divergence", "journal_scaler_only_skip",
            "set_cumulative_lr_backoff", "stale_scale_runs"]
-
-
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
-
-
-def _env_float(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, default))
-    except ValueError:
-        return default
 
 
 def stale_scale_runs(finites):
@@ -101,10 +86,8 @@ class GuardConfig:
     ``ckpt_root`` names a ``resilience.commit`` checkpoint root (the
     trainers' ``checkpoint()/restore()`` format); with it set, a
     divergence triggers restore-newest-valid + LR backoff instead of
-    raising (until ``max_rollbacks`` is spent); the port's trainers
-    refuse it until the checkpoint family is ported (ROADMAP Queue 1
-    item 4). ``clip_norm`` enables global-norm gradient clipping off the
-    guard's already-computed norm.
+    raising (until ``max_rollbacks`` is spent). ``clip_norm`` enables
+    global-norm gradient clipping off the guard's already-computed norm.
     """
 
     def __init__(self, max_consecutive_skips=None, spike_factor=None,
@@ -161,17 +144,6 @@ class GuardConfig:
         (possibly shared with another trainer) stays untouched."""
         import copy as _copy
         return _copy.copy(self)
-
-
-def refuse_rollback(cfg):
-    """Raise when ``cfg`` promises a rollback: restoring a committed
-    checkpoint needs the checkpoint family, which is not ported yet."""
-    if cfg is not None and cfg.ckpt_root is not None:
-        raise MXNetError(
-            f"GuardConfig(ckpt_root={cfg.ckpt_root!r}) rolls back to a "
-            "committed checkpoint on divergence, and the checkpoint family "
-            "is not ported yet (ROADMAP Queue 1 item 4); leave ckpt_root "
-            "unset to raise TrainingDiverged instead")
 
 
 class TrainingDiverged(MXNetError):

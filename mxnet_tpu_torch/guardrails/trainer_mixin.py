@@ -120,10 +120,13 @@ class GuardedTrainerMixin:
             restore_fn=lambda: self.restore(self._guard_cfg.ckpt_root),
             optimizer=self._optimizer)
         # the counters belong to the abandoned trajectory: bank the total
-        # and start fresh ones
+        # and zero them in place (the captured programs update these
+        # very tensors)
         self._skipped_offset += int(fused.host_fetch(
             self._guard_state[0])[0])
-        self._guard_state = self._reinit_guard_state()
+        with torch.no_grad():
+            for c in self._guard_state:
+                c.zero_()
         return restored
 
     # -- counters -------------------------------------------------------------

@@ -19,6 +19,7 @@ which ``gluon.Trainer`` passes in), from ``set_lr_mult`` /
 from __future__ import annotations
 
 import math
+import pickle
 
 import torch
 
@@ -62,6 +63,16 @@ def _sgld_noise(weight, lr):
                         dtype=weight.dtype, device=weight.device)
 
 
+class _Multipliers:
+    """A weight's ``lr_mult`` and ``wd_mult``, as a pickled optimizer's
+    ``param_dict`` carries them in place of the live tensor."""
+
+    def __init__(self, tensor):
+        for attr in ("lr_mult", "wd_mult"):
+            if hasattr(tensor, attr):
+                setattr(self, attr, getattr(tensor, attr))
+
+
 class Optimizer:
     """ref: optimizer.py Optimizer — lr (or an lr scheduler), wd, lr and
     wd multipliers per weight, ``rescale_grad``, ``clip_gradient`` and
@@ -85,6 +96,16 @@ class Optimizer:
         self.param_dict = param_dict or {}
         self.lr_mult = {}
         self.wd_mult = {}
+
+    def __getstate__(self):
+        """A pickle carries the hyperparameters, counts, scheduler and
+        multipliers, and no tensor: ``param_dict`` goes as each weight's
+        multipliers (the trainer gives a restored optimizer its live
+        tensors back)."""
+        state = dict(self.__dict__)
+        state["param_dict"] = {i: _Multipliers(t)
+                               for i, t in self.param_dict.items()}
+        return state
 
     # -- state ---------------------------------------------------------------
     def create_state(self, index, weight):
@@ -545,6 +566,66 @@ class FTML(Optimizer):
         weight.copy_(-z_new / d_new)
 
 
+class BF16Bits:
+    """A bfloat16 state tensor in a pickle: its bits as a uint16 numpy
+    array (numpy has no bfloat16 of its own), back bit for bit."""
+
+    def __init__(self, tensor):
+        self.bits = tensor.detach().cpu().view(torch.int16).numpy() \
+            .view("uint16")
+
+    def tensor(self):
+        return torch.from_numpy(self.bits.view("int16").copy()) \
+            .view(torch.bfloat16)
+
+
+def _state_to_np(s):
+    if s is None:
+        return None
+    if isinstance(s, (tuple, list)):
+        return tuple(_state_to_np(x) for x in s)
+    if s.dtype == torch.bfloat16:
+        return BF16Bits(s)
+    return s.detach().cpu().numpy()
+
+
+def _state_from_np(s):
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_state_from_np(x) for x in s)
+    if isinstance(s, BF16Bits):
+        return s.tensor()
+    return torch.from_numpy(s.copy())
+
+
+def _same_layout(a, b):
+    """Two states of the same structure, shapes and dtypes."""
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        return (isinstance(a, tuple) and isinstance(b, tuple)
+                and len(a) == len(b)
+                and all(_same_layout(x, y) for x, y in zip(a, b)))
+    return a.shape == b.shape and a.dtype == b.dtype
+
+
+def _copy_state(live, host):
+    if isinstance(live, tuple):
+        for a, b in zip(live, host):
+            _copy_state(a, b)
+    elif live is not None:
+        live.copy_(host)
+
+
+def _state_to(s, device):
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_state_to(x, device) for x in s)
+    return s.to(device)
+
+
 class Updater:
     """The states of one optimizer keyed by weight index (ref:
     optimizer.py Updater)."""
@@ -552,13 +633,53 @@ class Updater:
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self._to_place = set()      # restored states still on the host
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
+        elif self._to_place and index in self._to_place:
+            self.states[index] = _state_to(self.states[index], weight.device)
+            self._to_place.discard(index)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """A pickle of the states as numpy arrays keyed by index (bfloat16
+        ones as :class:`BF16Bits`), with the optimizer when
+        ``dump_optimizer`` (ref: Updater.get_states)."""
+        states_np = {k: _state_to_np(s) for k, s in self.states.items()}
+        payload = (states_np, self.optimizer) if dump_optimizer else states_np
+        return pickle.dumps(payload)
+
+    def set_states(self, states):
+        """Restore :meth:`get_states`' pickle (ref: Updater.set_states). A
+        state that already exists with the same shapes and dtypes is
+        copied into in place; a new one lives on the host until its
+        weight's first update moves it to the weight's device. A pickled
+        optimizer replaces this one and takes over its ``param_dict``
+        (the live tensors), if it has one; else it keeps the multipliers
+        it carries."""
+        payload = pickle.loads(states)
+        if isinstance(payload, tuple):
+            states_np, optimizer = payload
+            if self.optimizer.param_dict:
+                optimizer.param_dict = self.optimizer.param_dict
+            self.optimizer = optimizer
+        else:
+            states_np = payload
+        new, to_place = {}, set()
+        for k, v in states_np.items():
+            host = _state_from_np(v)
+            if k in self.states and _same_layout(self.states[k], host):
+                with torch.no_grad():
+                    _copy_state(self.states[k], host)
+                new[k] = self.states[k]
+            else:
+                new[k] = host
+                to_place.add(k)
+        self.states, self._to_place = new, to_place
 
 
 def get_updater(optimizer):

@@ -47,13 +47,22 @@ capture anew. A capture that fails on the card raises; nothing falls
 back to an eager step there. On the CPU, which a caller asks for with
 ``make_mesh(devices=[mx.cpu()])``, the same steps run eagerly.
 
-Not ported yet: the checkpoint family (``save_states``,
-``load_states``, ``save_checkpoint``, ``load_checkpoint``,
-``checkpoint``, ``restore``), and with it a guard's rollback
-(``GuardConfig(ckpt_root=)``), and ``remat``: ROADMAP Queue 1 item 4.
-Multi-device meshes, ``rebuild_mesh`` and sharded ``param_rules`` are
-Queue 1 item 9; on one device every spec projects to replication, so
-``param_rules`` is accepted and changes nothing.
+The checkpoint family (``save_states``, ``load_states``,
+``save_checkpoint``, ``load_checkpoint``, ``checkpoint``, ``restore``,
+``load_checkpoint_resharded``, ``restore_resharded``) writes and reads
+the JAX package's files (:mod:`._ckpt`): the master weights, the
+auxiliary state and the optimizer state in their storage dtypes, the
+update count and the dropout generator's state, so a restored trainer
+goes on bit for bit. A load copies into the live tensors in place, so
+the captured programs keep their addresses and replay the restored
+state without a new capture. ``GuardConfig(ckpt_root=)`` rolls back
+through ``restore``; the backed-off lr reaches the graphs through the
+lrs written before each replay.
+
+Not ported yet: ``remat`` (ROADMAP Queue 1 item 4). Multi-device
+meshes, ``rebuild_mesh``, per-shard checkpoint writing and sharded
+``param_rules`` are Queue 1 item 9; on one device every spec projects
+to replication, so ``param_rules`` is accepted and changes nothing.
 """
 from __future__ import annotations
 
@@ -68,12 +77,13 @@ from torch.func import functional_call
 from torch.nn.parameter import is_lazy
 
 from .. import autograd as _autograd
-from ..base import MXNetError, as_torch_dtype
+from ..base import MXNetError, as_torch_dtype, dtype_name
 from ..gluon import cached_graph as _cg
 from ..guardrails import fused as _guard
-from ..guardrails.monitor import AnomalyMonitor, GuardConfig, refuse_rollback
+from ..guardrails.monitor import AnomalyMonitor, GuardConfig
 from ..guardrails.trainer_mixin import GuardedTrainerMixin
 from ..ops import optimizer_op as _ops
+from . import _ckpt
 from .mesh import PartitionSpec, current_mesh
 
 __all__ = ["ShardedTrainer", "project_spec"]
@@ -291,14 +301,6 @@ def _lr_mult(opt, index):
     return opt._mult(index, "lr_mult", opt.lr_mult)
 
 
-def _queued(name, item, what):
-    def method(self, *args, **kwargs):
-        raise MXNetError(f"ShardedTrainer.{name} is not ported yet: it "
-                         f"needs {what} (ROADMAP Queue 1 item {item})")
-    method.__name__ = name
-    return method
-
-
 class ShardedTrainer(GuardedTrainerMixin):
     """Gluon-level front end of the one-program training step (ref: the JAX
     package's ``parallel.ShardedTrainer``)::
@@ -369,7 +371,6 @@ class ShardedTrainer(GuardedTrainerMixin):
         self._num_update = self._optimizer.begin_num_update
         self._hyper = None                 # (wds, lr multipliers)
         self._guard_cfg = GuardConfig.coerce(guard)
-        refuse_rollback(self._guard_cfg)
         self._monitor = (AnomalyMonitor(self._guard_cfg,
                                         consumer=self._guard_consumer)
                          if self._guard_cfg is not None else None)
@@ -480,7 +481,8 @@ class ShardedTrainer(GuardedTrainerMixin):
 
     def prepare(self, *example_args):
         """Place the parameters and create the optimizer state without
-        running a step."""
+        running a step (the resume entry point: prepare, then
+        ``load_checkpoint`` or ``restore``)."""
         self._prepare(example_args)
 
     def _begin(self, batch):
@@ -729,13 +731,189 @@ class ShardedTrainer(GuardedTrainerMixin):
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    save_states = _queued("save_states", 4, "the optimizer state files")
-    load_states = _queued("load_states", 4, "the optimizer state files")
-    save_checkpoint = _queued("save_checkpoint", 4,
-                              "the .params v3 container (item 6)")
-    load_checkpoint = _queued("load_checkpoint", 4,
-                              "the .params v3 container (item 6)")
-    checkpoint = _queued("checkpoint", 4, "resilience.commit")
-    restore = _queued("restore", 4, "resilience.commit")
-    rebuild_mesh = _queued("rebuild_mesh", 9, "meshes of more than one "
-                           "device")
+    # -- checkpoint / resume --------------------------------------------------
+    # The reference's files (ref: python/mxnet/gluon/trainer.py
+    # save_states/load_states, python/mxnet/model.py save_checkpoint):
+    # one .params container per file with a JSON __meta__ entry, weights
+    # and state in their storage dtype, the dropout generator's state in
+    # the meta, so a resume goes on bit for bit.
+
+    def _require_prepared(self, what):
+        if not self._prepared:
+            raise MXNetError(
+                f"ShardedTrainer.{what} needs the sharded state: call "
+                "prepare(*example_args) or run a step first")
+
+    def _struct_name(self, tensor):
+        """Structural key ('features.0.weight') of a parameter or buffer,
+        independent of the instance, as ``Block.save_parameters`` keys
+        it; the first name of a tensor shared under several."""
+        by_id = self.__dict__.get("_struct_cache")
+        if by_id is None:
+            by_id = {}
+            for key, t in self._block.collect_params().items():
+                by_id.setdefault(id(t), key)
+            self._struct_cache = by_id
+        return by_id[id(tensor)]
+
+    def _state_entries(self):
+        """name -> live tensor of every optimizer-state leaf."""
+        return {f"state:{self._struct_name(p)}:{j}": s
+                for p, st in zip(self._trainable, self._states)
+                for j, s in enumerate(st)}
+
+    def _param_entries(self):
+        out = {f"arg:{self._struct_name(p)}": p for p in self._trainable}
+        out.update((f"aux:{self._struct_name(t)}", t) for t in self._aux)
+        return out
+
+    def _ckpt_meta(self, per_shard):
+        meta = {
+            "format": _ckpt.CKPT_FORMAT,
+            "optimizer": type(self._optimizer).__name__,
+            "num_update": int(self._num_update),
+            "master_dtype": (dtype_name(self._master_dtype)
+                             if self._master_dtype is not None else None),
+            "state_arity": [len(st) for st in self._states],
+            "per_shard": bool(per_shard),
+            "shard_files": _ckpt.group().count(),
+        }
+        meta.update(_ckpt.rng_meta(self.device))
+        return meta
+
+    def _entries_of(self, fname, meta, loaded, live):
+        """(live tensor, checked host tensor) for every name of ``live``,
+        from a full file or from its per-shard pieces."""
+        pieces = None
+        if meta["per_shard"]:
+            pieces = _ckpt.read_pieces(
+                fname, int(meta.get("shard_files", 1)), set(live))
+        return [(cur, _ckpt.place_like(name, cur, loaded, pieces))
+                for name, cur in live.items()]
+
+    def _adopt(self, pairs, meta, source):
+        """Copy the checked tensors into the live ones in place (the
+        captured programs keep reading the same addresses), then take the
+        meta's update count and dropout generator state."""
+        _ckpt.copy_into(pairs)
+        self._num_update = int(meta["num_update"])
+        self._optimizer.num_update = self._num_update
+        _ckpt.restore_rng(meta, self.device, source)
+
+    def save_states(self, fname, per_shard=None):
+        """Write the optimizer state, the update count and the dropout
+        generator's state to ``fname`` (ref: gluon.Trainer.save_states).
+        One file: per-shard writing is ROADMAP Queue 1 item 9."""
+        self._require_prepared("save_states")
+        _ckpt.write_entries(fname, self._state_entries(),
+                            self._ckpt_meta(bool(per_shard)))
+
+    def _check_states_meta(self, meta):
+        """The contract of a ``.states`` meta: optimizer class, master
+        storage dtype and state arity (the reference's messages)."""
+        if meta["optimizer"] != type(self._optimizer).__name__:
+            raise MXNetError(
+                f"checkpoint was saved with optimizer {meta['optimizer']!r}, "
+                f"trainer has {type(self._optimizer).__name__!r}")
+        want_mdt = (dtype_name(self._master_dtype)
+                    if self._master_dtype is not None else None)
+        if meta.get("master_dtype") != want_mdt:
+            raise MXNetError(
+                f"checkpoint was saved with master_dtype="
+                f"{meta.get('master_dtype')!r}, trainer has {want_mdt!r} — "
+                "resume with the same storage dtype (a cast would change "
+                "the training trajectory)")
+        if meta["state_arity"] != [len(st) for st in self._states]:
+            raise MXNetError("checkpoint state arity mismatch — different "
+                             "optimizer config or parameter set")
+
+    def _states_pairs(self, fname):
+        meta, loaded = _ckpt.read_meta(fname)
+        self._check_states_meta(meta)
+        return meta, self._entries_of(fname, meta, loaded,
+                                      self._state_entries())
+
+    def load_states(self, fname):
+        """Restore what ``save_states`` wrote, in place. The trainer must
+        be prepared with the same architecture, optimizer class and
+        master_dtype."""
+        self._require_prepared("load_states")
+        meta, pairs = self._states_pairs(fname)
+        self._adopt(pairs, meta, fname)
+
+    def save_checkpoint(self, prefix, per_shard=None):
+        """The full snapshot: ``<prefix>.params`` (master weights and
+        auxiliary state in their storage dtype) and ``<prefix>.states``
+        (ref: the mx.model checkpoint pair)."""
+        self._require_prepared("save_checkpoint")
+        _ckpt.write_entries(f"{prefix}.params", self._param_entries(),
+                            self._ckpt_meta(bool(per_shard)))
+        self.save_states(f"{prefix}.states", per_shard=per_shard)
+
+    def load_checkpoint(self, prefix):
+        """Resume from ``save_checkpoint``'s pair onto a prepared trainer,
+        bit for bit: every entry is checked before any is copied."""
+        self._require_prepared("load_checkpoint")
+        fname = f"{prefix}.params"
+        meta, loaded = _ckpt.read_meta(fname)
+        pairs = self._entries_of(fname, meta, loaded, self._param_entries())
+        smeta, spairs = self._states_pairs(f"{prefix}.states")
+        self._adopt(pairs + spairs, smeta, prefix)
+
+    def checkpoint(self, ckpt_dir, step=None, keep_last=None,
+                   per_shard=None):
+        """Crash-consistent directory checkpoint (the commit protocol):
+        the pair staged under ``<ckpt_dir>/step-N.tmp/``, committed behind
+        a CRC manifest and a rename, the ``latest`` pointer moved, the
+        last ``keep_last`` steps kept. ``step`` defaults to the update
+        count. Returns the committed step."""
+        self._require_prepared("checkpoint")
+        step = int(self._num_update if step is None else step)
+        return _ckpt.commit_checkpoint(
+            ckpt_dir, step,
+            lambda prefix: self.save_checkpoint(prefix, per_shard=per_shard),
+            keep_last=keep_last)
+
+    def restore(self, ckpt_dir, step=None, latest=True):
+        """Resume from the newest valid committed step under ``ckpt_dir``
+        (or a pinned ``step``): a corrupt or torn newer step is skipped
+        with a journaled ``ckpt_fallback``. Returns the restored step."""
+        self._require_prepared("restore")
+        if step is None and not latest:
+            raise MXNetError("restore needs step=N or latest=True")
+        return _ckpt.restore_checkpoint(ckpt_dir, self.load_checkpoint,
+                                        step=step)
+
+    def load_checkpoint_resharded(self, prefix):
+        """:meth:`load_checkpoint` for a pair any number of processes
+        wrote, full-file or per-shard: the pieces are assembled into full
+        tensors (coverage proven) and copied in, bit for bit."""
+        self._require_prepared("load_checkpoint_resharded")
+        from ..elastic import reshard as _reshard
+        meta, entries = _reshard.read_global_entries(f"{prefix}.params")
+        smeta, sentries = _reshard.read_global_entries(f"{prefix}.states")
+        self._check_states_meta(smeta)
+        pairs = []
+        for name, cur in {**self._param_entries(),
+                          **self._state_entries()}.items():
+            src = sentries if name.startswith("state:") else entries
+            if name not in src:
+                raise MXNetError(f"checkpoint is missing entry {name!r}")
+            pairs.append((cur, _reshard.place_global(name, cur, src[name])))
+        self._adopt(pairs, smeta, prefix)
+        _reshard.journal_reshard(prefix, self._num_update, meta,
+                                 _ckpt.group().count(),
+                                 {**entries, **sentries},
+                                 self._guard_consumer)
+
+    def restore_resharded(self, ckpt_dir, step=None):
+        """:meth:`restore` through :meth:`load_checkpoint_resharded`:
+        whatever topology wrote the step. Returns the restored step."""
+        self._require_prepared("restore_resharded")
+        return _ckpt.restore_checkpoint(
+            ckpt_dir, self.load_checkpoint_resharded, step=step)
+
+    def rebuild_mesh(self, mesh):
+        raise MXNetError("ShardedTrainer.rebuild_mesh is not ported yet: it "
+                         "needs meshes of more than one device (ROADMAP "
+                         "Queue 1 item 9)")

@@ -20,8 +20,9 @@ against the JAX package's, on the CPU.
   both packages.
 - ``mode="deferred"``: no journal record per step, ``guard_poll``'s
   counts; refused by ``gluon.Trainer`` and with an fp16 scaler, as in
-  the reference; ``GuardConfig(ckpt_root=)`` refused by both trainers,
-  and ``gluon.Trainer``'s checkpoint methods naming their ROADMAP item.
+  the reference; ``GuardConfig(ckpt_root=)`` and ``gluon.Trainer``'s
+  checkpoint methods accepted (the rollback itself:
+  tests/test_torch_checkpoint.py).
 """
 import json
 
@@ -319,7 +320,8 @@ def test_nonfinite_batches_skip_journal_and_diverge(tmp_path):
 
 def test_deferred_mode_and_refusals(tmp_path):
     """Deferred mode journals nothing per step and ``guard_poll`` reads
-    the in-step counters; the reference's refusals hold."""
+    the in-step counters; the reference's refusals hold; a guard with a
+    ``ckpt_root`` and the checkpoint family of ``gluon.Trainer`` work."""
     _, tnet, x, y = _pair()
     bad = x.copy()
     bad[1, 2] = np.nan
@@ -341,13 +343,14 @@ def test_deferred_mode_and_refusals(tmp_path):
     with pytest.raises(MXNetError, match="needs a fused trainer"):
         tmx.gluon.Trainer(tnet.collect_params(), "sgd",
                           guard=tmon.GuardConfig(mode="deferred"))
-    with pytest.raises(MXNetError, match="Queue 1 item 4"):
-        tmx.gluon.Trainer(tnet.collect_params(), "sgd",
-                          guard=tmon.GuardConfig(ckpt_root="ckpt"))
-    trainer = tmx.gluon.Trainer(tnet.collect_params(), "sgd")
-    for name in ("save_states", "load_states", "checkpoint", "restore"):
-        with pytest.raises(MXNetError, match="Queue 1 item 4"):
-            getattr(trainer, name)("ckpt")
+    root = str(tmp_path / "ckpt")
+    trainer = tmx.gluon.Trainer(tnet.collect_params(), "sgd",
+                                guard=tmon.GuardConfig(ckpt_root=root))
+    states = str(tmp_path / "trainer.states")
+    trainer.save_states(states)
+    trainer.load_states(states)
+    assert trainer.checkpoint(root) == 0
+    assert trainer.restore(root) == 0
     with pytest.raises(MXNetError, match="fp16 dynamic loss scaling"):
         tpar.ShardedTrainer(tnet, tmx.gluon.loss.L2Loss(), "sgd",
                             mesh=_port_mesh(), compute_dtype="float16",

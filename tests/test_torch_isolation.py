@@ -1,6 +1,7 @@
 """The port stands alone: mxnet_tpu_torch and chip_smoke.py import
-neither jax nor the JAX package, and the port's entry points refuse to
-fall back to the CPU when there is no CUDA device."""
+neither jax, the JAX package nor ml_dtypes (the card's machine has
+none), and the port's entry points refuse to fall back to the CPU when
+there is no CUDA device."""
 import ast
 import os
 import subprocess
@@ -17,7 +18,7 @@ from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.serving import Server
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _forbidden(module):
@@ -51,7 +52,7 @@ def test_port_sources_import_no_jax():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'mxnet_tpu')))")
+            f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=env, capture_output=True, text=True,

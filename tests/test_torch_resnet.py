@@ -96,7 +96,7 @@ def test_load_jax_params_rejects_missing_extra_and_misshapen_keys():
 
 def test_save_and_load_parameters_round_trip(tmp_path):
     _, tnet = narrow_pair(seed=5)
-    path = str(tmp_path / "narrow.npz")
+    path = str(tmp_path / "narrow.params")
     tnet.save_parameters(path)
     other = torch_resnet.ResNetV1(torch_resnet.BottleneckV1,
                                   [1, 1, 1, 1], [8, 16, 32, 64, 128],

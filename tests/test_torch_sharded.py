@@ -27,10 +27,10 @@ examples/pretrain_bert.py's wrapper keeps them), three steps each.
   tests/test_torch_hybridize.py equals the eager step; an lr change and
   a new loss scale replay the same program; a rebound parameter
   (``Block.cast``, a copy) makes it capture anew.
-- Refusals: a multi-device mesh, ``rebuild_mesh``, ``remat``,
-  ``GuardConfig(ckpt_root=)`` and the checkpoint family raise naming
-  their ROADMAP item; SGLD and an optimizer without a functional rule
-  raise the reference's messages.
+- Refusals: a multi-device mesh, ``rebuild_mesh``, per-shard writing
+  and ``remat`` raise naming their ROADMAP item; SGLD and an optimizer
+  without a functional rule raise the reference's messages;
+  ``GuardConfig(ckpt_root=)`` and the checkpoint family work.
 """
 import copy
 
@@ -414,12 +414,13 @@ def test_graph_step_recaptures_after_a_rebind(rebind):
     assert all(p.dtype == want_dtype for p in graphed._trainable)
 
 
-def test_refusals_name_their_roadmap_items():
-    """A multi-device mesh and rebuild_mesh (Queue 1 item 9), remat, a
-    guard that promises a rollback (GuardConfig(ckpt_root=...)) and the
-    checkpoint family (item 4), a block given new trainable parameters
-    after its trainer's first step, SGLD (no functional update, as in
-    the reference) and an optimizer without a functional rule raise."""
+def test_refusals_name_their_roadmap_items(tmp_path):
+    """A multi-device mesh and rebuild_mesh (Queue 1 item 9), remat
+    (item 4), a block given new trainable parameters after its trainer's
+    first step, SGLD (no functional update, as in the reference) and an
+    optimizer without a functional rule raise; a guard that promises a
+    rollback (GuardConfig(ckpt_root=...)) and the checkpoint family
+    work."""
     with pytest.raises(MXNetError, match="Queue 1 item 9"):
         tpar.make_mesh({"data": 2}, devices=[tmx.cpu(0), tmx.cpu(1)])
     with pytest.raises(MXNetError, match="do not tile"):
@@ -432,17 +433,23 @@ def test_refusals_name_their_roadmap_items():
         "model", "data", None)
     net = tmx.gluon.nn.Dense(3, in_units=4).initialize(ctx=tmx.cpu())
     loss = tmx.gluon.loss.L2Loss()
-    for kw in ({"remat": "full"},
-               {"guard": tmx.guardrails.GuardConfig(ckpt_root="ckpt")}):
-        with pytest.raises(MXNetError, match="Queue 1 item 4"):
-            tpar.ShardedTrainer(net, loss, "sgd", mesh=mesh, **kw)
+    with pytest.raises(MXNetError, match="Queue 1 item 4"):
+        tpar.ShardedTrainer(net, loss, "sgd", mesh=mesh, remat="full")
+    root = str(tmp_path / "ckpt")
     tr = tpar.ShardedTrainer(
         net, loss, "sgd", mesh=mesh,
-        param_rules=[(r".*weight", tpar.PartitionSpec("model", None))])
-    for name in ("save_checkpoint", "load_checkpoint", "checkpoint",
-                 "restore", "save_states", "load_states"):
-        with pytest.raises(MXNetError, match="Queue 1 item 4"):
-            getattr(tr, name)(np.zeros((2, 4)), np.zeros((2, 3)))
+        param_rules=[(r".*weight", tpar.PartitionSpec("model", None))],
+        guard=tmx.guardrails.GuardConfig(ckpt_root=root))
+    tr.prepare(np.zeros((2, 4)))
+    prefix = str(tmp_path / "pair")
+    tr.save_checkpoint(prefix)
+    tr.load_checkpoint(prefix)
+    tr.save_states(prefix + ".states")
+    tr.load_states(prefix + ".states")
+    assert tr.checkpoint(root) == 0 and tr.restore(root) == 0
+    assert tr.restore_resharded(root) == 0
+    with pytest.raises(MXNetError, match="Queue 1 item 9"):
+        tr.save_states(prefix + ".states", per_shard=True)
     with pytest.raises(MXNetError, match="Queue 1 item 9"):
         tr.rebuild_mesh(mesh)
 
