@@ -274,11 +274,62 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                lrs backed off. Printed: bytes per step directory, save
                seconds and GB/s, restore seconds (fresh and in place),
                the fresh trainer's capture seconds, the steps lost.
+18. train-   — (f) ShardedTrainer(remat=) on (c) (examples/pretrain_
+    remat      bert.py at --seq-length 4096 --batch-size 4: full-width
+               BERT-base MLM, bf16 compute, fp32 masters, Adam) under
+               remat None, "full", "dots" and "dots_no_batch", each
+               trainer on a copy of one model. Per policy, from the same
+               state and dropout seed: the capturing graphed step's loss,
+               every fp32 master and Adam moment bit-equal to the
+               remat=None step's; then 5 graphed steps timed (median),
+               the launches counted from 0 over them: per step K3 12,
+               K3-bwd 12 + 12 and K2 24 under None, and under remat K3 24
+               and K2 48 (the recompute runs the hand-written kernels
+               again: no selective policy sees a ctypes launch); one
+               program; graphed equal to eager under remat (the graph's
+               dropout bits replayed; 1e-5, bit-equality printed).
+               Printed: step ms, tokens/s, capture seconds, graph pool
+               and the peak over the capturing step (its 2 eager warm-up
+               passes and the capture). Then (a), ResNet-50 v1 at batch
+               256, one graphed step under "dots" against one under None
+               from one state, cuDNN deterministic: the BatchNorm running
+               statistics bit-equal (folded once: the fold waits for the
+               recompute), the weights compared; capture, pool, peak and
+               K1 launches printed.
+19. serve-   — (g) hot reload. (d)'s trainer commits a checkpoint into
+    reload     build/chip_smoke_reload (removed at the end) after each of
+               3 run_steps(8) windows; a Server on cuda:0 serves, in fp32
+               from CUDA graphs prewarmed at start() for buckets 1/2/4/8,
+               the serve phase's BERT-base block if its parameters are a
+               subset of the checkpoint's, else (as here: the trainer
+               wraps its model as inner.*) the MLM block, with
+               ParamStore(root) and reload_poll_s=0. 32-request bursts:
+               A after the first commit, B with the second commit
+               adopted between its batches (polling resumes once its
+               first answer is out; the step loads on the server's
+               loader thread while the worker answers, and B's rounds of
+               32 follow each other until the worker has applied it), C
+               after it; launches from 0 per burst (K2 the same count
+               per batch forward, nothing else). Gates: A's and C's answers carry the newest step
+               and requests 0-1 match the CPU's forward with that step's
+               weights within 1e-3 of max |value| (TF32 off); B's steps
+               rise once, in serving order; a byte flipped in the third
+               step's ckpt.params is skipped (ckpt_fallback, corrupt_seen
+               1) and the server stays; a committed narrower BERT
+               journals serving_reload_failed with no parameter changed;
+               pin_params(first step) rolls the server back at its next
+               turn (8 answers checked against the CPU), unpinning brings
+               the newest valid step back; 4 reloads in all, and no
+               graph captured after prewarm. Printed: each reload's
+               validate-and-load and check-and-copy seconds and bytes,
+               p50/p99 of the bursts with and without a reload, K2 per
+               served forward.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
 (eager, then graphed; phase 15 per configuration; phases 16 and 17
-after the capturing window). A graph's replay
+after the capturing window; phase 18 per policy after the capturing
+step; phase 19 per burst). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -3934,6 +3985,516 @@ def _train_checkpoint(torch, mx, card, ctx, jr):
             "lrs": lrs_seen}
 
 
+# -- phase 18: train-remat ----------------------------------------------------
+RM_POLICIES = (None, "full", "dots", "dots_no_batch")
+RM_STEPS = 6                         # the first captures; median of the rest
+RM_RECOMPUTE = {"flash_attention": 24, "flash_attention_bwd_dkv": 12,
+                "flash_attention_bwd_dq": 12, "matmul_epilogue": 48}
+
+
+def rm_trainer(mx, ctx, block, remat, resnet):
+    """examples/train_imagenet.py's (SGD) or examples/pretrain_bert.py's
+    (Adam) trainer on ``block`` under ``remat``: bf16 compute, fp32
+    masters, the one-device mesh."""
+    opt, params = (("sgd", dict(RN_SGD)) if resnet
+                   else ("adam", {"learning_rate": TRAIN_LR}))
+    return mx.parallel.ShardedTrainer(
+        block, mx.gluon.loss.SoftmaxCrossEntropyLoss(), opt,
+        optimizer_params=params, mesh=sh_mesh(mx, ctx),
+        compute_dtype="bfloat16", remat=remat)
+
+
+def rm_step_state(trainer):
+    """The fp32 masters and the optimizer state, cloned."""
+    return [t.detach().clone() for t in ck_tensors(trainer)]
+
+
+def rm_max_rel(torch, got, want):
+    """The largest difference of ``got`` from ``want``, each tensor's
+    relative to its max |value|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = float(b.abs().max()) or 1.0
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def phase_train_remat(torch, mx, card, ctx):
+    """(f) ShardedTrainer(remat=) on (c), the BERT-base MLM at batch 4, S
+    4096, under None, "full", "dots" and "dots_no_batch"; then (a),
+    ResNet-50 v1 at batch 256, one graphed step under "dots"."""
+    import copy
+
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    dev = ctx.torch_device
+    torch.cuda.empty_cache()
+    b, seq = SH_BERT["c"][:2]
+    tokens = np.random.RandomState(0).randint(0, BERT_VOCAB, (b, seq))
+    ids = torch.from_numpy(tokens.astype(np.int32)).to(dev)
+    batch = (ids, ids)
+    base = mlm_model(torch, mx, ctx, seq)
+    with torch.no_grad():
+        base(ids[:1, :8])                # materialize every parameter
+    grads = tuple(f"inner.{k}" for k in GATE_PARAMS)
+    log(f"train-remat (f): (c) bert_12_768_12 MLM, batch {b}, S {seq}, "
+        f"dropout 0.1, bf16 compute, fp32 masters, Adam lr {TRAIN_LR:g}, "
+        f"under remat {list(RM_POLICIES)}: from one state and dropout seed "
+        f"{SEED}, the capturing step held against remat=None's, then "
+        f"{RM_STEPS - 1} timed graphed steps on {card}")
+    out, ref = {}, None
+    for remat in RM_POLICIES:
+        model = copy.deepcopy(base)
+        trainer = rm_trainer(mx, ctx, model, remat, resnet=False)
+        trainer.prepare(ids)
+        mx.random.seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(trainer.step(*batch))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        state = [loss] + rm_step_state(trainer)
+        if ref is None:
+            ref = state
+        differ = sum(not torch.equal(a, b) for a, b in
+                     zip(state[1:], ref[1:])) + (loss != ref[0])
+        rel = rm_max_rel(torch, state[1:], ref[1:])
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(RM_STEPS - 1):
+            t0 = time.perf_counter()
+            trainer.step(*batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        per_step = {k: counts[k] // (RM_STEPS - 1)
+                    for k in RM_RECOMPUTE}
+        want = TRAIN_PER_STEP if remat is None else RM_RECOMPUTE
+        prog = list(trainer._programs.values())
+        name = "None" if remat is None else remat
+        log(f"train-remat (f) remat={name}: the capturing step's loss "
+            f"{loss!r} (None's {ref[0]!r}); {differ} of {len(state)} "
+            f"(loss, {len(state) - 1} masters and Adam moments) differ in "
+            f"any bit from remat=None's step, max {rel:.3e} of max |value|;"
+            f" step ms {[round(t, 3) for t in times]}, median "
+            f"{_median(times):.3f} ms ({b * seq * 1e3 / _median(times):.1f} "
+            f"tokens/s); capture {prog[0].capture_s:.3f} s, graph pool "
+            f"{_gib(prog[0].pool_bytes)}, peak {peak / 2**30:.3f} GiB over "
+            f"the capturing step (2 eager warm-up passes and the capture); "
+            f"launches per step {per_step}")
+        if differ:
+            fail(f"train-remat: the remat={name} step is not bit-equal to "
+                 f"the remat=None step ({differ} differ, max {rel:.3e})")
+        if per_step != {k: want[k] for k in per_step} or len(prog) != 1 \
+                or any(counts[k] for k in counts if k not in per_step):
+            fail(f"train-remat: remat={name} launched {counts} over "
+                 f"{RM_STEPS - 1} steps ({len(prog)} programs), want "
+                 f"{want} per step")
+        graph_rel, graph_equal = sh_graph_vs_eager(
+            torch, mx, trainer, batch, grads, deterministic=False)
+        out[name] = {"loss": loss, "differ": differ, "max_rel": rel,
+                     "times": times, "step_ms": _median(times),
+                     "peak_bytes": peak, "pool_bytes": prog[0].pool_bytes,
+                     "capture_s": prog[0].capture_s, "launches": counts,
+                     "per_step": per_step, "graph_rel": graph_rel,
+                     "graph_equal": graph_equal}
+        sh_release(torch, trainer)
+        del model, trainer
+        torch.cuda.empty_cache()
+    del base, ref, batch, ids
+    torch.cuda.empty_cache()
+    out["resnet"] = rm_resnet(torch, mx, ctx, card)
+    return out
+
+
+def rm_resnet(torch, mx, ctx, card):
+    """(a) one graphed step under "dots" against one under None, from one
+    state, cuDNN deterministic: the BatchNorm running statistics
+    bit-equal (folded once), the weights compared."""
+    import copy
+
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    dev = ctx.torch_device
+    rng = np.random.RandomState(0)
+    x = rng.randn(SH_RN_BATCH, 3, RN_SIZE, RN_SIZE).astype(np.float32)
+    y = rng.randint(0, 1000, (SH_RN_BATCH,))
+    batch = (torch.from_numpy(x).to(dev),
+             torch.from_numpy(y.astype(np.int32)).to(dev))
+    del x
+    base = resnet50_v1(classes=1000)
+    base.initialize(mx.init.Xavier(), ctx=ctx,
+                    generator=mx.random.generator(SEED))
+    with torch.no_grad():
+        base(batch[0][:1])               # materialize every parameter
+    res = {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (None, "dots"):
+            net = copy.deepcopy(base)
+            trainer = rm_trainer(mx, ctx, net, remat, resnet=True)
+            trainer.prepare(batch[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = float(trainer.step(*batch))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            prog = list(trainer._programs.values())[0]
+            res[remat] = {
+                "loss": loss, "stats": [a.detach().clone()
+                                        for a in trainer._aux],
+                "weights": rm_step_state(trainer)[:len(trainer._trainable)],
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "pool_bytes": prog.pool_bytes, "capture_s": prog.capture_s,
+                "first_s": first_s, "launches": kernels.launch_counts()}
+            sh_release(torch, trainer)
+            del net, trainer
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    plain, dots = res[None], res["dots"]
+    stats_differ = sum(not torch.equal(a, b)
+                       for a, b in zip(dots["stats"], plain["stats"]))
+    w_differ = sum(not torch.equal(a, b)
+                   for a, b in zip(dots["weights"], plain["weights"]))
+    w_rel = rm_max_rel(torch, dots["weights"], plain["weights"])
+    k1 = {k: r["launches"]["conv_epilogue"] for k, r in res.items()}
+    log(f"train-remat (a) resnet50_v1, batch {SH_RN_BATCH}, bf16, one "
+        f"graphed step (it captures) under remat=dots against None, cuDNN "
+        f"deterministic: loss {dots['loss']!r} (None's {plain['loss']!r}); "
+        f"{stats_differ} of {len(plain['stats'])} BatchNorm running "
+        f"statistics differ in any bit; {w_differ} of "
+        f"{len(plain['weights'])} weights differ, max {w_rel:.3e} of max "
+        f"|value|; capture {dots['capture_s']:.3f} s (None "
+        f"{plain['capture_s']:.3f}), pool {_gib(dots['pool_bytes'])} (None "
+        f"{_gib(plain['pool_bytes'])}), peak {dots['peak_bytes'] / 2**30:.3f}"
+        f" GiB (None {plain['peak_bytes'] / 2**30:.3f}); K1 launches over "
+        f"the capture's warm-up passes and the step {k1['dots']} (None "
+        f"{k1[None]}) on {card}")
+    if stats_differ or not math.isfinite(dots["loss"]):
+        fail("train-remat: under remat=dots the BatchNorm running "
+             "statistics differ from the remat=None step's")
+    return {"loss": dots["loss"], "stats_differ": stats_differ,
+            "weights_differ": w_differ, "weights_rel": w_rel,
+            "pool_bytes": {str(k): r["pool_bytes"] for k, r in res.items()},
+            "peak_bytes": {str(k): r["peak_bytes"] for k, r in res.items()},
+            "capture_s": {str(k): r["capture_s"] for k, r in res.items()},
+            "k1_launches": {str(k): v for k, v in k1.items()}}
+
+
+# -- phase 19: serve-reload ---------------------------------------------------
+RL_ROOT = os.path.join(ROOT, "build", "chip_smoke_reload")
+RL_CHECKED = (0, 1)                  # answers of a burst held against the CPU
+RL_SMALL = 8                         # requests of the torn, drift, pin checks
+RL_NARROW = {"units": 384, "hidden_size": 1536, "num_heads": 6}
+RL_MAX_ROUNDS = 50                   # burst B's rounds before it fails
+
+
+def phase_serve_reload(torch, mx, card, ctx):
+    """(g) hot reload: (d)'s trainer commits a checkpoint after each of 3
+    run_steps(8) windows into RL_ROOT (removed at the end); a Server of
+    the BERT-base MLM on ``ctx``, fp32, with ParamStore(RL_ROOT),
+    reloads them between batches."""
+    import shutil
+
+    from mxnet_tpu_torch.diagnostics import journal
+    try:
+        shutil.rmtree(RL_ROOT, ignore_errors=True)
+        jr = journal.reset_journal("off")
+        return _serve_reload(torch, mx, card, ctx, jr)
+    finally:
+        journal.reset_journal()
+        shutil.rmtree(RL_ROOT, ignore_errors=True)
+
+
+def rl_burst(server, payloads, n, n_threads=4, during=None):
+    """``n`` single-sample requests from ``n_threads`` threads, each
+    submitting its share at once; ``during()`` runs once they have
+    started. Returns (the answers of RL_CHECKED, [(served time,
+    params_step)] in request order, wall s); fails unless every answer is
+    finite and of one shape."""
+    import numpy as np
+    kept, stamps, shapes, errors = {}, {}, set(), []
+
+    def client(idx):
+        try:
+            pending = [(i, server.submit(payloads[i])) for i in idx]
+            for i, p in pending:
+                a = p.result(120)
+                if not np.isfinite(a).all():
+                    errors.append(f"answer {i} is not finite")
+                shapes.add(a.shape)
+                stamps[i] = (p._request.served_t, p.params_step)
+                if i in RL_CHECKED:
+                    kept[i] = a
+        except Exception as exc:      # reported below, then fail
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(range(k, n, n_threads),))
+               for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or len(stamps) != n or len(shapes) != 1:
+        fail(f"serve-reload: {len(stamps)} of {n} answered, shapes {shapes}"
+             f", errors {errors[:3]}")
+    return kept, [stamps[i] for i in range(n)], wall
+
+
+def rl_wait(cond, what, timeout_s=120.0):
+    t_end = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > t_end:
+            fail(f"serve-reload: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _serve_reload(torch, mx, card, ctx, jr):
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (bert_12_768_12,
+                                                      get_bert_model)
+    from mxnet_tpu_torch.resilience import commit
+    from mxnet_tpu_torch.serving import ParamStore, Server, ServerConfig
+    dev = ctx.torch_device
+    torch.cuda.empty_cache()
+    tokens = np.random.RandomState(0).randint(
+        0, BERT_VOCAB, (RC_BATCH, RC_SEQ)).astype(np.int32)
+    ids = torch.from_numpy(tokens).to(dev)
+    batch = (ids, ids)
+    model, trainer = rc_trainer(torch, mx, ctx)
+    trainer.prepare(ids)
+    mx.random.seed(SEED)
+
+    def events(kind):
+        return [r for r in jr.recent() if r["kind"] == kind]
+
+    def commit_window():
+        trainer.run_steps(*batch, num_steps=RC_WINDOW)
+        return trainer.checkpoint(RL_ROOT)
+
+    def params_file(step):
+        return os.path.join(commit.step_dir(RL_ROOT, step), "ckpt.params")
+
+    # the block to serve: the serve phase's BERT-base if the checkpoint
+    # holds all its parameters, else the trainer's MLM model itself
+    first = commit_window()
+    ckpt_keys = {k.partition(":")[2] for k in nd.load(params_file(first))
+                 if not k.startswith("__")}
+    serve_keys = set(bert_12_768_12(use_decoder=False).collect_params())
+    subset = serve_keys <= ckpt_keys
+    block = (seeded_bert(torch, mx, ctx, RC_SEQ, (1,)) if subset
+             else mlm_model(torch, mx, ctx, RC_SEQ))
+    with torch.no_grad():
+        block(ids[:1])                   # materialize every parameter
+    log(f"serve-reload (g): the serve phase's block's {len(serve_keys)} "
+        f"parameters are {'' if subset else 'not '}a subset of the "
+        f"checkpoint's {len(ckpt_keys)} (its model is wrapped as inner.*): "
+        f"serving the {'serve phase' if subset else 'MLM'} block, fp32, on "
+        f"{card}; (d)'s trainer commits into {RL_ROOT} after each "
+        f"run_steps({RC_WINDOW}) window")
+    store = ParamStore(RL_ROOT)
+    server = Server(block, ServerConfig(
+        max_batch=8, dtype="int32", aot_prewarm=((RC_SEQ,),),
+        reload_poll_s=0.0), param_store=store, ctx=ctx).start()
+    graphs = report_prewarm(server, card)
+
+    def live():
+        return server.stats()["params_step"]
+
+    captured = {key: pred._program for key, pred in server.cache.entries()}
+    misses = server.cache.stats()["misses"]
+    if live() != first:
+        fail(f"serve-reload: start() served step {live()}, "
+             f"want {first}")
+
+    cpu = mlm_model(torch, mx, mx.cpu(), RC_SEQ)
+    refs = {}
+
+    def reference(step):
+        if step not in refs:
+            cpu.load_parameters(params_file(step), ignore_extra=True)
+            with torch.inference_mode():
+                refs[step] = cpu(torch.from_numpy(
+                    tokens[list(RL_CHECKED)])).numpy()
+        return refs[step]
+
+    for b in (8, 4, 2, 1):               # each bucket on the worker thread
+        rl_burst(server, tokens, b, 1)
+    bursts = {}
+
+    def timed_burst(name, n, newest=None, during=None, until=None):
+        """A burst with the launch counts from 0; with ``newest``, every
+        answer must carry that step and match the CPU's forward with
+        that step's weights. With ``until``, rounds of ``n`` requests
+        follow each other until ``until()`` holds after one."""
+        before = server.stats()
+        server.latency.reset()
+        kernels.reset_launch_counts()
+        kept, stamps, wall = rl_burst(server, tokens, n, during=during)
+        rounds = 1
+        while until is not None and not until():
+            if rounds == RL_MAX_ROUNDS:
+                fail(f"serve-reload: {name}: no reload after {rounds} "
+                     f"rounds of {n}")
+            _, more, more_wall = rl_burst(server, tokens, n)
+            stamps, wall, rounds = stamps + more, wall + more_wall, rounds + 1
+        n *= rounds
+        launches = kernels.launch_counts()
+        after = server.stats()
+        n_batches = after["batches"] - before["batches"]
+        k2 = launches["matmul_epilogue"]
+        per_fwd = k2 // max(n_batches, 1)
+        lat = after["latency_ms"]
+        steps = [s for _, s in stamps]
+        log(f"serve-reload (g) {name}: {n} requests in {n_batches} batches"
+            f"{f' ({rounds} rounds)' if until is not None else ''},"
+            f" params_step {sorted(set(steps))}, latency p50 "
+            f"{lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms, "
+            f"{n / wall:.2f} sequences/s; K2 {k2} launches (= {per_fwd} x "
+            f"{n_batches}), every other kernel "
+            f"{sum(v for k, v in launches.items() if k != 'matmul_epilogue')}")
+        if k2 != per_fwd * n_batches or not per_fwd \
+                or any(v for k, v in launches.items()
+                       if k != "matmul_epilogue"):
+            fail(f"serve-reload: launches {launches} over {n_batches} "
+                 "batches")
+        if newest is not None:
+            if set(steps) != {newest}:
+                fail(f"serve-reload: {name}'s answers carry steps "
+                     f"{sorted(set(steps))}, want {newest}")
+            ref = reference(newest)
+            check_against_cpu(f"{name} MLM logits (step {newest})",
+                              np.stack([kept[i] for i in RL_CHECKED]), ref)
+        bursts[name] = {"p50": lat["p50"], "p99": lat["p99"],
+                        "requests": n, "rounds": rounds,
+                        "steps": sorted(set(steps)), "batches": n_batches,
+                        "k2_per_forward": per_fwd, "wall_s": wall}
+        return stamps
+
+    timed_burst("burst A (no reload)", N_REQUESTS, first)
+
+    # a reload inside a burst: the server polls again once the burst's
+    # first batch is answered; the step loads on the loader thread while
+    # the worker answers, so rounds of the burst follow each other until
+    # the worker has applied it
+    server.config.reload_poll_s = -1.0
+    second = commit_window()
+    served = server.stats()["served"]
+
+    def poll_again():
+        rl_wait(lambda: server.stats()["served"] > served,
+                "burst B's first answers")
+        server.config.reload_poll_s = 0.0
+
+    stamps = timed_burst("burst B (a reload in it)", N_REQUESTS,
+                         during=poll_again, until=lambda: live() == second)
+    order = [s for _, s in sorted(stamps)]
+    if set(order) != {first, second} or order != sorted(order) \
+            or live() != second:
+        fail(f"serve-reload: burst B's steps in serving order {order}, "
+             f"want steps {first} then {second}")
+    timed_burst("burst C (no reload)", N_REQUESTS, second)
+
+    # a torn newest step: skipped, journaled, the server stays
+    server.config.reload_poll_s = -1.0
+    third = commit_window()
+    path = params_file(third)
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        byte = f.read(1)[0]
+        f.seek(size // 2)
+        f.write(bytes([byte ^ 0xFF]))
+    n_fallback = len(events("ckpt_fallback"))
+    server.config.reload_poll_s = 0.0
+    rl_wait(lambda: store.corrupt_seen == 1, "the torn step's skip")
+    fallback = [r for r in events("ckpt_fallback")[n_fallback:]
+                if r.get("consumer") == "serving"]
+    log(f"serve-reload (g): a byte of step {third}'s ckpt.params flipped: "
+        f"journaled {[(r['step'], r['detail'][:60]) for r in fallback]}, "
+        f"corrupt_seen {store.corrupt_seen}, serving step "
+        f"{live()}")
+    if [r["step"] for r in fallback] != [third] \
+            or live() != second:
+        fail("serve-reload: the torn step was not skipped")
+    timed_burst("after the torn step", RL_SMALL, second)
+
+    # a checkpoint of a narrower BERT: refused before any tensor moves
+    narrow = get_bert_model("bert_12_768_12", vocab_size=BERT_VOCAB,
+                            use_pooler=False, use_classifier=False,
+                            **RL_NARROW)
+    narrow.initialize(mx.init.Normal(0.02), ctx=mx.cpu(),
+                      generator=mx.random.generator(SEED))
+    with torch.no_grad():
+        narrow(torch.zeros(1, 8, dtype=torch.int32))
+    drift = third + RC_WINDOW
+    stage = commit.prepare_stage(RL_ROOT, drift)
+    nd.save(os.path.join(stage, "ckpt.params"),
+            {f"arg:inner.{k}": v for k, v in narrow.collect_params().items()})
+    before = {k: v.detach().clone() for k, v in block.collect_params().items()}
+    n_failed = len(events("serving_reload_failed"))
+    commit.finalize(RL_ROOT, drift)
+    rl_wait(lambda: len(events("serving_reload_failed")) > n_failed,
+            "the drifted step's refusal")
+    changed = sum(not torch.equal(v, before[k])
+                  for k, v in block.collect_params().items())
+    rec = events("serving_reload_failed")[n_failed]
+    log(f"serve-reload (g): step {drift} holds a narrower BERT "
+        f"({RL_NARROW}): serving_reload_failed for step {rec['step']} "
+        f"({rec['detail'][:90]}); {changed} of {len(before)} parameters "
+        f"changed; serving step {live()}")
+    if rec["step"] != drift or changed or live() != second:
+        fail("serve-reload: the drifted checkpoint was not refused intact")
+    del before
+
+    # the deploy pin: back to the first step at the next turn
+    server.pin_params(first)
+    rl_wait(lambda: live() == first, "the pinned step")
+    timed_burst("pinned back", RL_SMALL, first)
+    server.pin_params(None)              # unpinned: the newest valid again
+    rl_wait(lambda: live() == second, "the unpinned step")
+
+    reloads = events("serving_reload")
+    server.stop()
+    same = {key: pred._program for key, pred in server.cache.entries()}
+    recaptured = server.cache.stats()["misses"] - misses
+    summary = [(r["step"], r["prev_step"], round(r["load_s"], 3),
+                round(r["apply_s"], 3), r["bytes"]) for r in reloads]
+    log(f"serve-reload (g): reloads {summary} "
+        f"(step, from, validate and load s, check and copy s, bytes); "
+        f"graphs captured after prewarm: {recaptured} new, "
+        f"{sum(same[k] is not captured[k] for k in captured)} replaced")
+    want = [first, second, first, second]
+    if recaptured or any(same[k] is not captured[k] for k in captured) \
+            or [r["step"] for r in reloads] != want \
+            or server.counters["reloads"] != len(want):
+        fail(f"serve-reload: {recaptured} graphs captured after prewarm; "
+             f"reloads to {[r['step'] for r in reloads]} (counted "
+             f"{server.counters['reloads']}), want 0 and {want} (start, "
+             "burst B, the pin, the unpin)")
+    sh_release(torch, trainer)
+    del model, trainer, server, block, cpu
+    torch.cuda.empty_cache()
+    return {"bursts": bursts, "graphs": graphs,
+            "reloads": [{k: r[k] for k in ("step", "prev_step", "load_s",
+                                           "apply_s", "bytes")}
+                        for r in reloads],
+            "k2_per_forward": bursts["burst A (no reload)"]["k2_per_forward"],
+            "launches": bursts["burst A (no reload)"]["batches"]
+            * bursts["burst A (no reload)"]["k2_per_forward"]}
+
+
 def phase_kernel_bf16(torch, ce, me):
     """K1 and K2 in bfloat16 at this phase's shapes: the 48 epilogues of a
     ResNet-50 forward at batch 256 and the 24 of a BERT-base MLM training
@@ -4037,6 +4598,10 @@ def main():
                                                    mx.gpu(0)))
     run("train-checkpoint", lambda: phase_train_checkpoint(torch, mx, card,
                                                            mx.gpu(0)))
+    run("train-remat", lambda: phase_train_remat(torch, mx, card,
+                                                 mx.gpu(0)))
+    run("serve-reload", lambda: phase_serve_reload(torch, mx, card,
+                                                   mx.gpu(0)))
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -4046,6 +4611,18 @@ def main():
     k1t, rn = out["kernel K1 training"], out["train ResNet"]
     kb, sh = out["kernel bf16"], out["train-sharded"]
     rc, ck = out["train-recipe"], out["train-checkpoint"]
+    rm, rl = out["train-remat"], out["serve-reload"]
+
+    def remat(kernel):
+        """The kernel's launches per graphed step of (c) under each remat
+        policy (phase 18): the recompute launches the forward kernels
+        again."""
+        return {"train_remat_launches_per_step": {
+                    p: r["per_step"][kernel] for p, r in rm.items()
+                    if p != "resnet"},
+                "train_remat_per": "one graphed step of (c), BERT-base MLM "
+                                   f"at batch 4, S {LONG_SEQ}, bf16, by "
+                                   "remat policy"}
 
     def sharded(kernel, cfgs):
         """The kernel in the train-sharded phase: launches across each
@@ -4173,7 +4750,12 @@ def main():
         "graph_train_per": GRAPH_TRAIN_PER,
         **bf16_row(kb["k1"], f"one ResNet-50 v1 forward at batch "
                    f"{SH_RN_BATCH}, bfloat16 (48 launches)"),
-        **sharded("conv_epilogue", ("a",))}, {
+        **sharded("conv_epilogue", ("a",)),
+        "train_remat_launches": rm["resnet"]["k1_launches"],
+        "train_remat_per": "the capturing graphed step of (a), ResNet-50 "
+                           f"v1 at batch {SH_RN_BATCH}, bf16, under None "
+                           "and remat=\"dots\" (its 2 eager warm-up passes "
+                           "and the capture's replay)"}, {
         "name": "matmul_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/matmul_epilogue.cu",
         "replaces": "mxnet_tpu/pallas/kernels.py:285",
@@ -4206,7 +4788,13 @@ def main():
                             "window",
         "train_checkpoint_launches": ck["launches"]["matmul_epilogue"],
         "train_checkpoint_per": f"windows 2-{CK_WINDOWS} of the recipe, "
-                                "each followed by a committed checkpoint"}, {
+                                "each followed by a committed checkpoint",
+        **remat("matmul_epilogue"),
+        "serve_reload_launches": rl["launches"],
+        "serve_reload_per_forward": rl["k2_per_forward"],
+        "serve_reload_per": "launches: the 32-request burst of the "
+                            "hot-reloading BERT-base MLM server at S "
+                            f"{RC_SEQ}, fp32, before any reload"}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "
@@ -4227,7 +4815,8 @@ def main():
         **graphed_fields(s3, "flash_attention"),
         **graphed_train(train, "flash_attention"),
         **k3_half_rows(),
-        **sharded("flash_attention", ("c",))}, {
+        **sharded("flash_attention", ("c",)),
+        **remat("flash_attention")}, {
         "name": "flash_attention_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1121 (_flash_attention_bwd_dkv) via "
@@ -4241,7 +4830,8 @@ def main():
         "max_rel_err": k3b["rel"],
         **graphed_train(train, "flash_attention_bwd_dkv"),
         **half_rows("dkv"),
-        **sharded("flash_attention_bwd_dkv", ("c",))}, {
+        **sharded("flash_attention_bwd_dkv", ("c",)),
+        **remat("flash_attention_bwd_dkv")}, {
         "name": "flash_attention_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1456 (_flash_attention_bwd_dq) via "
@@ -4255,7 +4845,8 @@ def main():
         "max_rel_err": k3b["rel"],
         **graphed_train(train, "flash_attention_bwd_dq"),
         **half_rows("dq"),
-        **sharded("flash_attention_bwd_dq", ("c",))}]}
+        **sharded("flash_attention_bwd_dq", ("c",)),
+        **remat("flash_attention_bwd_dq")}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

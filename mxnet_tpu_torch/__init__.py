@@ -13,18 +13,24 @@ This package imports ``torch`` and numpy, never ``jax`` and nothing of
 from __future__ import annotations
 
 from . import (autograd, contrib, convert, diagnostics, gluon, guardrails,
-               initializer, kernels, lr_scheduler, ndarray, ops, optimizer,
-               parallel, random, resilience, serving)
+               initializer, kernels, lr_scheduler, metric, metric_det,
+               ndarray, observability, ops, optimizer, parallel, random,
+               resilience, serving)
+from . import callback
 from . import elastic           # after parallel, whose files it reads
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 init = initializer
 nd = ndarray
+# detection mAP lives beside the classification metrics, one registry
+metric.VOCMApMetric = metric_det.VOCMApMetric
+metric.VOC07MApMetric = metric_det.VOC07MApMetric
 
-__all__ = ["Context", "MXNetError", "autograd", "contrib", "convert", "cpu",
-           "current_context", "diagnostics", "elastic", "gluon", "gpu",
-           "guardrails", "init", "initializer", "kernels", "lr_scheduler",
-           "nd", "ndarray", "ops", "optimizer", "parallel", "random",
+__all__ = ["Context", "MXNetError", "autograd", "callback", "contrib",
+           "convert", "cpu", "current_context", "diagnostics", "elastic",
+           "gluon", "gpu", "guardrails", "init", "initializer", "kernels",
+           "lr_scheduler", "metric", "metric_det", "nd", "ndarray",
+           "observability", "ops", "optimizer", "parallel", "random",
            "resilience", "serving"]
 __version__ = "0.1.0"

@@ -16,6 +16,7 @@ replaces the leaf's ``.grad``, ``"add"`` adds to it, as Gluon does.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -82,6 +83,51 @@ def is_recording() -> bool:
 
 def is_training() -> bool:
     return bool(_get("training"))
+
+
+def aux_update(fn, *args):
+    """Run ``fn(*args)``, an in-place update of auxiliary state that a
+    forward makes (BatchNorm's fold of its batch statistics): at once;
+    in a checkpointed region's first forward, queued for its trainer to
+    run after the backward, so the recompute reads the state the first
+    forward read (as ``jax.checkpoint`` returns the new state as an
+    output); never in the recompute."""
+    if _get("recomputing"):
+        return
+    queue = _get("aux_updates")
+    if queue is None:
+        fn(*args)
+    else:
+        queue.append((fn, args))
+
+
+@contextlib.contextmanager
+def _aux_updates_queued(queue):
+    """Within the scope, :func:`aux_update` appends to ``queue``."""
+    old = _get("aux_updates")
+    _state.aux_updates = queue
+    try:
+        yield queue
+    finally:
+        _state.aux_updates = old
+
+
+def _scope_state():
+    """This thread's (recording, training), for :func:`_recompute_scope`."""
+    return _get("recording"), _get("training")
+
+
+@contextlib.contextmanager
+def _recompute_scope(state):
+    """The scope of a recompute, on whichever thread runs the backward:
+    recording and training as ``state`` (:func:`_scope_state` of the
+    first forward), and :func:`aux_update` a no-op."""
+    old = _get("recording"), _get("training"), _get("recomputing")
+    (_state.recording, _state.training), _state.recomputing = state, True
+    try:
+        yield
+    finally:
+        _state.recording, _state.training, _state.recomputing = old
 
 
 def scope_training():

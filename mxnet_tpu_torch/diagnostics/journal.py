@@ -13,7 +13,11 @@ writes ``ckpt_committed`` and ``ckpt_skip_existing`` (root, step),
 n_new, entries, bytes, consumer), ``rng_not_restored`` (a checkpoint's
 generator state of another implementation, left alone), and
 ``resilience`` its ``retry``, ``disk_full`` and ``fsync_dir_failed``
-records, with the reference's fields.
+records, with the reference's fields. The server's hot reload writes
+``serving_reload`` (step, n_params, prev_step, and the port's load_s,
+apply_s and bytes), ``serving_reload_failed`` (step, error, detail) and,
+through ``serving.ParamStore``, ``ckpt_fallback`` with ``consumer``
+"serving".
 
 Record schema (all records)::
 

@@ -10,6 +10,7 @@ import math
 
 import torch
 
+from ... import autograd as _autograd
 from ...ops import contrib as _contrib
 from ...ops import nn as _nn
 from ...ops import tensor as _tensor
@@ -180,7 +181,9 @@ class BatchNorm(DeferredParams, HybridBlock):
             use_global_stats=self._use_global_stats,
             act_type=self._activation, training=training)
         if training and not self._use_global_stats:
-            self._update_running(mean, var)
+            # the fold's shift, the running mean, is read by the batch's
+            # moments: under remat the fold waits for the recompute
+            _autograd.aux_update(self._update_running, mean, var)
         return out
 
     @torch.no_grad()

@@ -27,11 +27,13 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..base import MXNetError, dtype_name
+from ..resilience import commit as _commit
 from ..resilience.atomic import atomic_write
 
 __all__ = ["load", "save"]
@@ -124,19 +126,23 @@ class _BoundedReader:
     out-of-bounds read is a truncation error, never struct.error. Can
     accumulate a CRC over what it reads."""
 
-    def __init__(self, f, fname, limit):
+    def __init__(self, f, fname, limit, pool):
         self._f = f
         self._fname = fname
         self._limit = limit
+        self._pool = pool
         self._crc = None
 
-    def read(self, n, what):
+    def _check(self, n, what):
         if n < 0 or self._f.tell() + n > self._limit:
             raise MXNetError(
                 f"{self._fname}: truncated or corrupt .params file — "
                 f"{what} wants {n} bytes but only "
                 f"{max(self._limit - self._f.tell(), 0)} remain (was the "
                 "save interrupted?)")
+
+    def read(self, n, what):
+        self._check(n, what)
         data = self._f.read(n)
         if len(data) != n:
             raise MXNetError(
@@ -145,6 +151,23 @@ class _BoundedReader:
         if self._crc is not None:
             self._crc = zlib.crc32(data, self._crc)
         return data
+
+    def read_into(self, buf, what):
+        """Fill the writable byte buffer ``buf`` from the file: the bytes
+        land where they are kept, read and checksummed in slices on the
+        reader's threads."""
+        n = len(buf)
+        self._check(n, what)
+        start = self._f.tell()
+        crc, got = _commit.read_into_crc(self._pool, self._f.fileno(),
+                                         start, buf)
+        self._f.seek(start + got)
+        if got != n:
+            raise MXNetError(
+                f"{self._fname}: truncated .params file — short read "
+                f"({got}/{n} bytes) for {what}")
+        if self._crc is not None:
+            self._crc = _commit.crc32_combine(self._crc, crc, got)
 
     def unpack(self, fmt, what):
         return struct.unpack(fmt, self.read(struct.calcsize(fmt), what))
@@ -165,7 +188,8 @@ def load(fname):
     file names them. Integrity is proven up front for flag-1 files
     (footer, per-entry CRC32); a defect raises ``MXNetError`` naming
     it."""
-    with open(fname, "rb") as f:
+    with open(fname, "rb") as f, \
+            ThreadPoolExecutor(_commit.CRC_THREADS) as pool:
         size = os.fstat(f.fileno()).st_size
         if size < 24:
             raise MXNetError(f"{fname}: truncated .params file — "
@@ -195,7 +219,7 @@ def load(fname):
             raise MXNetError(f"{fname}: unsupported .params format flag "
                              f"{fmt} — written by a newer version?")
         verify = fmt == _FMT_CRC
-        r = _BoundedReader(f, fname, limit)
+        r = _BoundedReader(f, fname, limit, pool)
         (count,) = r.unpack("<Q", "array count")
         if count > limit:
             raise MXNetError(f"{fname}: corrupt .params file — implausible "
@@ -253,8 +277,8 @@ def _read_entry(r, verify, fname, index) -> torch.Tensor:
             "a dtype)")
     count = int(np.prod(shape)) if ndim else 1
     npdt = np.dtype(np.int16 if dt == "bfloat16" else dt)
-    raw = np.frombuffer(r.read(count * npdt.itemsize, what + " data"),
-                        dtype=npdt).reshape(shape)
+    raw = np.empty(shape, dtype=npdt)
+    r.read_into(memoryview(raw.reshape(-1).view(np.uint8)), what + " data")
     crc = r.end_crc()
     if verify:
         (want,) = r.unpack("<I", what + " checksum")
@@ -263,5 +287,5 @@ def _read_entry(r, verify, fname, index) -> torch.Tensor:
                 f"{fname}: checksum mismatch in entry {index} "
                 f"(stored {want:#010x}, computed {crc:#010x}) — the "
                 "file is corrupt")
-    out = torch.from_numpy(raw.copy())
+    out = torch.from_numpy(raw)
     return out.view(torch.bfloat16) if dt == "bfloat16" else out

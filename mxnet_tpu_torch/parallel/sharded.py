@@ -59,10 +59,19 @@ state without a new capture. ``GuardConfig(ckpt_root=)`` rolls back
 through ``restore``; the backed-off lr reaches the graphs through the
 lrs written before each replay.
 
-Not ported yet: ``remat`` (ROADMAP Queue 1 item 4). Multi-device
-meshes, ``rebuild_mesh``, per-shard checkpoint writing and sharded
-``param_rules`` are Queue 1 item 9; on one device every spec projects
-to replication, so ``param_rules`` is accepted and changes nothing.
+``remat=`` (``"full"``, ``"dots"``, ``"dots_no_batch"`` or a PyTorch
+selective-checkpoint policy) checkpoints the differentiated function,
+the cast, the forward and the loss, as the reference's
+``jax.checkpoint`` does (:mod:`._remat`): the backward runs the forward
+again for what the policy did not save, with the first forward's
+dropout bits and without a second BatchNorm fold, so a step is
+bit-equal to the ``remat=None`` step; in ``step()``'s graph and in
+``run_steps`` windows alike.
+
+Not ported yet: multi-device meshes, ``rebuild_mesh``, per-shard
+checkpoint writing and sharded ``param_rules`` are Queue 1 item 9; on
+one device every spec projects to replication, so ``param_rules`` is
+accepted and changes nothing.
 """
 from __future__ import annotations
 
@@ -83,7 +92,7 @@ from ..guardrails import fused as _guard
 from ..guardrails.monitor import AnomalyMonitor, GuardConfig
 from ..guardrails.trainer_mixin import GuardedTrainerMixin
 from ..ops import optimizer_op as _ops
-from . import _ckpt
+from . import _ckpt, _remat
 from .mesh import PartitionSpec, current_mesh
 
 __all__ = ["ShardedTrainer", "project_spec"]
@@ -339,9 +348,7 @@ class ShardedTrainer(GuardedTrainerMixin):
                  mesh=None, param_rules=None, *, compute_dtype=None,
                  remat=None, master_dtype=None, guard=None):
         from .. import optimizer as opt_mod
-        if remat is not None:
-            raise MXNetError(f"remat={remat!r} is not ported yet (ROADMAP "
-                             "Queue 1 item 4)")
+        self._remat_policy = _remat.resolve_policy(remat)
         self._block = block
         self._loss = loss_fn
         self._optimizer = (optimizer if isinstance(optimizer,
@@ -506,9 +513,11 @@ class ShardedTrainer(GuardedTrainerMixin):
         dtype, the forward in training mode, the loss, and
         ``torch.autograd.grad`` of ``mean(loss) * lscale`` into the
         trainable parameters (zeros where the loss does not reach).
-        Returns (mean loss, gradients, model outputs)."""
+        Returns (mean loss, gradients, model outputs). Under ``remat`` the
+        cast, the forward and the loss run checkpointed."""
         block, loss_fn, cdt = self._block, self._loss, self._compute_dtype
-        with _autograd.record():
+
+        def loss_of(*_trainable):
             if cdt is not None:
                 cast = {n: p.to(cdt) if p.is_floating_point() else p
                         for n, p in self._named}
@@ -522,9 +531,20 @@ class ShardedTrainer(GuardedTrainerMixin):
                 outs = [o.float() if o.is_floating_point() else o
                         for o in outs]
             per_sample = loss_fn(outs[0] if len(outs) == 1 else outs, label)
-            loss = torch.mean(per_sample.float())
+            return torch.mean(per_sample.float()), outs
+
+        with _autograd.record():
+            if self._remat_policy is None:
+                (loss, outs), queued = loss_of(), ()
+            else:
+                # the masters as the checkpoint's inputs: its device
+                (loss, outs), queued = _remat.run(
+                    loss_of, self._remat_policy, *self._trainable)
         grads = torch.autograd.grad(loss * lscale, self._trainable,
                                     allow_unused=True)
+        with torch.no_grad():
+            for update, args in queued:      # BatchNorm's folds, once
+                update(*args)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._trainable, grads)]
         return loss.detach(), grads, [o.detach() for o in outs]

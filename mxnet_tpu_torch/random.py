@@ -12,8 +12,10 @@ Dropout draws one uint8 per element (:func:`bits`, the counterpart of
 ``jax.random.bits(key, shape, jnp.uint8)``) and keeps where the bits are
 at least ``keep_threshold(p)``. :func:`bits_tape` records the bits a
 forward draws, or hands recorded bits back in the same order, so one
-forward on the card and one on the CPU can use the same masks.
-:func:`draws` lets a CUDA-graph capture see which generators a forward
+forward on the card and one on the CPU can use the same masks;
+:func:`kept_bits` keeps what a forward drew, so that a recompute of it
+(``ShardedTrainer(remat=)``) can hand the same bits back. :func:`draws`
+lets a CUDA-graph capture see which generators a forward
 draws from and which tensors it draws into (see
 ``gluon/cached_graph.py``).
 """
@@ -25,7 +27,7 @@ import threading
 import torch
 
 __all__ = ["bits", "bits_tape", "device_generator", "draws", "generator",
-           "seed"]
+           "kept_bits", "seed"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -72,6 +74,14 @@ def bits(shape, device, generator=None) -> torch.Tensor:
     """uint8 random bits of ``shape`` on ``device``, drawn from
     ``generator`` (the device's dropout generator when None) — or, inside
     :func:`bits_tape` with recorded bits, the next recorded tensor."""
+    out = _draw(shape, device, generator)
+    kept = getattr(_tape, "kept", None)
+    if kept is not None:
+        kept.append(out)
+    return out
+
+
+def _draw(shape, device, generator):
     tape = getattr(_tape, "active", None)
     if tape is not None and tape.replay is not None:
         out = tape.replay[tape.pos].to(device)
@@ -113,6 +123,19 @@ def bits_tape(replay=None):
         yield tape
     finally:
         _tape.active = prev
+
+
+@contextlib.contextmanager
+def kept_bits(into):
+    """Within the scope, every :func:`bits` result on this thread, drawn
+    or handed back by a replaying tape, is also appended to the list
+    ``into``, which :func:`bits_tape` can replay."""
+    prev = getattr(_tape, "kept", None)
+    _tape.kept = into
+    try:
+        yield into
+    finally:
+        _tape.kept = prev
 
 
 def replaying() -> bool:

@@ -17,77 +17,49 @@ feature shape of ``config.aot_prewarm`` before admitting traffic
 (:meth:`Server.prewarm`), and any other shape is captured at its first
 batch. A capture that fails fails that batch's requests.
 
-Not ported yet: hot reload, the AOT cache's on-disk store (a CUDA graph
-cannot be serialized), shard plans, the decode engine, tenants and
-fleets, the journal, tracing and metrics exposition, tuned tables,
-device retries and environment-variable defaults.
+Parameters hot-reload between batches from the newest valid committed
+checkpoint step (``param_store=``, a :class:`~.reload.ParamStore`). The
+step is validated and read on a loader thread while the worker serves
+the old weights (the reference loads on the worker, which then answers
+nothing for the whole load); at its first turn after the load the
+worker checks the whole checkpoint against the live parameters' names
+and shapes (architecture drift is refused with nothing applied) and
+copies it into the live tensors in place, so the captured graphs replay
+the new weights without a capture. Every response carries the step that
+served it (``params_step``); ``pin_params(step)`` pins the store and
+moves the live step there (a rollback included) the same way. The
+journal gets ``serving_reload`` / ``serving_reload_failed``.
+
+Not ported yet: the AOT cache's on-disk store (a CUDA graph cannot be
+serialized), shard plans, the decode engine, tenants and fleets, the
+``serving_batch`` journal records, tracing and metrics exposition, tuned
+tables, device retries and environment-variable defaults.
 """
 from __future__ import annotations
 
-import math
 import queue
 import threading
 import time
-from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 from torch.nn.parameter import is_lazy
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..diagnostics.journal import get_journal
+from ..metric import LatencySummary
 from .batcher import (DeadlineExceeded, PendingResponse, Request,
                       RequestError, ServerOverloaded, ServerStopped,
                       drop_expired, take_batch)
 from .buckets import BucketGrid
 from .cache import Predictor, PredictorCache
 
-__all__ = ["LatencySummary", "Server", "ServerConfig"]
+__all__ = ["Server", "ServerConfig"]
 
 _STOP = object()
-
-
-class LatencySummary:
-    """count/mean/min/max over every observation and nearest-rank
-    p50/p95/p99 over the most recent ``window`` ones. Thread-safe."""
-
-    def __init__(self, window=4096):
-        self._recent = deque(maxlen=int(window))
-        self._lock = threading.Lock()
-        self.reset()
-
-    def reset(self):
-        with self._lock:
-            self._recent.clear()
-            self._count = 0
-            self._sum = 0.0
-            self._min = None
-            self._max = None
-
-    def observe(self, value):
-        v = float(value)
-        with self._lock:
-            self._recent.append(v)
-            self._count += 1
-            self._sum += v
-            self._min = v if self._min is None else min(self._min, v)
-            self._max = v if self._max is None else max(self._max, v)
-
-    def summary(self) -> dict:
-        with self._lock:
-            buf = sorted(self._recent)
-            count, total, lo, hi = self._count, self._sum, self._min, \
-                self._max
-        if not count:
-            return {"count": 0, "mean": None, "min": None, "max": None,
-                    "p50": None, "p95": None, "p99": None}
-
-        def rank(p):
-            r = max(int(math.ceil(p / 100.0 * len(buf))) - 1, 0)
-            return buf[min(r, len(buf) - 1)]
-
-        return {"count": count, "mean": total / count, "min": lo, "max": hi,
-                "p50": rank(50), "p95": rank(95), "p99": rank(99)}
 
 
 @dataclass
@@ -101,6 +73,7 @@ class ServerConfig:
     window_ms: float = 5.0
     default_deadline_ms: float = 2000.0
     cache_entries: int = 16
+    reload_poll_s: float = 10.0              # < 0: poll only at start()
     aot_prewarm: tuple | None = None         # feature shapes warmed at start
     idle_poll_s: float = 0.05                # worker wake granularity
     dtype: str = "float32"                   # request payload dtype
@@ -114,9 +87,10 @@ class Server:
 
     ``ctx`` picks the device (default ``cuda:0``); the block's
     parameters must already live there (``initialize(ctx=...)`` or a
-    load onto it)."""
+    load onto it). ``param_store`` (a :class:`~.reload.ParamStore`)
+    enables hot reload."""
 
-    def __init__(self, block, config=None, ctx=None):
+    def __init__(self, block, config=None, param_store=None, ctx=None):
         self.block = block
         self.config = cfg = config or ServerConfig()
         self.device = resolve_device(ctx)
@@ -127,8 +101,9 @@ class Server:
         self.grid = BucketGrid(cfg.max_batch, cfg.batch_buckets,
                                cfg.dim_buckets)
         self.cache = PredictorCache(cfg.cache_entries)
-        self.latency = LatencySummary()
-        self.exec_ms = LatencySummary()    # per batch: predictor call
+        self.param_store = param_store
+        self.latency = LatencySummary("request_latency_ms")
+        self.exec_ms = LatencySummary("exec_ms")   # per batch: predictor
         self._dtype = np.dtype(cfg.dtype)
         self._queue = queue.Queue(maxsize=cfg.max_queue)
         self._worker = None
@@ -139,13 +114,22 @@ class Server:
         # can never slip into the queue after the final sweep
         self._admit_lock = threading.Lock()
         self._closed = False
+        self._ctx = ctx
+        self._params_step = None
+        self._last_reload_check = None
+        self._pin_dirty = False        # guarded by _lock; set by pin_params
+                                       # (controller thread), consumed by the
+                                       # worker thread in _maybe_reload
+        self._loader = None            # the reload's load thread
+        self._reload_job = None        # (target step, future) of the load
+                                       # in flight; worker thread only
         self._last_batch_t = None
         self.last_prewarm = None
         self.counters = {"accepted": 0, "served": 0, "shed": 0,
                          "rejected_shape": 0, "rejected_stopped": 0,
                          "deadline_miss_dequeue": 0,
                          "deadline_miss_post_batch": 0, "errors": 0,
-                         "batches": 0}
+                         "reloads": 0, "batches": 0}
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -154,8 +138,12 @@ class Server:
         self._stopping.clear()
         with self._admit_lock:
             self._closed = False
+        self._maybe_reload(force=True)     # begin on the newest valid step
         if self.config.aot_prewarm:
             self.prewarm()                 # the lattice before traffic
+        if self.param_store is not None:
+            self._loader = ThreadPoolExecutor(
+                1, thread_name_prefix="mxnet-torch-serving-reload")
         self._worker = threading.Thread(
             target=self._run, name="mxnet-torch-serving-worker", daemon=True)
         self._worker.start()
@@ -186,6 +174,15 @@ class Server:
             self._drain_queue(stragglers)
         self._fail_remaining(stragglers)
         self._worker = None
+        if self._loader is not None:
+            self._loader.shutdown(wait=True)
+            self._loader = None
+        if self._reload_job is not None:
+            # loaded, never applied: the store must offer it again
+            self._reload_job = None
+            self.param_store.loaded_step = self._params_step
+            with self._lock:
+                self._pin_dirty = self.param_store.pinned_step is not None
 
     # -- bucket-lattice prewarm ----------------------------------------------
     def prewarm(self, shapes=None) -> dict:
@@ -293,6 +290,7 @@ class Server:
         t = self._last_batch_t
         return {"device": str(self.device),
                 "queue_depth": self.queue_depth(),
+                "params_step": self._params_step,
                 "last_batch_age_s": None if t is None
                 else time.monotonic() - t,
                 "cache": self.cache.stats(),
@@ -311,6 +309,7 @@ class Server:
                         item = self._queue.get(
                             timeout=self.config.idle_poll_s)
                     except queue.Empty:
+                        self._maybe_reload()
                         continue
                     if item is _STOP:
                         draining = True
@@ -331,6 +330,7 @@ class Server:
                         break
                     pending.append(item)
                 self._flush(pending)
+                self._maybe_reload()
                 if draining:
                     break
         finally:
@@ -395,6 +395,7 @@ class Server:
             return
         now = time.monotonic()
         delivered = 0
+        step = self._params_step
         for i, req in enumerate(batch):
             if req.expired(now):
                 with self._lock:
@@ -409,6 +410,7 @@ class Server:
                         and req.shape != key:
                     row = row[tuple(slice(0, d) for d in req.shape)]
                 rows.append(row)
+            req.params_step = step                 # version stamp
             req.set_result(rows[0] if treedef is None else treedef(rows),
                            now)
             delivered += 1
@@ -417,3 +419,140 @@ class Server:
         with self._lock:
             self.counters["served"] += delivered
             self.counters["batches"] += 1
+
+    # -- hot reload ----------------------------------------------------------
+    def _check_reloadable(self, loaded):
+        """Check every live parameter and buffer against the checkpoint
+        up front (``arg:``/``aux:`` prefixes normalized as ``load_dict``
+        does): each must be there, with the live shape. Raises on drift;
+        returns the normalized dict."""
+        norm = {(k.partition(":")[2] if k.partition(":")[0] in
+                 ("arg", "aux") and ":" in k else k): v
+                for k, v in loaded.items()}
+        for key, param in self.block.collect_params().items():
+            if key not in norm:
+                raise MXNetError(f"checkpoint missing parameter {key!r}")
+            got = tuple(norm[key].shape)
+            if not is_lazy(param) and tuple(param.shape) != got:
+                raise MXNetError(
+                    f"checkpoint parameter {key!r} is {got}, live "
+                    f"parameter is {tuple(param.shape)} — architecture "
+                    "drift; not hot-reloadable")
+        return norm
+
+    def pin_params(self, step):
+        """Pin the hot-reload store to ``step`` (None unpins). The pin
+        lands at once (``poll`` stops advancing past it); when the live
+        step differs, the load and copy happen on the worker thread at
+        its next turn, between batches, a downgrade (a rollback)
+        included. Returns True when a store exists to pin."""
+        store = self.param_store
+        if store is None:
+            return False
+        store.pin_step(step)
+        with self._lock:
+            self._pin_dirty = step is not None
+        return True
+
+    def _apply_params(self, step, loaded, prev, load_s=0.0):
+        """Apply a loaded parameter dict: the whole dict checked against
+        the live shapes first, then copied into the live tensors in place
+        (``load_dict``), so the captured graphs read the new weights.
+        The copy runs on this thread's current stream and is waited for
+        before the next batch."""
+        store = self.param_store
+        loaded = {k: v for k, v in loaded.items() if not k.startswith("__")}
+        t0 = time.perf_counter()
+        try:
+            # a checkpoint that validated but does not fit (architecture
+            # drift) must never half-apply
+            self._check_reloadable(loaded)
+            self.block.load_dict(loaded, ctx=self._ctx, ignore_extra=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except MXNetError as e:
+            store.mark_bad(step, revert_to=prev)
+            get_journal().event("serving_reload_failed", step=step,
+                                error=type(e).__name__, detail=str(e)[:300])
+            return False
+        self._params_step = step
+        with self._lock:
+            self.counters["reloads"] += 1
+        get_journal().event(
+            "serving_reload", step=step, n_params=len(loaded),
+            prev_step=prev, load_s=round(load_s, 6),
+            apply_s=round(time.perf_counter() - t0, 6),
+            bytes=sum(v.numel() * v.element_size() for v in loaded.values()))
+        return True
+
+    def _apply_pin(self, store):
+        """Converge the live step onto the pinned one: an explicit load of
+        one named step (downgrades allowed). A failure journals and
+        stays on the current version."""
+        pinned = store.pinned_step
+        if pinned is None or self._params_step == pinned:
+            return False
+        return self._load(pinned, store.load_step, pinned)
+
+    def _maybe_reload(self, force=False):
+        """The reload's turn on the worker thread, between batches: a
+        finished load is applied; else a pin or a due poll starts one on
+        the loader thread (at ``start()``, before there is one, it loads
+        and applies here)."""
+        store = self.param_store
+        if store is None:
+            return False
+        if self._reload_job is not None:
+            target, job = self._reload_job
+            if not job.done():
+                return False
+            self._reload_job = None
+            return self._apply_load(target, *job.result())
+        with self._lock:
+            pin_dirty, self._pin_dirty = self._pin_dirty, False
+        if pin_dirty:
+            # the pin lane bypasses the poll throttle (and a disabled
+            # poller): a rollback starts at the next turn
+            return self._apply_pin(store)
+        poll_s = self.config.reload_poll_s
+        if poll_s < 0 and not force:
+            return False
+        now = time.monotonic()
+        if not force and self._last_reload_check is not None and \
+                now - self._last_reload_check < poll_s:
+            return False
+        self._last_reload_check = now
+        return self._load(None, store.poll)
+
+    def _load(self, target, fn, *args):
+        """Run ``fn`` (``store.poll`` or ``store.load_step``) on the loader
+        thread, or here and apply its result when there is none."""
+        if self._loader is None:
+            return self._apply_load(target, *_timed_load(fn, *args))
+        self._reload_job = (target, self._loader.submit(_timed_load, fn,
+                                                        *args))
+        return False
+
+    def _apply_load(self, target, got, load_s):
+        """Apply what a load returned: (step, dict), None (nothing new),
+        or the error of the explicit load of step ``target``."""
+        if isinstance(got, Exception):
+            get_journal().event("serving_reload_failed", step=target,
+                                error=type(got).__name__,
+                                detail=str(got)[:300])
+            return False
+        if got is None:
+            return False
+        step, loaded = got
+        return self._apply_params(step, loaded, self._params_step, load_s)
+
+
+def _timed_load(fn, *args):
+    """(what ``fn(*args)`` returned or the load error it raised,
+    seconds)."""
+    t0 = time.perf_counter()
+    try:
+        got = fn(*args)
+    except (ValueError, MXNetError, OSError) as e:
+        got = e
+    return got, time.perf_counter() - t0

@@ -249,3 +249,32 @@ def test_save_parameters_crosses_packages(tmp_path):
     with pytest.raises(MXNetError, match="not a parameter dict"):
         tnd.save(str(tmp_path / "list.params"), [torch.ones(2)])
         other.load_parameters(str(tmp_path / "list.params"))
+
+
+@pytest.mark.parametrize("flip", [None, "first slice", "last slice"])
+def test_an_entry_read_in_slices(tmp_path, flip):
+    """An entry of more than one 2 MiB slice is read and checksummed in
+    slices on threads: it loads as the JAX package's ``nd.load`` loads
+    it, and a byte flipped in its first or last slice names the same
+    defect in both packages."""
+    arrays = {"big": _np("float32", (3, 400000), 7),
+              "small": _np("int32", (3, 5), 8)}
+    path = str(tmp_path / "big.params")
+    _jax_save(path, arrays)
+    if flip is not None:
+        with open(path, "r+b") as f:
+            f.seek(100 if flip == "first slice" else 4800000)
+            byte = f.read(1)[0]
+            f.seek(-1, 1)
+            f.write(bytes([byte ^ 0x10]))
+        with pytest.raises(JaxMXNetError) as jerr:
+            jmx.nd.load(path)
+        with pytest.raises(MXNetError, match="checksum mismatch in "
+                           "entry 0") as terr:
+            tnd.load(path)
+        assert str(terr.value) == str(jerr.value)
+        return
+    got, want = tnd.load(path), _jax_load(path)
+    assert list(got) == list(want)
+    for k in want:
+        assert _bits(got[k]) == _bits(want[k]), k

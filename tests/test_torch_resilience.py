@@ -19,6 +19,7 @@ import errno
 import json
 import os
 import random
+import zlib
 
 import numpy as np
 import pytest
@@ -210,3 +211,39 @@ def test_retry_matches_jax(tmp_path):
     out, recs = got
     assert out[1] == "ok" and out[2] == 3
     assert [r["kind"] for r in recs] == ["retry", "retry", "disk_full"]
+
+
+@pytest.mark.parametrize("size", [0, 1, 4096, 3 * 4096, 5 * 4096 + 77])
+def test_sliced_crcs_agree_with_the_jax_package(tmp_path, monkeypatch,
+                                                size):
+    """``file_crc`` checksums 4 KiB slices on threads here and combines
+    them: the same (crc32, size) as the JAX package's streamed pass; a
+    step torn in its last slice fails validation with the same message
+    in both packages; ``read_into_crc`` fills a buffer slice by slice
+    and counts a short read."""
+    from concurrent.futures import ThreadPoolExecutor
+    monkeypatch.setattr(tcommit, "_CRC_SLICE", 4096)
+    payload = np.random.RandomState(size).bytes(size)
+    path = tmp_path / "blob"
+    path.write_bytes(payload)
+    assert tcommit.file_crc(str(path)) == jcommit.file_crc(str(path)) \
+        == (zlib.crc32(payload) & 0xFFFFFFFF, size)
+    root = str(tmp_path / "root")
+    _stage(tcommit, tatomic, root, 3, payload)
+    assert tcommit.validate_step(root, 3) == jcommit.validate_step(root, 3)
+    if size:
+        torn = os.path.join(tcommit.step_dir(root, 3), "ckpt.states")
+        with open(torn, "r+b") as f:
+            f.seek(size - 1)
+            f.write(bytes([payload[-1] ^ 1]))
+        with pytest.raises(ValueError) as jerr:
+            jcommit.validate_step(root, 3)
+        with pytest.raises(ValueError, match="CRC mismatch") as terr:
+            tcommit.validate_step(root, 3)
+        assert str(terr.value) == str(jerr.value)
+    buf = bytearray(size + 100)
+    with ThreadPoolExecutor(3) as pool, open(path, "rb") as f:
+        crc, got = tcommit.read_into_crc(pool, f.fileno(), 0,
+                                         memoryview(buf), slice_bytes=1000)
+    assert (crc, got) == (zlib.crc32(payload) & 0xFFFFFFFF, size)
+    assert bytes(buf[:size]) == payload

@@ -27,8 +27,9 @@ examples/pretrain_bert.py's wrapper keeps them), three steps each.
   tests/test_torch_hybridize.py equals the eager step; an lr change and
   a new loss scale replay the same program; a rebound parameter
   (``Block.cast``, a copy) makes it capture anew.
-- Refusals: a multi-device mesh, ``rebuild_mesh``, per-shard writing
-  and ``remat`` raise naming their ROADMAP item; SGLD and an optimizer
+- Refusals: a multi-device mesh, ``rebuild_mesh`` and per-shard writing
+  raise naming their ROADMAP item, an unknown ``remat`` policy with the
+  reference's message; SGLD and an optimizer
   without a functional rule raise the reference's messages;
   ``GuardConfig(ckpt_root=)`` and the checkpoint family work.
 """
@@ -415,8 +416,8 @@ def test_graph_step_recaptures_after_a_rebind(rebind):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """A multi-device mesh and rebuild_mesh (Queue 1 item 9), remat
-    (item 4), a block given new trainable parameters after its trainer's
+    """A multi-device mesh and rebuild_mesh (Queue 1 item 9), an unknown
+    remat policy, a block given new trainable parameters after its trainer's
     first step, SGLD (no functional update, as in the reference) and an
     optimizer without a functional rule raise; a guard that promises a
     rollback (GuardConfig(ckpt_root=...)) and the checkpoint family
@@ -433,8 +434,8 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         "model", "data", None)
     net = tmx.gluon.nn.Dense(3, in_units=4).initialize(ctx=tmx.cpu())
     loss = tmx.gluon.loss.L2Loss()
-    with pytest.raises(MXNetError, match="Queue 1 item 4"):
-        tpar.ShardedTrainer(net, loss, "sgd", mesh=mesh, remat="full")
+    with pytest.raises(MXNetError, match="unknown remat policy 'offload'"):
+        tpar.ShardedTrainer(net, loss, "sgd", mesh=mesh, remat="offload")
     root = str(tmp_path / "ckpt")
     tr = tpar.ShardedTrainer(
         net, loss, "sgd", mesh=mesh,
