@@ -324,12 +324,69 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                validate-and-load and check-and-copy seconds and bytes,
                p50/p99 of the bursts with and without a reload, K2 per
                served forward.
+20. serve-   — (h) the replica tier. Two LocalReplicas r0 and r1, each a
+    pool       Server of phase 6's full-width BERT-base (S 128, int32
+               ids, fp32, buckets 1/2/4/8 prewarmed, TF32 off, a TinyLM
+               decode engine with 8 slots) on cuda:0 whose ParamStore
+               reads committed step 1 of one seeded set of weights from
+               build/chip_smoke_pool (removed at the end), in a
+               ReplicaPool (heartbeat 0.25 s, deadline 2 s, monitor
+               0.25 s) behind a Router (3 retries). Burst 1: 64 requests
+               from 8 threads through Router.call, both replicas
+               answering, every answer (16 distinct sequences) within
+               1e-3 of max |value| of the CPU forward, K2 25 times per
+               batch forward across replays and nothing else; p50/p99
+               and sequences/s printed beside phase 6's one server.
+               Burst 2: with monitor_start(), r1.kill() after 8 answers;
+               the clients go on until the monitor has journaled
+               replica_lost (idle within deadline + 2 monitor intervals)
+               and r1's fresh Server, built and captured on the monitor's
+               thread while r0 serves, is ready; every request answered,
+               r0 answering while r1 captures, r0 capturing nothing;
+               respawn seconds, p99 and peak memory printed. Burst 3:
+               step 2 (each weight times a seeded factor in [0.9, 1.1])
+               committed and pool.reload(surge=1) rolled under load;
+               every request answered with step 1 or 2 and checked
+               against the CPU under its step; both beacons at step 2
+               after it. The reload and phase 21 route through a Router
+               whose breakers open on heartbeat stalls only: the
+               reference's router counts a draining replica's
+               ServerStopped and a full one's SlotsExhausted as failures,
+               and with two replicas and breaker_k 3 a roll sheds once
+               the first restarted replica's breaker has opened. Then
+               two ProcReplica workers (python -m
+               mxnet_tpu_torch.serving worker --model mlp --dim 64, each
+               its own process and CUDA context, loading the kernels
+               phase 2 built) behind a router: 64 requests within 1e-5
+               of max |value| of the CPU mlp, K2 once per batch forward
+               in each worker (its stats frames), no worker building a
+               kernel; one worker SIGKILLed in a burst and respawned by
+               the monitor with every request answered; seconds to
+               ready printed.
+21. serve-   — (i) continuous-batching decode beside BERT-base on (h)'s
+    decode     replicas: 64 TinyLM streams (seeded prompts of 1-200
+               tokens, max_new_tokens 1-56) from 8 threads on r0's
+               engine while 64 BERT requests go through the router;
+               every stream's tokens equal TinyLM.reference, the engine
+               holds 7 programs (1 step, 6 prefill chunk buckets, CUDA
+               graphs captured at start()) after the streams as after
+               warmup(); steps, tokens/s, step p50/p99 and the BERT
+               burst's p99 printed. A stream cancelled mid-decode and
+               one with a 1 ms deadline end in RequestError and
+               DeadlineExceeded (not retryable) and the next 8 streams
+               are exact. With r0's 8 slots held by long streams and
+               queue_on_busy=False on both engines, 24 concurrent
+               streams through Router.decode_call each finish exactly
+               (some on r1 after SlotsExhausted on r0) or end in
+               SlotsExhausted / ServerOverloaded.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
 (eager, then graphed; phase 15 per configuration; phases 16 and 17
 after the capturing window; phase 18 per policy after the capturing
-step; phase 19 per burst). A graph's replay
+step; phase 19 per burst; phase 20 per burst, in a worker from its
+stats frames; phase 21 over the decode streams and the BERT burst
+beside them). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -749,7 +806,9 @@ def serve_burst(torch, server, payloads, per_forward, card, unit,
         f"batches in the burst; one batch at a time p50 "
         f"{alone['p50']:.3f} ms, max {alone['max']:.3f} ms over "
         f"{alone['count']} batches")
-    return [results[i] for i in range(n_requests)], launches
+    return [results[i] for i in range(n_requests)], launches, {
+        "p50": lat["p50"], "p99": lat["p99"],
+        "per_s": n_requests / wall, "wall_s": wall}
 
 
 def check_against_cpu(name, served, ref):
@@ -847,7 +906,7 @@ def phase_serve_resnet(torch, mx, card, ctx, size=224):
                                       aot_prewarm=((3, size, size),)),
                     ctx=ctx).start()
     graphs = report_prewarm(server, card)
-    results, launches = serve_burst(torch, server, images,
+    results, launches, _ = serve_burst(torch, server, images,
                                     {"conv_epilogue": 48}, card, "images")
     graph_rel = graphed_vs_eager(torch, server, net, images[:BATCH],
                                  ("logits",))
@@ -1050,7 +1109,7 @@ def phase_serve_bert(torch, mx, card, ctx):
                                       aot_prewarm=((BERT_SEQ,),)),
                     ctx=ctx).start()
     graphs = report_prewarm(server, card)
-    results, launches = serve_burst(
+    results, launches, burst = serve_burst(
         torch, server, ids, {"matmul_epilogue": BERT_K2_PER_FORWARD}, card,
         "sequences")
     graph_rel = graphed_vs_eager(torch, server, net, ids[:BATCH],
@@ -1079,7 +1138,7 @@ def phase_serve_bert(torch, mx, card, ctx):
             fail(f"CPU {name} has shape {ref.shape}")
         check_against_cpu(name, np.stack([res[k] for res in results]), ref)
     return {"launches": launches, "profile": prof, "graphs": graphs,
-            "graph_rel": graph_rel}
+            "graph_rel": graph_rel, "burst": burst}
 
 
 def _ms(fn):
@@ -1515,7 +1574,7 @@ def phase_serve_long_bert(torch, mx, card, ctx):
                                       aot_prewarm=((LONG_SEQ,),)),
                     ctx=ctx).start()
     graphs = report_prewarm(server, card)
-    results, launches = serve_burst(
+    results, launches, _ = serve_burst(
         torch, server, ids, {"flash_attention": LONG_K3_PER_FORWARD,
                              "matmul_epilogue": BERT_K2_PER_FORWARD},
         card, "sequences", n_requests=LONG_REQUESTS, max_batch=LONG_BATCH)
@@ -4495,6 +4554,662 @@ def _serve_reload(torch, mx, card, ctx, jr):
             * bursts["burst A (no reload)"]["k2_per_forward"]}
 
 
+# -- phases 20-21: the replica tier and the decode engine -------------------
+PL_ROOT = os.path.join(ROOT, "build", "chip_smoke_pool")
+PL_REQUESTS = 64                     # requests of a burst
+PL_THREADS = 8                       # client threads of a burst
+PL_DISTINCT = 16                     # distinct sequences among them
+PL_POOL = {"heartbeat_s": 0.25, "deadline_s": 2.0, "monitor_s": 0.25,
+           "spawn_s": 120.0}
+PL_RETRIES = 3
+PL_DEADLINE_MS = 30000.0             # a routed request's deadline
+PL_KILL_AFTER = 8                    # answers of a burst before a kill
+PL_SCALE = (0.9, 1.1)                # step 2: each weight times a factor
+PL_MLP_DIM = 64                      # the workers' mlp (--dim)
+PL_MLP_RTOL = 1e-5                   # worker answers vs the CPU mlp
+DC_STREAMS = 64                      # decode streams of phase 21
+DC_SLOTS, DC_CHUNK = 8, 32           # DecodeConfig (the reference's defaults)
+DC_MAX_PROMPT, DC_MAX_NEW = 200, 56
+DC_ROUTED = 24                       # concurrent streams through the router
+DC_PIN_NEW = 250                     # tokens of the streams holding r0's slots
+DC_COMPILES = 7                      # 1 step + 6 prefill programs
+# the router of the reload burst and of the routed decode streams: its
+# breakers open on heartbeat stalls only. The reference's router counts a
+# draining replica's ServerStopped and a full one's SlotsExhausted as
+# failures (its docstrings say busy and draining are not broken); with
+# two replicas and the default breaker_k of 3, a reload then sheds at
+# no_capacity once the first restarted replica's breaker has opened
+PL_BUSY_BREAKER_K = 1 << 20
+
+
+def pl_burst(router, payloads, n, n_threads=PL_THREADS, during=None,
+             until=None, what="burst"):
+    """``n`` requests through ``router.call`` from ``n_threads`` threads,
+    request ``i`` carrying ``payloads[i % len(payloads)]``; with ``until``
+    the threads go on sending (a closed loop) until ``until()`` holds.
+    ``during()`` runs once the burst has started. Returns ([(i, value,
+    replica, params_step, attempts, latency ms, answered at)], wall s);
+    fails unless every request is answered."""
+    records, errors = [], []
+    lock = threading.Lock()
+    counter = iter(range(1 << 30))
+
+    def client():
+        while True:
+            with lock:
+                i = next(counter)
+            if i >= n and (until is None or until()):
+                return
+            try:
+                resp = router.call(payloads[i % len(payloads)],
+                                   deadline_ms=PL_DEADLINE_MS)
+            except Exception as exc:      # reported below, then fail
+                errors.append(f"request {i}: {exc!r}")
+                return
+            with lock:
+                records.append((i, resp.value, resp.replica,
+                                resp.params_step, resp.attempts,
+                                resp.latency_ms, time.monotonic()))
+
+    threads = [threading.Thread(target=client) for _ in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if during is not None:
+        during(records)
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or len(records) < n:
+        fail(f"serve-pool: {what}: {len(records)} answered, errors "
+             f"{errors[:3]}")
+    records.sort(key=lambda r: r[0])
+    return records, wall
+
+
+def pl_wait(cond, what, timeout_s=180.0):
+    t_end = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > t_end:
+            fail(f"serve-pool: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def pl_latency(records):
+    lat = sorted(r[5] for r in records)
+    return {"p50": lat[len(lat) // 2],
+            "p99": lat[min(int(math.ceil(0.99 * len(lat))) - 1,
+                           len(lat) - 1)]}
+
+
+def pl_check(name, records, refs):
+    """Every answer of ``records`` against the CPU outputs of its
+    sequence under the step that served it (``refs[step]``: seq_out,
+    pooled, nsp of the PL_DISTINCT sequences)."""
+    import numpy as np
+    for step in sorted({r[3] for r in records}):
+        rows = [r for r in records if r[3] == step]
+        if step not in refs:
+            fail(f"serve-pool: {name}: answers served by step {step}")
+        for k, out in enumerate(("seq_out", "pooled", "nsp")):
+            got = np.stack([r[1][k] for r in rows])
+            want = np.stack([refs[step][k][r[0] % PL_DISTINCT]
+                             for r in rows])
+            check_against_cpu(f"{name} {out} ({len(rows)} answers, step "
+                              f"{step})", got, want)
+
+
+def pl_commit(root, step, params):
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.resilience import commit
+    stage = commit.prepare_stage(root, step)
+    nd.save(os.path.join(stage, "model.params"), params)
+    commit.finalize(root, step)
+
+
+def pl_events(path, kind):
+    with open(path, encoding="utf-8") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return [r for r in recs if r.get("kind") == kind]
+
+
+def phase_serve_pool(torch, mx, card, ctx, single):
+    """(h) Two full-width BERT-base LocalReplicas behind the Router on
+    ``ctx``, then two subprocess mlp workers; ``single`` is phase 6's
+    one-server burst. Returns the pool and router for phase 21."""
+    import shutil
+
+    from mxnet_tpu_torch.diagnostics import journal
+    shutil.rmtree(PL_ROOT, ignore_errors=True)
+    os.makedirs(PL_ROOT)
+    jpath = os.path.join(PL_ROOT, "journal.jsonl")
+    journal.reset_journal(jpath)
+    return _serve_pool(torch, mx, card, ctx, single, jpath)
+
+
+def _serve_pool(torch, mx, card, ctx, single, jpath):
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.diagnostics.journal import get_journal
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.serving import (DecodeConfig, ParamStore,
+                                         PoolConfig, ReplicaPool, Router,
+                                         RouterConfig, Server, ServerConfig,
+                                         TinyLM)
+    dev = ctx.torch_device
+    ckpt = os.path.join(PL_ROOT, "ckpt")
+    net = seeded_bert(torch, mx, ctx, BERT_SEQ, (1,))
+    step1 = {k: v.detach().cpu().clone()
+             for k, v in net.collect_params().items()}
+    del net
+    pl_commit(ckpt, 1, step1)
+    rng = np.random.RandomState(SEED + 20)
+    step2 = {k: v * float(rng.uniform(*PL_SCALE))
+             for k, v in sorted(step1.items())}
+    ids = np.random.RandomState(SEED + 20).randint(
+        0, BERT_VOCAB, (PL_DISTINCT, BERT_SEQ)).astype(np.int32)
+
+    cpu_net = bert_12_768_12(use_decoder=False)
+    refs = {}
+    for step, weights in ((1, step1), (2, step2)):
+        cpu_net.load_dict({k: v.numpy() for k, v in weights.items()},
+                          ctx=mx.cpu())
+        with torch.inference_mode():
+            outs = [cpu_net(torch.from_numpy(ids[i:i + 8]))
+                    for i in range(0, PL_DISTINCT, 8)]
+        refs[step] = [np.concatenate([o[k].numpy() for o in outs])
+                      for k in range(3)]
+    del cpu_net
+
+    def factory():
+        bert = bert_12_768_12(use_decoder=False)
+        bert.initialize(mx.init.Normal(0.02), ctx=ctx,
+                        generator=mx.random.generator(SEED, device=dev))
+        with torch.inference_mode():       # materialize every parameter
+            bert(torch.zeros(1, BERT_SEQ, dtype=torch.int32, device=dev))
+        return Server(bert, ServerConfig(
+            max_batch=8, dtype="int32", aot_prewarm=((BERT_SEQ,),),
+            reload_poll_s=-1.0, decode_model=TinyLM(),
+            decode=DecodeConfig(slots=DC_SLOTS, prefill_chunk=DC_CHUNK)),
+            param_store=ParamStore(ckpt), ctx=ctx)
+
+    cfg = PoolConfig(**PL_POOL)
+    pool = ReplicaPool(os.path.join(PL_ROOT, "pool"), cfg)
+    pool.add_local("r0", factory).add_local("r1", factory)
+    t0 = time.perf_counter()
+    pool.start()
+    log(f"serve-pool (h): 2 LocalReplicas of full-width BERT-base (S "
+        f"{BERT_SEQ}, int32 ids, fp32, buckets 1/2/4/8 prewarmed, TF32 off, "
+        f"TinyLM decode with {DC_SLOTS} slots) on {card}, each loading "
+        f"committed step 1 through a ParamStore; ready in "
+        f"{time.perf_counter() - t0:.2f} s; pool {PL_POOL}")
+    router = Router(pool, RouterConfig(retries=PL_RETRIES))
+
+    def servers():
+        return {rid: rep.server for rid, rep in pool.replicas.items()}
+
+    for rid, srv in servers().items():
+        report_prewarm(srv, card)
+        if srv.stats()["params_step"] != 1:
+            fail(f"serve-pool: {rid} serves step "
+                 f"{srv.stats()['params_step']}, want 1")
+    misses = {rid: srv.cache.stats()["misses"]
+              for rid, srv in servers().items()}
+
+    # 1. the burst
+    for b in (8, 4, 2, 1):
+        pl_burst(router, ids, b, n_threads=1, what="warm")
+    before = {rid: srv.stats()["batches"] for rid, srv in servers().items()}
+    kernels.reset_launch_counts()
+    recs, wall = pl_burst(router, ids, PL_REQUESTS, what="burst 1")
+    launches = kernels.launch_counts()
+    batches = sum(srv.stats()["batches"] - before[rid]
+                  for rid, srv in servers().items())
+    used = {r[2]: sum(1 for x in recs if x[2] == r[2]) for r in recs}
+    lat = pl_latency(recs)
+    log(f"serve-pool (h) burst 1: {PL_REQUESTS} requests from {PL_THREADS} "
+        f"threads through router.call answered by {used} in {batches} "
+        f"batches; latency p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} "
+        f"ms, {PL_REQUESTS / wall:.2f} sequences/s ({wall * 1e3:.1f} ms "
+        f"wall); phase 6's single server: p50 {single['p50']:.3f} ms, p99 "
+        f"{single['p99']:.3f} ms, {single['per_s']:.2f} sequences/s (32 "
+        f"requests from 4 threads); K2 {launches['matmul_epilogue']} "
+        f"launches (= {BERT_K2_PER_FORWARD} x {batches})")
+    if set(used) != {"r0", "r1"}:
+        fail(f"serve-pool: burst 1 answered only by {sorted(used)}")
+    if launches["matmul_epilogue"] != BERT_K2_PER_FORWARD * batches \
+            or any(n for k, n in launches.items() if k != "matmul_epilogue"):
+        fail(f"serve-pool: launches {launches} for {batches} batch "
+             "forwards")
+    pl_check("burst 1", recs, refs)
+    burst1 = {**lat, "per_s": PL_REQUESTS / wall, "batches": batches,
+              "k2": launches["matmul_epilogue"], "replicas": used}
+
+    # 2. kill r1 in a burst; the monitor respawns it
+    pool.monitor_start()
+    r1 = pool.replicas["r1"]
+    kill = {}
+
+    def kill_r1(records):
+        pl_wait(lambda: len(records) >= PL_KILL_AFTER, "burst 2's answers")
+        get_journal().event("smoke_kill", replica="r1")
+        kill["t"] = time.monotonic()
+        kill["n"] = len(records)
+        r1.kill()
+
+    def respawned():
+        if "t" not in kill:
+            return False
+        if "lost" not in kill and pl_events(jpath, "replica_lost"):
+            kill["lost"] = time.monotonic()
+        st = {s.id: s for s in pool.view()}["r1"]
+        if "lost" in kill and st.ready and r1.server is not None \
+                and "ready" not in kill:
+            kill["ready"] = time.monotonic()
+        return "ready" in kill
+
+    torch.cuda.reset_peak_memory_stats()
+    recs2, wall2 = pl_burst(router, ids, PL_REQUESTS, during=kill_r1,
+                            until=respawned, what="burst 2 (r1 killed)")
+    peak = torch.cuda.max_memory_allocated()
+    lost = pl_events(jpath, "replica_lost")
+    kill_rec = pl_events(jpath, "smoke_kill")[0]
+    if [r["replica"] for r in lost] != ["r1"]:
+        fail(f"serve-pool: replica_lost records {lost}")
+    lag = lost[0]["up_s"] - kill_rec["up_s"]
+    in_window = sum(1 for r in recs2
+                    if kill["t"] <= r[6] <= kill["ready"] and r[2] == "r0")
+    new_r1 = r1.server
+    lat2 = pl_latency(recs2)
+    log(f"serve-pool (h) burst 2: r1.kill() after {kill['n']} answers; the "
+        f"monitor journaled replica_lost {lag:.3f} s after the kill "
+        f"(idle_s {lost[0]['idle_s']} on its clock; deadline_s "
+        f"{cfg.deadline_s:g} + monitor_s {cfg.monitor_s:g} = "
+        f"{cfg.deadline_s + cfg.monitor_s:g}) and restarted r1: ready "
+        f"{kill['ready'] - kill['t']:.2f} s after the kill; "
+        f"{len(recs2)} requests answered ({sum(r[4] > 1 for r in recs2)} "
+        f"after a retry), {in_window} by r0 while r1 was away and "
+        f"captured its graphs; latency p50 {lat2['p50']:.3f} ms, p99 "
+        f"{lat2['p99']:.3f} ms; r1's new prewarm {new_r1.last_prewarm}; "
+        f"peak device memory {peak / 2**30:.2f} GiB (the killed server "
+        "stops on a background thread)")
+    if lost[0]["idle_s"] > cfg.deadline_s + 2 * cfg.monitor_s:
+        fail(f"serve-pool: r1 declared lost at idle {lost[0]['idle_s']} s")
+    if not in_window:
+        fail("serve-pool: r0 answered nothing while r1 respawned")
+    if new_r1.last_prewarm["compiled"] != 4:
+        fail(f"serve-pool: r1's respawn captured {new_r1.last_prewarm}")
+    pl_check("burst 2", recs2, refs)
+    if servers()["r0"].cache.stats()["misses"] != misses["r0"]:
+        fail("serve-pool: r0 captured a graph after prewarm")
+    pool.monitor_stop()
+    # r1's breaker opened on its failures after the kill: requests until
+    # its half-open probe has closed it, so the reload below has both
+    # replicas in rotation (with one breaker open and the other replica
+    # draining, the router sheds at no_capacity, as the reference does)
+    pl_wait(lambda: pl_burst(router, ids, 1, n_threads=1, what="settle")
+            and all(r["breaker"] == "closed"
+                    for r in router.stats()["replicas"].values()),
+            "the breakers to close")
+
+    # 3. rolling reload onto step 2
+    pl_commit(ckpt, 2, step2)
+    default_router, router = router, Router(
+        pool, RouterConfig(retries=PL_RETRIES, breaker_k=PL_BUSY_BREAKER_K))
+    roll = {}
+
+    def reload(records):
+        def run():
+            roll["steps"] = pool.reload(surge=1)
+            roll["t"] = time.monotonic()
+        roll["thread"] = threading.Thread(target=run)
+        roll["t0"] = time.monotonic()
+        roll["thread"].start()
+
+    recs3, wall3 = pl_burst(router, ids, PL_REQUESTS, during=reload,
+                            until=lambda: "t" in roll,
+                            what="burst 3 (rolling reload)")
+    roll["thread"].join()
+    beacons = {rid: srv.beacon()["params_step"]
+               for rid, srv in servers().items()}
+    stamps = sorted({r[3] for r in recs3})
+    lat3 = pl_latency(recs3)
+    log(f"serve-pool (h) burst 3: pool.reload(surge=1) took "
+        f"{roll['t'] - roll['t0']:.2f} s under load; {len(recs3)} requests "
+        f"answered, none lost, stamped with steps {stamps} "
+        f"({sum(r[3] == 2 for r in recs3)} by step 2); latency p50 "
+        f"{lat3['p50']:.3f} ms, p99 {lat3['p99']:.3f} ms; reload returned "
+        f"{roll['steps']}, beacons {beacons}")
+    if set(beacons.values()) != {2} or set(roll["steps"].values()) != {2}:
+        fail(f"serve-pool: after the reload the replicas serve {beacons}")
+    pl_check("burst 3", recs3, refs)
+    recs4, _ = pl_burst(router, ids, PL_DISTINCT, what="after the reload")
+    if {r[3] for r in recs4} != {2}:
+        fail("serve-pool: answers after the reload not from step 2")
+    pl_check("after the reload", recs4, refs)
+    default_router.stop()
+    restarts = pl_events(jpath, "pool_restart")
+    log(f"serve-pool (h): pool_restart records "
+        f"{[(r['replica'], r['residual'], r['ready']) for r in restarts]}")
+
+    # 4. subprocess replicas
+    procs = pl_procs(torch, mx, card, ctx)
+    return {"pool": pool, "router": router, "burst1": burst1,
+            "respawn_s": kill["ready"] - kill["t"], "lost_after_s": lag,
+            "burst2_p99": lat2["p99"], "burst3_p99": lat3["p99"],
+            "peak_gib": peak / 2**30, "procs": procs, "jpath": jpath,
+            "k2_per_forward": BERT_K2_PER_FORWARD, "refs": refs,
+            "launches": launches["matmul_epilogue"]}
+
+
+def pl_stats(pool, rid):
+    header, _ = pool.replicas[rid]._roundtrip({"cmd": "stats"},
+                                              budget_s=30.0)
+    return header["stats"]
+
+
+def pl_procs(torch, mx, card, ctx):
+    """Part 4: two ProcReplica workers (--model mlp, each its own process
+    and CUDA context) behind a router; one SIGKILLed in a burst."""
+    import signal
+
+    import numpy as np
+    from mxnet_tpu_torch.serving import (PoolConfig, ReplicaPool, Router,
+                                         RouterConfig)
+    from mxnet_tpu_torch.serving.worker import _build_block
+    env = dict(os.environ, MXNET_TPU_JOURNAL="off",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    pool = ReplicaPool(os.path.join(PL_ROOT, "procs"),
+                       PoolConfig(**PL_POOL))
+    for rid in ("w0", "w1"):
+        pool.add_proc(rid, {"--model": "mlp", "--dim": PL_MLP_DIM,
+                            "--ctx": ctx.device_type, "--window-ms": 2.0,
+                            "--reload-poll-s": -1.0}, env=env)
+    t0 = time.monotonic()
+    pool.start(wait_ready=False)
+    ready = {}
+
+    def all_ready():
+        for s in pool.view():
+            if s.ready and s.id not in ready:
+                ready[s.id] = time.monotonic() - t0
+        return len(ready) == 2
+
+    pl_wait(all_ready, "the workers")
+    router = Router(pool, RouterConfig(retries=PL_RETRIES))
+    x = np.random.RandomState(SEED + 24).randn(
+        PL_REQUESTS, PL_MLP_DIM).astype(np.float32)
+    cpu = _build_block("mlp", PL_MLP_DIM, mx.cpu())
+    with torch.inference_mode():
+        ref = cpu(torch.from_numpy(x)).numpy()
+
+    def check(name, records):
+        got = np.stack([r[1] for r in records])
+        want = ref[[r[0] % PL_REQUESTS for r in records]]
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        log(f"serve-pool (h) workers {name}: {len(records)} answers vs the "
+            f"CPU mlp: max abs err {err:.3e}, relative {err / scale:.3e} "
+            f"(tolerance {PL_MLP_RTOL:g} of max |value|)")
+        if not err <= PL_MLP_RTOL * scale:
+            fail(f"serve-pool: worker answers differ from the CPU mlp by "
+                 f"{err}")
+
+    def counted(name, run):
+        """Run a burst with each worker's stats frame read before and
+        after: K2 once per batch forward of the mlp, in each worker."""
+        before = {rid: pl_stats(pool, rid) for rid in pool.replicas}
+        records, wall = run()
+        after = {rid: pl_stats(pool, rid) for rid in pool.replicas}
+        rows = {}
+        for rid in pool.replicas:
+            k2 = after[rid]["kernel_launches"]["matmul_epilogue"] \
+                - before[rid]["kernel_launches"]["matmul_epilogue"]
+            n = after[rid]["batches"] - before[rid]["batches"]
+            rows[rid] = {"k2": k2, "batches": n,
+                         "built": after[rid]["kernels_built"]}
+            if k2 != n or after[rid]["kernels_built"]:
+                fail(f"serve-pool: worker {rid}: K2 {k2} for {n} batches, "
+                     f"built {after[rid]['kernels_built']}")
+        log(f"serve-pool (h) workers {name}: {len(records)} requests in "
+            f"{wall * 1e3:.1f} ms; per worker (K2 launches = batch "
+            f"forwards of the mlp, from its stats frames; kernels it "
+            f"built): {rows}")
+        check(name, records)
+        return rows
+
+    rows_a = counted("burst A", lambda: pl_burst(
+        router, x, PL_REQUESTS, what="workers burst A"))
+    pool.monitor_start()
+    victim = pool.replicas["w1"]
+    killed = {}
+
+    def sigkill(records):
+        pl_wait(lambda: len(records) >= PL_KILL_AFTER, "the workers' answers")
+        killed["pid"] = victim.pid()
+        killed["t"] = time.monotonic()
+        os.kill(killed["pid"], signal.SIGKILL)
+
+    def back():
+        if "t" not in killed:
+            return False
+        st = {s.id: s for s in pool.view()}["w1"]
+        if st.ready and victim.pid() != killed["pid"] \
+                and "ready" not in killed:
+            killed["ready"] = time.monotonic()
+        return "ready" in killed
+
+    recs, _ = pl_burst(router, x, PL_REQUESTS, during=sigkill, until=back,
+                       what="workers burst (SIGKILL)")
+    check("SIGKILL burst", recs)
+    log(f"serve-pool (h) workers: w1 (pid {killed['pid']}) SIGKILLed after "
+        f"{PL_KILL_AFTER} answers; the monitor respawned it as pid "
+        f"{victim.pid()}, ready {killed['ready'] - killed['t']:.2f} s after "
+        f"the kill; {len(recs)} requests answered "
+        f"({sum(r[4] > 1 for r in recs)} after a retry); seconds to ready "
+        f"at start {ready}")
+    rows_b = counted("burst B", lambda: pl_burst(
+        router, x, PL_REQUESTS, what="workers burst B"))
+    router.stop()
+    pool.stop()
+    return {"ready_s": ready, "respawn_s": killed["ready"] - killed["t"],
+            "burst_a": rows_a, "burst_b": rows_b,
+            "k2": sum(r["k2"] for r in rows_a.values())}
+
+
+def phase_serve_decode(torch, mx, card, pl):
+    """(i) TinyLM decode beside BERT-base on phase 20's replicas: 64
+    streams on r0 with a BERT burst beside them, a cancelled and an
+    expired stream, then 24 streams through Router.decode_call with
+    queue_on_busy=False while r0's slots are held."""
+    import shutil
+    try:
+        return _serve_decode(torch, mx, card, pl)
+    finally:
+        pl["router"].stop()
+        pl["pool"].stop()
+        from mxnet_tpu_torch.diagnostics import journal
+        journal.reset_journal()
+        shutil.rmtree(PL_ROOT, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _serve_decode(torch, mx, card, pl):
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.serving import (RequestError, ServerOverloaded,
+                                         SlotsExhausted)
+    pool, router = pl["pool"], pl["router"]
+    srv = pool.replicas["r0"].server
+    dec = srv.decoder
+    model = dec.model
+    rng = np.random.RandomState(SEED + 21)
+    specs = []
+    for _ in range(DC_STREAMS):
+        n_prompt = int(rng.randint(1, DC_MAX_PROMPT + 1))
+        n_new = int(rng.randint(1, min(DC_MAX_NEW,
+                                       model.max_len - n_prompt) + 1))
+        specs.append((rng.randint(0, model.vocab, n_prompt).tolist(),
+                      n_new))
+    compiles0 = dec.stats()["compiles"]
+    if compiles0 != DC_COMPILES:
+        fail(f"serve-decode: {compiles0} programs after warmup(), want "
+             f"{DC_COMPILES}")
+    got, errors = {}, []
+
+    def client(idx):
+        try:
+            streams = [(i, srv.decode_submit(specs[i][0],
+                                             max_new_tokens=specs[i][1],
+                                             deadline_ms=60000))
+                       for i in idx]
+            for i, s in streams:
+                got[i] = s.result(120)
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    ids = np.random.RandomState(SEED + 20).randint(
+        0, BERT_VOCAB, (PL_DISTINCT, BERT_SEQ)).astype(np.int32)
+    dec.step_latency.reset()
+    st0 = dec.stats()
+    before = {rid: rep.server.stats()["batches"]
+              for rid, rep in pool.replicas.items()}
+    kernels.reset_launch_counts()
+    threads = [threading.Thread(target=client,
+                                args=(range(k, DC_STREAMS, PL_THREADS),))
+               for k in range(PL_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    bert, _ = pl_burst(router, ids, PL_REQUESTS, what="BERT beside decode")
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    batches = sum(rep.server.stats()["batches"] - before[rid]
+                  for rid, rep in pool.replicas.items())
+    st = dec.stats()
+    if errors or len(got) != DC_STREAMS:
+        fail(f"serve-decode: {len(got)} of {DC_STREAMS} streams finished, "
+             f"errors {errors[:3]}")
+    wrong = [i for i in range(DC_STREAMS)
+             if got[i] != model.reference(*specs[i])]
+    tokens = st["tokens_out"] - st0["tokens_out"]
+    steps = st["steps"] - st0["steps"]
+    blat = pl_latency(bert)
+    log(f"serve-decode (i): {DC_STREAMS} TinyLM streams (prompts "
+        f"{min(len(p) for p, _ in specs)}-{max(len(p) for p, _ in specs)} "
+        f"tokens, max_new_tokens {min(n for _, n in specs)}-"
+        f"{max(n for _, n in specs)}) from {PL_THREADS} threads on r0 "
+        f"({DC_SLOTS} slots, chunk buckets {list(dec.prefill_buckets)}) "
+        f"in {wall:.3f} s: {len(wrong)} differ from TinyLM.reference; "
+        f"{steps} steps, {tokens} tokens, {tokens / wall:.1f} tokens/s, "
+        f"step p50 {st['step_ms']['p50']:.3f} ms, p99 "
+        f"{st['step_ms']['p99']:.3f} ms; programs {st['programs']}, "
+        f"compiles {compiles0} after warmup() and {st['compiles']} now; "
+        f"beside it {len(bert)} BERT requests through the router: p50 "
+        f"{blat['p50']:.3f} ms, p99 {blat['p99']:.3f} ms, K2 "
+        f"{launches['matmul_epilogue']} launches (= "
+        f"{BERT_K2_PER_FORWARD} x {batches}) on {card}")
+    if wrong:
+        fail(f"serve-decode: streams {wrong[:5]} differ from the reference")
+    if st["compiles"] != DC_COMPILES:
+        fail(f"serve-decode: {st['compiles']} programs after the streams")
+    if launches["matmul_epilogue"] != BERT_K2_PER_FORWARD * batches:
+        fail(f"serve-decode: K2 {launches} for {batches} BERT forwards")
+    pl_check("BERT beside decode", bert, pl["refs"])
+
+    # a cancelled and an expired stream; their slots serve the next ones
+    long = srv.decode_submit([1, 2, 3], max_new_tokens=DC_PIN_NEW)
+    while len(long.tokens) < 4 and not long.done.is_set():
+        time.sleep(0.0005)
+    long.cancel()
+    outcomes = {}
+    for name, stream in (("cancelled", long), ("deadline 1 ms", srv.
+                         decode_submit([5, 6, 7], max_new_tokens=100,
+                                       deadline_ms=1))):
+        try:
+            stream.result(60)
+            fail(f"serve-decode: the {name} stream finished")
+        except RequestError as exc:
+            outcomes[name] = (type(exc).__name__, exc.retryable, str(exc))
+    if outcomes["cancelled"][:2] != ("RequestError", False) \
+            or outcomes["deadline 1 ms"][:2] != ("DeadlineExceeded", False):
+        fail(f"serve-decode: outcomes {outcomes}")
+    after = [srv.decode_submit(p, max_new_tokens=n) for p, n in specs[:8]]
+    if [s.result(60) for s in after] != [model.reference(p, n)
+                                         for p, n in specs[:8]]:
+        fail("serve-decode: streams after the cancel differ")
+    pl_wait(lambda: dec.occupancy() == 0, "the freed slots")
+    log(f"serve-decode (i): {outcomes}; the next 8 streams exact, "
+        f"occupancy back to {dec.occupancy()}")
+
+    # Router.decode_call with queue_on_busy=False while r0's slots are
+    # held (phase 20's reload router: with the default breaker_k both
+    # breakers open on SlotsExhausted within the first submissions)
+    pins = [srv.decode_submit([2, 3], max_new_tokens=DC_PIN_NEW)
+            for _ in range(DC_SLOTS)]
+    pl_wait(lambda: dec.occupancy() == DC_SLOTS, "r0's held slots")
+    for rep in pool.replicas.values():
+        rep.server.decoder.config.queue_on_busy = False
+    routed = [(rng.randint(0, model.vocab, int(rng.randint(1, 33))).tolist(),
+               int(rng.randint(8, 41))) for _ in range(DC_ROUTED)]
+    results = {}
+
+    def route(i):
+        try:
+            results[i] = router.decode_call(routed[i][0],
+                                            max_new_tokens=routed[i][1],
+                                            deadline_ms=30000)
+        except (SlotsExhausted, ServerOverloaded) as exc:
+            results[i] = exc
+        except Exception as exc:          # reported below, then fail
+            results[i] = repr(exc)
+
+    threads = [threading.Thread(target=route, args=(i,))
+               for i in range(DC_ROUTED)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    done = {i: r for i, r in results.items() if hasattr(r, "value")}
+    shed = {i: type(r).__name__ for i, r in results.items()
+            if isinstance(r, RequestError)}
+    bad = [i for i, r in done.items()
+           if r.value != model.reference(*routed[i])]
+    moved = sum(1 for r in done.values() if r.attempts > 1)
+    retries = [r for r in pl_events(pl["jpath"], "router_retry")
+               if r.get("op") == "decode"]
+    log(f"serve-decode (i) routed: {DC_ROUTED} concurrent streams through "
+        f"Router.decode_call (queue_on_busy=False, r0's {DC_SLOTS} slots "
+        f"held): {len(done)} finished ({moved} on another replica after "
+        f"SlotsExhausted, by replica "
+        f"{ {k: sum(r.replica == k for r in done.values()) for k in pool.replicas} }"
+        f"), {len(shed)} shed {sorted(set(shed.values()))}; router_retry "
+        f"(decode) errors {sorted({r['error'] for r in retries})}")
+    if len(done) + len(shed) != DC_ROUTED or bad or not moved:
+        fail(f"serve-decode: routed streams: {len(done)} finished "
+             f"({bad} wrong, {moved} moved), shed {shed}, other "
+             f"{[r for r in results.values() if isinstance(r, str)]}")
+    if [p.result(60) for p in pins] != [model.reference([2, 3], DC_PIN_NEW)
+                                        ] * DC_SLOTS:
+        fail("serve-decode: the held streams differ from the reference")
+    for rid, rep in pool.replicas.items():
+        n = rep.server.decoder.stats()["compiles"]
+        misses = rep.server.cache.stats()["misses"]
+        if n != DC_COMPILES or misses != len(rep.server.grid.batch_buckets):
+            fail(f"serve-decode: {rid} built {n} decode programs and "
+                 f"{misses} predictors")
+    return {"tokens_per_s": tokens / wall, "steps": steps,
+            "step_p50": st["step_ms"]["p50"],
+            "step_p99": st["step_ms"]["p99"], "bert_p99": blat["p99"],
+            "k2": launches["matmul_epilogue"], "batches": batches,
+            "routed_done": len(done), "routed_moved": moved,
+            "routed_shed": len(shed)}
+
+
 def phase_kernel_bf16(torch, ce, me):
     """K1 and K2 in bfloat16 at this phase's shapes: the 48 epilogues of a
     ResNet-50 forward at batch 256 and the 24 of a BERT-base MLM training
@@ -4602,6 +5317,10 @@ def main():
                                                  mx.gpu(0)))
     run("serve-reload", lambda: phase_serve_reload(torch, mx, card,
                                                    mx.gpu(0)))
+    run("serve-pool", lambda: phase_serve_pool(
+        torch, mx, card, mx.gpu(0), out["serve BERT"]["burst"]))
+    run("serve-decode", lambda: phase_serve_decode(torch, mx, card,
+                                                   out["serve-pool"]))
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -4612,6 +5331,7 @@ def main():
     kb, sh = out["kernel bf16"], out["train-sharded"]
     rc, ck = out["train-recipe"], out["train-checkpoint"]
     rm, rl = out["train-remat"], out["serve-reload"]
+    pl, dc = out["serve-pool"], out["serve-decode"]
 
     def remat(kernel):
         """The kernel's launches per graphed step of (c) under each remat
@@ -4794,7 +5514,18 @@ def main():
         "serve_reload_per_forward": rl["k2_per_forward"],
         "serve_reload_per": "launches: the 32-request burst of the "
                             "hot-reloading BERT-base MLM server at S "
-                            f"{RC_SEQ}, fp32, before any reload"}, {
+                            f"{RC_SEQ}, fp32, before any reload",
+        "serve_pool_launches": pl["launches"],
+        "serve_pool_per_forward": pl["k2_per_forward"],
+        "serve_pool_worker_launches": pl["procs"]["k2"],
+        "serve_decode_launches": dc["k2"],
+        "serve_pool_per": f"launches: burst 1 of {PL_REQUESTS} requests "
+                          "through the Router over two BERT-base "
+                          f"LocalReplicas at S {BERT_SEQ}, fp32 (graph "
+                          "replays on both); worker: the subprocess mlp "
+                          "replicas' burst A, 1 per batch forward, read "
+                          "from their stats frames; decode: the BERT "
+                          "burst beside 64 TinyLM streams"}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "

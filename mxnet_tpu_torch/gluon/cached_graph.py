@@ -96,7 +96,17 @@ def _inside():
 class CudaGraphs:
     """The capture backend on the card: warm-up on a side stream,
     ``torch.cuda.graph`` into a private pool, the dropout generators
-    registered before capture."""
+    registered before capture.
+
+    Captures run one at a time in the process (``_capture_lock``), in
+    ``capture_error_mode`` "thread_local": only the capturing thread is
+    barred from calls that are unsafe during a capture, so other threads
+    may replay graphs, allocate, and copy answers to the host meanwhile
+    (a respawned server capturing beside a serving one, a decode engine
+    beside a predictor). In the default "global" mode any such call on
+    another thread fails, and the capture with it."""
+
+    capture_error_mode = "thread_local"
 
     @staticmethod
     def accepts(device):
@@ -122,7 +132,9 @@ class CudaGraphs:
         with torch.cuda.device(device):
             for g in generators:
                 graph.register_generator_state(g)
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(
+                    graph, pool=pool,
+                    capture_error_mode=CudaGraphs.capture_error_mode):
                 out = fn()
         return graph, out
 
@@ -293,22 +305,18 @@ def _state_kept(block, extra=()):
                 g.set_state(state)
 
 
-def _launches_taken_back(before):
-    """The launches added since ``before``, taken back from the counts:
-    a capture runs nothing."""
-    after = _kernels.launch_counts()
-    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    _kernels.add_launches({k: -n for k, n in delta.items()})
-    return delta
-
-
 def _record(backend, fn, pool, generators, device):
     """Capture ``fn`` into a graph: (graph, its outputs, the kernel
-    launches each replay runs, the dropout bits it draws)."""
-    before = _kernels.launch_counts()
+    launches each replay runs, the dropout bits it draws). The launches
+    are those made on the capturing stream during the capture (captures
+    are one at a time: ``_capture_lock``), not another thread's."""
+    before = _kernels.captured_counts()
     with _random.draws(keep_states=False) as seen:
         graph, out = backend.capture(fn, pool, generators, device)
-    return graph, out, _launches_taken_back(before), seen.drawn
+    after = _kernels.captured_counts()
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    return graph, out, launches, seen.drawn
 
 
 def _finish(prog, backend, block, pool, device, t0):

@@ -22,7 +22,8 @@ from .flash_attention import flash_attention_bwd_plain, flash_attention_plain
 from .matmul_epilogue import (fused_matmul_epilogue, keep_threshold,
                               matmul_epilogue_plain)
 
-__all__ = ["EPILOGUE_ACTS", "add_launches", "conv_epilogue_plain",
+__all__ = ["EPILOGUE_ACTS", "add_launches", "captured_counts",
+           "conv_epilogue_plain",
            "flash_attention_bwd_plain", "flash_attention_plain",
            "fused_conv_epilogue", "fused_matmul_epilogue", "keep_threshold",
            "launch_counts", "matmul_epilogue_plain", "reset_launch_counts"]
@@ -44,10 +45,15 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
+def captured_counts() -> dict:
+    """{kernel name: launches made into CUDA graph captures} (never
+    reset): a capture's launches are its delta."""
+    return {name: c.captured for name, c in _COUNTS.items()}
+
+
 def add_launches(counts: dict) -> None:
-    """Add {kernel name: launches} to the counts (negative to take some
-    back): what a CUDA graph's replay ran without calling the
-    wrappers."""
+    """Add {kernel name: launches} to the counts: what a CUDA graph's
+    replay ran without calling the wrappers."""
     for name, n in counts.items():
         if n:
-            _COUNTS[name].add(n)
+            _COUNTS[name].add_replayed(n)

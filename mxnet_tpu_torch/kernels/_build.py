@@ -25,7 +25,7 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["BUILT", "SOURCES", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
@@ -36,6 +36,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
+BUILT: list = []          # the sources this process compiled, in order
 
 
 def nvcc_path() -> str:
@@ -91,8 +92,10 @@ def build_all(names=SOURCES) -> dict:
     with _lock:
         todo = [n for n in names if not _target(n).exists()]
         started = [(n, *_start(n)) for n in todo]
-        return {n: _finish(n, proc, tmp, target)
-                for n, proc, tmp, target in started}
+        out = {n: _finish(n, proc, tmp, target)
+               for n, proc, tmp, target in started}
+        BUILT.extend(out)
+        return out
 
 
 def load(name: str) -> ctypes.CDLL:

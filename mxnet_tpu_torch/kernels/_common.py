@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 
 __all__ = ["ACT_CODE", "DTYPE_CODE", "EPILOGUE_ACTS", "LaunchCount",
-           "act_fn", "check_cuda_inputs"]
+           "act_fn", "check_cuda_inputs", "stream_capturing"]
 
 EPILOGUE_ACTS = ("identity", "relu", "gelu", "tanh", "sigmoid")
 ACT_CODE = {None: 0, "identity": 0, "relu": 1, "gelu": 2, "tanh": 3,
@@ -29,24 +29,48 @@ _ACT_FNS = {
 }
 
 
+def stream_capturing() -> bool:
+    """Whether the current stream of this thread is capturing a CUDA
+    graph (False without CUDA)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 class LaunchCount:
     """How many times a wrapper launched its kernel. Only a successful
     launch adds one; the CPU path and the plain version add nothing. A
-    CUDA graph's replay runs launches without calling the wrapper, so
-    the graph adds the launches it captured once per replay (``n``), and
-    takes back those of the capture itself, which ran nothing."""
+    launch made while the current stream is capturing a CUDA graph runs
+    nothing: it goes to :meth:`captured`, whatever thread made it (the
+    capturing thread, or the autograd engine's thread running a captured
+    backward on the capture's stream), and the graph adds it to the count
+    once per replay (:meth:`add_replayed`). Launches of other threads
+    during a capture (a replica serving beside a capturing one) stay in
+    the count and out of the graph's."""
 
     def __init__(self):
         self._n = 0
+        self._captured = 0
         self._lock = threading.Lock()
 
     def add(self, n=1):
+        capturing = stream_capturing()
+        with self._lock:
+            if capturing:
+                self._captured += n
+            else:
+                self._n += n
+
+    def add_replayed(self, n):
         with self._lock:
             self._n += n
 
     @property
     def value(self) -> int:
         return self._n
+
+    @property
+    def captured(self) -> int:
+        return self._captured
 
     def reset(self):
         with self._lock:

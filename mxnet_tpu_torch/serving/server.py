@@ -30,10 +30,21 @@ served it (``params_step``); ``pin_params(step)`` pins the store and
 moves the live step there (a rollback included) the same way. The
 journal gets ``serving_reload`` / ``serving_reload_failed``.
 
+A ``decode_model`` (``ServerConfig.decode_model``, a
+:class:`~.decode.DecodeModel`) adds the continuous-batching decode
+engine beside the one-shot worker: ``start()`` builds its whole program
+set after the predictors' prewarm and before the worker thread starts,
+``stop()`` stops it first, and ``decode_submit``/``decode`` admit
+streams. ``submit(cancel=)`` takes the hedging router's cancel event: a
+request whose event is set is dropped at dequeue with
+``RequestCancelled``. ``beacon()`` is the replica pool's readiness
+payload.
+
 Not ported yet: the AOT cache's on-disk store (a CUDA graph cannot be
-serialized), shard plans, the decode engine, tenants and fleets, the
-``serving_batch`` journal records, tracing and metrics exposition, tuned
-tables, device retries and environment-variable defaults.
+serialized), shard plans (ROADMAP Queue 1 item 9), tenants and fleets,
+the ``serving_batch`` journal records, tracing and metrics exposition,
+tuned tables, device retries and the ``MXNET_TPU_SERVING_*``
+environment defaults (item 5).
 """
 from __future__ import annotations
 
@@ -52,8 +63,8 @@ from ..context import resolve_device
 from ..diagnostics.journal import get_journal
 from ..metric import LatencySummary
 from .batcher import (DeadlineExceeded, PendingResponse, Request,
-                      RequestError, ServerOverloaded, ServerStopped,
-                      drop_expired, take_batch)
+                      RequestCancelled, RequestError, ServerOverloaded,
+                      ServerStopped, drop_expired, take_batch)
 from .buckets import BucketGrid
 from .cache import Predictor, PredictorCache
 
@@ -80,6 +91,22 @@ class ServerConfig:
     pad_value: float = 0.0
     crop_outputs: bool = True                # unpad outputs that kept dims
     result_timeout_s: float = 60.0           # PendingResponse default wait
+    # continuous-batching decode (serving/decode.py): a DecodeModel served
+    # beside the one-shot batcher, its knobs in ``decode`` (a DecodeConfig;
+    # None = the MXNET_TPU_DECODE_* defaults)
+    decode_model: object = None
+    decode: object = None
+
+    def summary(self) -> dict:
+        return {"max_batch": self.max_batch, "max_queue": self.max_queue,
+                "window_ms": self.window_ms,
+                "default_deadline_ms": self.default_deadline_ms,
+                "cache_entries": self.cache_entries,
+                "reload_poll_s": self.reload_poll_s, "dtype": self.dtype,
+                "aot_dir": None,
+                "decode": None if self.decode_model is None
+                else type(self.decode_model).__name__,
+                "shard_plan": None}
 
 
 class Server:
@@ -125,9 +152,17 @@ class Server:
                                        # in flight; worker thread only
         self._last_batch_t = None
         self.last_prewarm = None
+        # the continuous batcher: its own worker thread and slot pool,
+        # started and stopped with this server, on its device
+        self.decoder = None
+        if cfg.decode_model is not None:
+            from .decode import DecodeConfig, DecodeEngine
+            self.decoder = DecodeEngine(cfg.decode_model,
+                                        cfg.decode or DecodeConfig(),
+                                        ctx=self.device)
         self.counters = {"accepted": 0, "served": 0, "shed": 0,
                          "rejected_shape": 0, "rejected_stopped": 0,
-                         "deadline_miss_dequeue": 0,
+                         "cancelled": 0, "deadline_miss_dequeue": 0,
                          "deadline_miss_post_batch": 0, "errors": 0,
                          "reloads": 0, "batches": 0}
 
@@ -141,6 +176,11 @@ class Server:
         self._maybe_reload(force=True)     # begin on the newest valid step
         if self.config.aot_prewarm:
             self.prewarm()                 # the lattice before traffic
+        if self.decoder is not None:
+            # every decode program before traffic: a build mid-decode is
+            # a defect, not a cold start
+            self.decoder.start()
+            self.decoder.warmup()
         if self.param_store is not None:
             self._loader = ThreadPoolExecutor(
                 1, thread_name_prefix="mxnet-torch-serving-reload")
@@ -157,6 +197,8 @@ class Server:
         The join is bounded by ``timeout_s``."""
         if self._worker is None:
             return
+        if self.decoder is not None:
+            self.decoder.stop(timeout_s=timeout_s, drain=drain)
         with self._admit_lock:
             self._closed = True
         if not drain:
@@ -220,12 +262,24 @@ class Server:
                          self._dtype)
 
     # -- client surface ------------------------------------------------------
-    def submit(self, x, deadline_ms=None) -> PendingResponse:
+    def submit(self, x, deadline_ms=None, cancel=None,
+               tenant=None) -> PendingResponse:
         """Admit one sample (NO batch axis). Raises :class:`RequestError`
         for a shape outside the bucket grid or values the server's integer
         dtype would change, :class:`ServerOverloaded`
         when the bounded queue is full and :class:`ServerStopped` once
-        ``stop()`` has closed admission."""
+        ``stop()`` has closed admission. ``cancel`` (a
+        ``threading.Event``) is checked at dequeue: the hedging router
+        sets it on the losing attempt. A single-tenant server refuses a
+        ``tenant`` as the reference does (fleets: ROADMAP Queue 1 item
+        5)."""
+        if tenant is not None:
+            err = RequestError(
+                f"unknown tenant {tenant!r}: this replica serves a "
+                "single-tenant Server, not a fleet (fleets are not ported "
+                "yet: ROADMAP Queue 1 item 5)")
+            err.tenant = str(tenant)
+            raise err
         payload = self._payload(x)
         key = self.grid.feature_key(payload.shape)
         if key is None:
@@ -240,7 +294,8 @@ class Server:
             deadline_ms = self.config.default_deadline_ms
         deadline_s = None if deadline_ms is None or deadline_ms <= 0 \
             else deadline_ms / 1000.0
-        req = Request(payload, payload.shape, key, deadline_s=deadline_s)
+        req = Request(payload, payload.shape, key, deadline_s=deadline_s,
+                      cancel=cancel)
         try:
             with self._admit_lock:
                 stopped = self._closed
@@ -277,27 +332,65 @@ class Server:
         err.retryable = False          # every replica shares the dtype
         raise err
 
-    def predict(self, x, deadline_ms=None, timeout_s=None):
+    def predict(self, x, deadline_ms=None, timeout_s=None, tenant=None):
         """Synchronous convenience: submit + wait."""
-        return self.submit(x, deadline_ms=deadline_ms).result(timeout_s)
+        return self.submit(x, deadline_ms=deadline_ms,
+                           tenant=tenant).result(timeout_s)
+
+    def decode_submit(self, tokens, max_new_tokens=None, deadline_ms=None,
+                      tenant=None):
+        """Admit one autoregressive stream to the continuous batcher
+        (``config.decode_model``); returns a
+        :class:`~.decode.DecodeStream`. Without a decode model it raises
+        the reference's non-retryable :class:`RequestError`."""
+        if self.decoder is None:
+            err = RequestError(
+                "this server has no decode engine (config.decode_model "
+                "is unset) — decode streams are not servable here")
+            err.retryable = False
+            err.tenant = tenant
+            raise err
+        return self.decoder.submit(tokens, max_new_tokens=max_new_tokens,
+                                   deadline_ms=deadline_ms, tenant=tenant)
+
+    def decode(self, tokens, max_new_tokens=None, deadline_ms=None,
+               timeout_s=None, tenant=None):
+        """Synchronous decode convenience: submit + wait → token list."""
+        return self.decode_submit(
+            tokens, max_new_tokens=max_new_tokens, deadline_ms=deadline_ms,
+            tenant=tenant).result(timeout_s)
 
     def queue_depth(self) -> int:
         return self._queue.qsize()
+
+    def beacon(self) -> dict:
+        """Cheap readiness facts for the replica pool's heartbeat payload
+        (no percentile math, no cache lock)."""
+        t = self._last_batch_t
+        alive = self._worker is not None and self._worker.is_alive()
+        return {"queue_depth": self.queue_depth(),
+                "params_step": self._params_step,
+                "last_batch_age_s": None if t is None
+                else round(time.monotonic() - t, 3),
+                "ready": alive and not self._closed}
 
     def stats(self) -> dict:
         with self._lock:
             counters = dict(self.counters)
         t = self._last_batch_t
-        return {"device": str(self.device),
-                "queue_depth": self.queue_depth(),
-                "params_step": self._params_step,
-                "last_batch_age_s": None if t is None
-                else time.monotonic() - t,
-                "cache": self.cache.stats(),
-                "prewarm": self.last_prewarm,
-                "latency_ms": self.latency.summary(),
-                "exec_ms": self.exec_ms.summary(),
-                **counters}
+        out = {"device": str(self.device),
+               "queue_depth": self.queue_depth(),
+               "params_step": self._params_step,
+               "last_batch_age_s": None if t is None
+               else time.monotonic() - t,
+               "cache": self.cache.stats(),
+               "prewarm": self.last_prewarm,
+               "latency_ms": self.latency.summary(),
+               "exec_ms": self.exec_ms.summary(),
+               **counters}
+        if self.decoder is not None:
+            out["decode"] = self.decoder.stats()
+        return out
 
     # -- worker --------------------------------------------------------------
     def _run(self):
@@ -344,9 +437,26 @@ class Server:
     def _flush(self, pending):
         """Expire, group and run one micro-batch off ``pending``."""
         drop_expired(pending, self._on_dequeue_expired)
+        self._drop_cancelled(pending)
         batch, bucket, key = take_batch(pending, self.grid)
         if batch:
             self._process(batch, bucket, key)
+
+    def _drop_cancelled(self, pending):
+        """The dequeue half of hedging: a request whose cancel event is
+        set (its twin already answered) is resolved with
+        :class:`RequestCancelled` instead of spending a batch slot."""
+        keep = []
+        for req in pending:
+            if req.cancelled():
+                with self._lock:
+                    self.counters["cancelled"] += 1
+                get_journal().event("serving_cancelled")
+                req.set_error(RequestCancelled(
+                    "cancelled at dequeue (hedged twin already answered)"))
+            else:
+                keep.append(req)
+        pending[:] = keep
 
     def _on_dequeue_expired(self, req):
         late = req.late_ms()
@@ -469,7 +579,9 @@ class Server:
             self._check_reloadable(loaded)
             self.block.load_dict(loaded, ctx=self._ctx, ignore_extra=True)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                # this stream only: a device-wide synchronize fails while
+                # another thread captures a graph (a replica starting)
+                torch.cuda.current_stream(self.device).synchronize()
         except MXNetError as e:
             store.mark_bad(step, revert_to=prev)
             get_journal().event("serving_reload_failed", step=step,

@@ -8,7 +8,9 @@ hybridized narrow models against eager twins, the server's graphed
 predictors, and ``parallel.ShardedTrainer``'s whole step as one graph
 (an fp16 overflow skipped inside it; graphed steps against eager ones,
 for every optimizer with a functional rule; ``run_steps`` windows against
-their eager loop and against ``step()`` calls).
+their eager loop and against ``step()`` calls); a capture's launch count
+beside another thread's launches, and the decode engine's programs as
+CUDA graphs.
 Without a card they skip; on the card run them with ``python -m pytest
 -m cuda --noconftest tests/test_torch_cuda.py`` (the suite's conftest
 imports the JAX package)."""
@@ -604,6 +606,49 @@ def test_flash_attention_and_backward_replay_equal_their_launches(cuda):
             assert torch.equal(got, want)
 
 
+def test_capture_counts_only_its_own_launches(cuda):
+    """A program records the launches made into its capture (K3's forward
+    on the capturing thread, both K3-bwd kernels on the autograd engine's
+    thread) while another thread launches K2 eagerly and copies its output
+    to the host the whole time (allowed: the capture is thread_local);
+    those launches stay in the counts and out of the program."""
+    import threading
+
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Attn(HybridBlock):
+        def forward(self, q, k, v):
+            return fa.flash_attention(q, k, v, causal=True)
+
+    q, k, v = (t.clone().requires_grad_()
+               for t in flash_inputs((1, 2, 1100, 1100, 64, True, "bhsd"),
+                                     torch.float32, cuda))
+    y = torch.randn(256, 768, device=cuda)
+    bias = torch.randn(768, device=cuda)
+    stop, spun = threading.Event(), [0]
+
+    def spin():                     # a server's worker: launch, copy out
+        while not stop.is_set():
+            me.fused_matmul_epilogue(y, bias, act_type="relu").cpu()
+            spun[0] += 1
+
+    kernels.reset_launch_counts()
+    other = threading.Thread(target=spin)
+    other.start()
+    try:
+        prog = cg.capture(cg.CudaGraphs(), Attn(), (q, k, v), {}, True, cuda)
+    finally:
+        stop.set()
+        other.join()
+    assert prog.fwd_launches == {"flash_attention": 1}
+    assert prog.bwd_launches == {"flash_attention_bwd_dkv": 1,
+                                 "flash_attention_bwd_dq": 1}
+    assert kernels.launch_counts() == dict(   # the 2 warm-up passes
+        _NONE, matmul_epilogue=spun[0], flash_attention=2,
+        flash_attention_bwd_dkv=2, flash_attention_bwd_dq=2)
+    prog.release()
+
+
 def _narrow_resnet(cuda):
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
     net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
@@ -1102,3 +1147,25 @@ def test_graphed_run_steps_equals_its_eager_loop(cuda):
     assert torch.equal(last, losses[-1])
     for a, b in zip(window._trainable, steps._trainable):
         assert torch.equal(a, b)
+
+
+def test_decode_programs_are_graphs_on_the_card(cuda):
+    import numpy as np
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.serving import decode
+    eng = decode.DecodeEngine(decode.TinyLM(),
+                              decode.DecodeConfig(slots=4, window_ms=1.0),
+                              ctx=tmx.gpu(0)).start()
+    try:
+        assert eng.warmup()["compiled"] == 7
+        assert all(p.graph is not None for p in eng._programs.values())
+        rng = np.random.RandomState(0)
+        specs = [(rng.randint(0, 251, int(rng.randint(1, 200))).tolist(),
+                  int(rng.randint(1, 56))) for _ in range(16)]
+        streams = [eng.submit(p, max_new_tokens=n) for p, n in specs]
+        assert [s.result(60) for s in streams] == \
+            [eng.model.reference(p, n) for p, n in specs]
+        assert eng.stats()["compiles"] == 7
+    finally:
+        eng.stop()

@@ -18,6 +18,8 @@ the CPU.
 3. ``Server.prewarm`` on the CPU returns the reference's keys.
 
 Tolerances are stated in each test."""
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from mxnet_tpu_torch.gluon import cached_graph as cg
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
+from mxnet_tpu_torch.kernels import _common as _kernels_common
 from mxnet_tpu_torch.kernels import conv_epilogue as ce
 from mxnet_tpu_torch.serving import Server, ServerConfig
 
@@ -177,7 +180,10 @@ class Stub:
     def capture(self, fn, pool, generators, device):
         self.generators.append(list(generators))
         outer = trandom._tape.draws            # the capture's draw list
-        with trandom.draws(keep_states=False) as seen:
+        # the run stands for a capture: the stream "is capturing", so a
+        # wrapper's launch counts as captured, not run
+        with trandom.draws(keep_states=False) as seen, mock.patch.object(
+                _kernels_common, "stream_capturing", lambda: True):
             out = fn()
         outer.drawn.extend(seen.drawn)
         return _StubGraph(fn, out, seen.drawn), out
@@ -417,8 +423,8 @@ def test_stub_clearing_and_rebinding():
 
 def test_stub_launch_counts_added_per_replay():
     """A forward that launches a kernel once: the warm-up counts (it ran),
-    the capture is taken back (it ran nothing), each replay adds the
-    launch it captured."""
+    the capture does not (its stream was capturing: it ran nothing), each
+    replay adds the launch it captured."""
 
     class Counted(tnn.HybridSequential):
         def forward(self, x):
