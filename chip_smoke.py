@@ -379,6 +379,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                streams through Router.decode_call each finish exactly
                (some on r1 after SlotsExhausted on r0) or end in
                SlotsExhausted / ServerOverloaded.
+22. trace    — span tracing (mxnet_tpu_torch.observability). (a) phase
+               6's burst (full-width BERT-base, S 128, 32 requests from 4
+               threads) in rounds under MXNET_TPU_TRACE off, ring and
+               journal: sequences/s, p50 and p99 per mode, K2 25 launches
+               per batch forward in each (and the same count in each for
+               4 batches of 8 sent one at a time), every answer within
+               1e-5 of max |value| of the first burst's. (b) every answered request of the ring and journal
+               bursts owns a serving_request tree (enqueue, execute,
+               respond) under its batch, and no execute span is shorter
+               than its predictor graph's replay timed with CUDA events.
+               (c) the BERT-base MLM at batch 8, S 128, bf16 through
+               ShardedTrainer: 4 graphed steps off, then 4 under journal,
+               each under torch.cuda.set_sync_debug_mode("warn"): the same
+               number of synchronizing calls, one
+               sharded_trainer.compiled_step span per step and one
+               mxnet_tpu_xla_compiles_total per capture. (d) a traced pod
+               (MXNET_TPU_TRACE=journal, PoolConfig(trace_dir=)): 64
+               requests from 8 clients through a Router over two
+               BERT-base LocalReplicas of phase 6's weights (phase 21
+               stops phase 20's pool), split per request into router,
+               queue wait, execute and respond; then two ProcReplica mlp
+               workers, one SIGKILLed mid-burst and respawned; the run
+               directory merged by observability.aggregate: one trace_id
+               in the router's journal and a worker's, the killed worker's
+               flight dump read back, and critical paths printed span by
+               span.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
@@ -386,7 +412,7 @@ reads them just after, and each training phase just before its steps
 after the capturing window; phase 18 per policy after the capturing
 step; phase 19 per burst; phase 20 per burst, in a worker from its
 stats frames; phase 21 over the decode streams and the BERT burst
-beside them). A graph's replay
+beside them; phase 22 per burst and per mode). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -5209,6 +5235,556 @@ def _serve_decode(torch, mx, card, pl):
             "routed_done": len(done), "routed_moved": moved,
             "routed_shed": len(shed)}
 
+# -- phase 22: trace -----------------------------------------------------------
+TR_ROOT = os.path.join(ROOT, "build", "chip_smoke_trace")
+TR_MODES = ("off", "ring", "journal")
+TR_ROUNDS = 3                        # interleaved bursts per mode
+TR_REPLAY_REPS = 5                   # CUDA-event timings of a graph replay
+TR_TRAIN_BATCH = 8                   # (c): the BERT-base MLM at S 128
+TR_STEPS = 4                         # counted graphed steps per mode
+TR_CLIENTS = 8                       # (d): client threads of the routed burst
+TR_FLIGHT_S = "0.5"                  # the workers' flight-recorder flush
+TR_SYNC_WARNING = "called a synchronizing CUDA operation"
+TR_ANSWER_RTOL = 1e-5                # a burst's answers vs the first's
+
+
+def phase_trace(torch, mx, card, ctx, pl):
+    """Span tracing on the card; ``pl`` is phase 20's result (its burst
+    1 is (h)'s untraced rate). The trace mode is set back to off at the
+    end."""
+    import shutil
+
+    from mxnet_tpu_torch.observability import trace
+    shutil.rmtree(TR_ROOT, ignore_errors=True)
+    os.makedirs(TR_ROOT)
+    try:
+        out = tr_cost_and_trees(torch, mx, card, ctx)
+        out["sync"] = tr_sync(torch, mx, card, ctx)
+        out["pod"] = tr_pod(torch, mx, card, ctx, pl["burst1"])
+    finally:
+        trace.configure(mode="off")
+    return out
+
+
+def tr_children(spans):
+    """{parent span id: [span dicts]} of a span list."""
+    kids = {}
+    for sp in spans:
+        kids.setdefault(sp.get("parent_id"), []).append(sp)
+    return kids
+
+
+def tr_trees(spans, n_requests, batches, what):
+    """Fail unless ``spans`` (one burst's ring) hold ``n_requests``
+    serving_request roots, each closed "ok" with exactly one enqueue,
+    execute and respond child, each execute naming one of the burst's
+    ``batches`` serving_batch spans. Returns the execute spans."""
+    kids = tr_children(spans)
+    roots = [sp for sp in spans if sp["name"] == "serving_request"]
+    batch_ids = {sp["span_id"] for sp in spans
+                 if sp["name"] == "serving_batch"}
+    executes = []
+    for root in roots:
+        names = sorted(c["name"] for c in kids.get(root["span_id"], ()))
+        ex = [c for c in kids.get(root["span_id"], ())
+              if c["name"] == "execute"]
+        if root.get("parent_id") is not None \
+                or (root.get("attrs") or {}).get("status") != "ok" \
+                or names != ["enqueue", "execute", "respond"] \
+                or ex[0]["attrs"]["batch_span"] not in batch_ids:
+            fail(f"trace (b) {what}: request tree {root} with children "
+                 f"{names}")
+        executes.append(ex[0])
+    if len(roots) != n_requests or len(batch_ids) != batches:
+        fail(f"trace (b) {what}: {len(roots)} serving_request trees and "
+             f"{len(batch_ids)} serving_batch spans for {n_requests} "
+             f"requests in {batches} batches")
+    return executes
+
+
+def tr_replay_ms(torch, pred):
+    """The least of TR_REPLAY_REPS replays of a predictor's graph timed
+    with CUDA events on this thread's stream."""
+    times = []
+    for _ in range(TR_REPLAY_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pred.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times)
+
+
+def tr_cost_and_trees(torch, mx, card, ctx):
+    """(a) and (b) on a fresh phase-6 server."""
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.diagnostics import journal
+    from mxnet_tpu_torch.observability import trace
+    from mxnet_tpu_torch.observability.metrics import LatencySummary
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    net = seeded_bert(torch, mx, ctx, BERT_SEQ, (1, 2, 4, 8))
+    ids = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (N_REQUESTS, BERT_SEQ)).astype(np.int32)
+    server = Server(net, ServerConfig(max_batch=8, dtype="int32",
+                                      aot_prewarm=((BERT_SEQ,),)),
+                    ctx=ctx).start()
+    b = BATCH
+    while b >= 1:                          # every bucket on the worker
+        burst(server, ids, range(b), 1)
+        b //= 2
+    # one journal sink for every mode: the serving_batch records go to it
+    # in all three, the spans only under journal
+    journal.reset_journal(os.path.join(TR_ROOT, "journal-cost.jsonl"))
+    rows = {m: {"wall_s": 0.0, "n": 0, "k2": 0, "batches": 0,
+                "lat": LatencySummary(f"trace_{m}_ms")} for m in TR_MODES}
+    first, executes, n_trees, worst = None, [], 0, 0.0
+    for _ in range(TR_ROUNDS):
+        for mode in TR_MODES:
+            tracer = trace.configure(mode=mode)
+            row = rows[mode]
+            server.latency = row["lat"]
+            before = server.stats()["batches"]
+            kernels.reset_launch_counts()
+            results, wall = burst(server, ids, range(N_REQUESTS), 4)
+            launches = kernels.launch_counts()
+            batches = server.stats()["batches"] - before
+            if launches["matmul_epilogue"] != BERT_K2_PER_FORWARD * batches \
+                    or any(n for k, n in launches.items()
+                           if k != "matmul_epilogue"):
+                fail(f"trace (a) {mode}: launches {launches} for {batches} "
+                     "batch forwards")
+            got = [np.stack([results[i][k] for i in range(N_REQUESTS)])
+                   for k in range(3)]
+            if first is None:
+                first = got
+            # batches form differently from burst to burst, and a bucket
+            # is its own graph: the answers agree to rounding
+            rel = max(float(np.abs(u - v).max() / np.abs(v).max())
+                      for u, v in zip(got, first))
+            worst = max(worst, rel)
+            if not rel <= TR_ANSWER_RTOL:
+                fail(f"trace (a) {mode}: answers differ from the first "
+                     f"burst's by {rel:.3e} of max |value|")
+            row["wall_s"] += wall
+            row["n"] += N_REQUESTS
+            row["k2"] += launches["matmul_epilogue"]
+            row["batches"] += batches
+            if mode != "off":
+                spans = tracer.spans()
+                executes += tr_trees(spans, N_REQUESTS, batches, mode)
+                n_trees += N_REQUESTS
+            elif tracer.spans():
+                fail("trace (a) off: the ring holds spans")
+    # the same batches in every mode: one batch of BATCH at a time
+    fixed = {}
+    for mode in TR_MODES:
+        trace.configure(mode=mode)
+        kernels.reset_launch_counts()
+        for k in range(N_REQUESTS // BATCH):
+            burst(server, ids, range(BATCH * k, BATCH * (k + 1)), 1)
+        fixed[mode] = kernels.launch_counts()["matmul_epilogue"]
+    trace.configure(mode="off")
+    log(f"trace (a): K2 launches over {N_REQUESTS // BATCH} batches of "
+        f"{BATCH} submitted one batch at a time: {fixed}; every burst's "
+        f"answers within {worst:.3e} of max |value| of the first burst's "
+        f"(tolerance {TR_ANSWER_RTOL:g})")
+    if set(fixed.values()) != {BERT_K2_PER_FORWARD * (N_REQUESTS // BATCH)}:
+        fail(f"trace (a): K2 launches {fixed} for the same batches")
+    cost = {}
+    for mode, row in rows.items():
+        lat = row["lat"].summary()
+        cost[mode] = {"per_s": row["n"] / row["wall_s"], "p50": lat["p50"],
+                      "p99": lat["p99"], "k2": row["k2"],
+                      "k2_fixed": fixed[mode],
+                      "batches": row["batches"],
+                      "k2_per_batch": row["k2"] / row["batches"]}
+        log(f"trace (a) MXNET_TPU_TRACE={mode}: {row['n']} requests in "
+            f"{TR_ROUNDS} bursts of {N_REQUESTS} (4 threads, 8 at once), "
+            f"rounds interleaved with the other modes: "
+            f"{cost[mode]['per_s']:.2f} sequences/s, latency p50 "
+            f"{lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms; K2 "
+            f"{row['k2']} launches over {row['batches']} batch forwards "
+            f"({cost[mode]['k2_per_batch']:g} each) on {card}")
+    # (b): each execute span against its graph's replay on the card
+    floor = {}
+    for (bucket, _key, _dt), pred in server.cache.entries():
+        if any(e["attrs"]["bucket"] == bucket for e in executes):
+            floor[bucket] = tr_replay_ms(torch, pred)
+    short = [e for e in executes
+             if e["dur_s"] * 1e3 < floor[e["attrs"]["bucket"]]]
+    by_bucket = {bk: sorted(e["dur_s"] * 1e3 for e in executes
+                            if e["attrs"]["bucket"] == bk) for bk in floor}
+    log(f"trace (b): {n_trees} answered requests of the ring and journal "
+        f"bursts, each a serving_request tree (enqueue, execute, respond) "
+        f"under a serving_batch span; execute ms per bucket (min / median "
+        f"over requests) against the graph replay's CUDA-event ms (least "
+        f"of {TR_REPLAY_REPS}): "
+        + ", ".join(f"bucket {bk}: {v[0]:.3f} / {v[len(v) // 2]:.3f} vs "
+                    f"{floor[bk]:.3f}" for bk, v in sorted(by_bucket.items()))
+        + f" on {card}")
+    if short:
+        fail(f"trace (b): {len(short)} execute spans shorter than their "
+             f"graph's replay: {short[:2]}")
+    server.stop()
+    del server, net
+    torch.cuda.empty_cache()
+    return {"cost": cost, "execute_vs_replay": {
+        bk: {"execute_min_ms": v[0], "replay_ms": floor[bk]}
+        for bk, v in by_bucket.items()}}
+
+
+def tr_syncs(torch, fn):
+    """(synchronizing calls that torch.cuda.set_sync_debug_mode("warn")
+    reports while ``fn`` runs, seconds)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _sync(torch)
+        wall = time.perf_counter() - t0
+    return sum(TR_SYNC_WARNING in str(w.message) for w in caught), wall
+
+
+def tr_sync(torch, mx, card, ctx):
+    """(c) Graphed ShardedTrainer steps of the BERT-base MLM, off against
+    journal, counting synchronizing calls."""
+    import numpy as np
+    from mxnet_tpu_torch import kernels, observability
+    from mxnet_tpu_torch.diagnostics import journal
+    from mxnet_tpu_torch.observability import metrics, trace
+    dev = ctx.torch_device
+    tokens = np.random.RandomState(0).randint(
+        0, BERT_VOCAB, (TR_TRAIN_BATCH, BERT_SEQ))
+    ids = torch.from_numpy(tokens.astype(np.int32)).to(dev)
+    model, trainer = sh_bert(torch, mx, ctx, "bfloat16", BERT_SEQ)
+    trainer.prepare(ids)
+    metrics.reset_metrics()
+    trace.configure(mode="off")
+    trainer.step(ids, ids)                 # the capture
+    _sync(torch)
+    # the detector's control: one host read it must see
+    control = tr_syncs(torch, lambda: torch.ones(1, device=dev).item())[0]
+    if control < 1:
+        fail(f"trace (c): a .item() read counted {control} synchronizing "
+             "calls")
+    jpath = os.path.join(TR_ROOT, "journal-train.jsonl")
+    journal.reset_journal(jpath)
+    rows = {}
+
+    def steps():
+        for _ in range(TR_STEPS):
+            trainer.step(ids, ids)
+
+    for mode in ("off", "journal"):
+        trace.configure(mode=mode)
+        kernels.reset_launch_counts()
+        syncs, wall = tr_syncs(torch, steps)
+        rows[mode] = {"syncs": syncs, "step_ms": wall * 1e3 / TR_STEPS,
+                      "k2": kernels.launch_counts()["matmul_epilogue"]}
+    trace.configure(mode="off")
+    spans = pl_events(jpath, "span")
+    names = [sp["name"] for sp in spans]
+    stats = observability.compile_stats()
+    phases = metrics.default_registry().snapshot()[
+        "mxnet_tpu_step_phase_ms"]["values"]
+    replays = phases["trainer=sharded_trainer,phase=compiled_step"]["count"]
+    log(f"trace (c): BERT-base MLM, batch {TR_TRAIN_BATCH}, S {BERT_SEQ}, "
+        f"bf16, ShardedTrainer.step as a graph replay: {TR_STEPS} steps "
+        f"per mode under torch.cuda.set_sync_debug_mode(\"warn\"): "
+        + "; ".join(f"{m}: {r['syncs']} synchronizing calls, "
+                    f"{r['step_ms']:.3f} ms per step, K2 {r['k2']}"
+                    for m, r in rows.items())
+        + f" (a control .item(): {control}); journal spans: "
+        f"{names.count('sharded_trainer.step')} sharded_trainer.step, "
+        f"{names.count('sharded_trainer.compiled_step')} compiled_step; "
+        f"compiled_step phases {replays} (the capture's and "
+        f"{2 * TR_STEPS} replays); program builds {stats['by_site']} "
+        f"for {len(trainer._programs)} captured program(s) on {card}")
+    if rows["off"]["syncs"] != rows["journal"]["syncs"] \
+            or rows["off"]["k2"] != rows["journal"]["k2"]:
+        fail(f"trace (c): off and journal steps differ: {rows}")
+    if names.count("sharded_trainer.compiled_step") != TR_STEPS \
+            or names.count("sharded_trainer.step") != TR_STEPS \
+            or replays != 1 + 2 * TR_STEPS:
+        fail(f"trace (c): {names.count('sharded_trainer.compiled_step')} "
+             f"compiled_step spans, {replays} phases for {TR_STEPS} steps")
+    if stats["compiles"] != len(trainer._programs) \
+            or len(trainer._programs) != 1:
+        fail(f"trace (c): {stats['compiles']} program builds for "
+             f"{len(trainer._programs)} captures")
+    sh_release(torch, trainer)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tr_split(spans):
+    """Per routed request of ``spans`` (one process's ring): router_ms
+    (router_request minus its serving_request), queue_ms (serving_request
+    start to execute start: admission, queue, batching window, padding),
+    execute_ms and respond_ms (execute end to serving_request end), and
+    the request's trace id and total."""
+    kids = tr_children(spans)
+    rows = []
+    for root in (sp for sp in spans if sp["name"] == "router_request"):
+        att = [c for c in kids.get(root["span_id"], ())
+               if c["name"] == "router_attempt"]
+        req = [c for a in att for c in kids.get(a["span_id"], ())
+               if c["name"] == "serving_request"
+               and (c.get("attrs") or {}).get("status") == "ok"]
+        if len(req) != 1:
+            fail(f"trace (d): router_request {root['trace_id']} has "
+                 f"{len(req)} answered serving_request spans")
+        req = req[0]
+        ex = [c for c in kids.get(req["span_id"], ())
+              if c["name"] == "execute"][0]
+        end_req = req["start_s"] + req["dur_s"]
+        rows.append({
+            "trace_id": root["trace_id"], "total_ms": root["dur_s"] * 1e3,
+            "router_ms": (root["dur_s"] - req["dur_s"]) * 1e3,
+            "queue_ms": (ex["start_s"] - req["start_s"]) * 1e3,
+            "execute_ms": ex["dur_s"] * 1e3,
+            "respond_ms": (end_req - ex["start_s"] - ex["dur_s"]) * 1e3})
+    return rows
+
+
+def tr_print_path(what, path, card):
+    if not path.get("ok"):
+        fail(f"trace (d): critical path of {what}: {path}")
+    log(f"trace (d) critical path of {what} (trace {path['trace_id']}, "
+        f"{path['wall_ms']:.3f} ms wall, processes {path['processes']}) on "
+        f"{card}:")
+    for st in path["steps"]:
+        log(f"    {st['name']:<20} {st['proc']:<24} start "
+            f"{st['start_ms']:9.3f} ms  dur {st['dur_ms']:9.3f} ms"
+            + (f"  gap {st['gap_ms']:.3f} ms" if "gap_ms" in st else ""))
+
+
+def tr_bert_pool(torch, mx, card, ctx):
+    """(h)'s replicas again (phase 21 stopped phase 20's pool): two
+    full-width BERT-base LocalReplicas of phase 6's seeded weights, every
+    bucket captured at start(); the CPU outputs of the PL_DISTINCT
+    sequences, keyed by the served step (None: no ParamStore)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.serving import (PoolConfig, ReplicaPool, Server,
+                                         ServerConfig)
+
+    def factory():
+        return Server(seeded_bert(torch, mx, ctx, BERT_SEQ, (1,)),
+                      ServerConfig(max_batch=8, dtype="int32",
+                                   aot_prewarm=((BERT_SEQ,),),
+                                   reload_poll_s=-1.0), ctx=ctx)
+
+    pool = ReplicaPool(os.path.join(TR_ROOT, "bert"), PoolConfig(**PL_POOL))
+    pool.add_local("r0", factory).add_local("r1", factory)
+    t0 = time.perf_counter()
+    pool.start()
+    log(f"trace (d): 2 LocalReplicas of full-width BERT-base (phase 6's "
+        f"seeded weights, buckets 1/2/4/8 captured) ready in "
+        f"{time.perf_counter() - t0:.2f} s on {card}")
+    ids = np.random.RandomState(SEED + 20).randint(
+        0, BERT_VOCAB, (PL_DISTINCT, BERT_SEQ)).astype(np.int32)
+    cpu_net = bert_12_768_12(use_decoder=False)
+    cpu_net.load_dict({k: v.detach().cpu().numpy() for k, v in
+                       pool.replicas["r0"].server.block.collect_params()
+                       .items()}, ctx=mx.cpu())
+    with torch.inference_mode():
+        outs = [cpu_net(torch.from_numpy(ids[i:i + 8]))
+                for i in range(0, PL_DISTINCT, 8)]
+    refs = {None: [np.concatenate([o[k].numpy() for o in outs])
+                   for k in range(3)]}
+    return pool, ids, refs
+
+
+def tr_routed_bert(torch, mx, card, ctx, tracer, untraced):
+    """(d) 1: BERT-base through a journal-traced router at TR_CLIENTS
+    clients, each request's time split by its spans. Returns the split's
+    medians and p99s, the rate, the p99 and the median request's trace
+    id."""
+    from mxnet_tpu_torch.serving import Router, RouterConfig
+    pool, ids, refs = tr_bert_pool(torch, mx, card, ctx)
+    router = Router(pool, RouterConfig(retries=PL_RETRIES))
+    try:
+        for b in (8, 4, 2, 1):
+            pl_burst(router, ids, b, n_threads=1, what="traced warm")
+        tracer.clear()
+        recs, wall = pl_burst(router, ids, PL_REQUESTS,
+                              n_threads=TR_CLIENTS, what="traced burst")
+        split = tr_split(tracer.spans())
+    finally:
+        router.stop()
+        pool.stop()
+    pl_check("traced burst", recs, refs)
+    if len(split) != PL_REQUESTS:
+        fail(f"trace (d): {len(split)} routed request trees for "
+             f"{PL_REQUESTS} requests")
+    lat = pl_latency(recs)
+    parts = ("router_ms", "queue_ms", "execute_ms", "respond_ms",
+             "total_ms")
+    med = {k: _median([r[k] for r in split]) for k in parts}
+    p99 = {k: sorted(r[k] for r in split)[
+        min(int(math.ceil(0.99 * len(split))) - 1, len(split) - 1)]
+        for k in parts}
+    log(f"trace (d) (h) traced: {PL_REQUESTS} requests from {TR_CLIENTS} "
+        f"clients through router.call over the two BERT-base "
+        f"LocalReplicas, MXNET_TPU_TRACE=journal: {PL_REQUESTS / wall:.2f} "
+        f"sequences/s, latency p50 {lat['p50']:.3f} ms, p99 "
+        f"{lat['p99']:.3f} ms (phase 20's burst 1 untraced: "
+        f"{untraced['per_s']:.2f} sequences/s, p99 "
+        f"{untraced['p99']:.3f} ms); per request, median / p99 ms: "
+        + ", ".join(f"{k[:-3]} {med[k]:.3f} / {p99[k]:.3f}" for k in parts)
+        + f" on {card}")
+    median = sorted(split, key=lambda r: r["total_ms"])[len(split) // 2]
+    return {"split_median_ms": med, "split_p99_ms": p99,
+            "per_s": PL_REQUESTS / wall, "p99": lat["p99"],
+            "median_trace": median["trace_id"]}
+
+
+def tr_workers(torch, mx, ctx, run_dir):
+    """(d) 2: two mlp workers with PoolConfig(trace_dir=run_dir) behind
+    the traced router; w1 SIGKILLed mid-burst and respawned by the
+    monitor. Returns the killed pid."""
+    import signal
+
+    import numpy as np
+    from mxnet_tpu_torch.serving import (PoolConfig, ReplicaPool, Router,
+                                         RouterConfig)
+    from mxnet_tpu_torch.serving.worker import _build_block
+    env = dict(os.environ, MXNET_TPU_JOURNAL="off",
+               MXNET_TPU_TRACE_FLIGHT_S=TR_FLIGHT_S,
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    pool = ReplicaPool(os.path.join(TR_ROOT, "procs"),
+                       PoolConfig(**PL_POOL, trace_dir=run_dir))
+    for rid in ("w0", "w1"):
+        pool.add_proc(rid, {"--model": "mlp", "--dim": PL_MLP_DIM,
+                            "--ctx": ctx.device_type, "--window-ms": 2.0,
+                            "--reload-poll-s": -1.0}, env=env)
+    x = np.random.RandomState(SEED + 24).randn(
+        PL_REQUESTS, PL_MLP_DIM).astype(np.float32)
+    cpu = _build_block("mlp", PL_MLP_DIM, mx.cpu())
+    with torch.inference_mode():
+        ref = cpu(torch.from_numpy(x)).numpy()
+
+    def check(name, records):
+        got = np.stack([r[1] for r in records])
+        want = ref[[r[0] % PL_REQUESTS for r in records]]
+        err = float(np.abs(got - want).max())
+        if not err <= PL_MLP_RTOL * float(np.abs(want).max()):
+            fail(f"trace (d): {name}: worker answers differ from the CPU "
+                 f"mlp by {err}")
+
+    router = Router(pool, RouterConfig(retries=PL_RETRIES))
+    killed = {}
+    try:
+        pool.start(wait_ready=False)
+        pl_wait(lambda: all(s.ready for s in pool.view()),
+                "the traced workers")
+        check("burst A", pl_burst(router, x, PL_REQUESTS,
+                                  what="traced workers burst A")[0])
+        # two flush intervals: a periodic flight dump holds burst A's
+        # spans before the kill
+        time.sleep(2 * float(TR_FLIGHT_S))
+        pool.monitor_start()
+        victim = pool.replicas["w1"]
+
+        def sigkill(records):
+            pl_wait(lambda: len(records) >= PL_KILL_AFTER,
+                    "the workers' answers")
+            killed["pid"] = victim.pid()
+            os.kill(killed["pid"], signal.SIGKILL)
+
+        def back():
+            return "pid" in killed and victim.pid() != killed["pid"] and \
+                {s.id: s for s in pool.view()}["w1"].ready
+
+        check("SIGKILL burst", pl_burst(
+            router, x, PL_REQUESTS, during=sigkill, until=back,
+            what="traced workers burst (SIGKILL)")[0])
+        check("burst B", pl_burst(router, x, PL_REQUESTS,
+                                  what="traced workers burst B")[0])
+    finally:
+        router.stop()
+        pool.stop()
+    return killed["pid"]
+
+
+def tr_pod(torch, mx, card, ctx, untraced):
+    """(d) The traced pod: (h)'s BERT-base replicas behind a traced
+    router, two subprocess workers with PoolConfig(trace_dir=), one
+    SIGKILLed; the run directory merged. ``untraced`` is phase 20's
+    burst 1."""
+    from mxnet_tpu_torch.diagnostics import journal
+    from mxnet_tpu_torch.observability import aggregate, flight, trace
+    run_dir = os.path.join(TR_ROOT, "run")
+    os.makedirs(run_dir)
+    journal.reset_journal(os.path.join(run_dir, "journal-router.jsonl"))
+    tracer = trace.configure(mode="journal")
+    try:
+        out = tr_routed_bert(torch, mx, card, ctx, tracer, untraced)
+        killed_pid = tr_workers(torch, mx, ctx, run_dir)
+    finally:
+        trace.configure(mode="off")
+
+    # 3. the run directory, merged
+    t0 = time.perf_counter()
+    procs = aggregate.scan_run_dir(run_dir)
+    doc = aggregate.aggregate_chrome(run_dir)
+    merge_s = time.perf_counter() - t0
+    with open(os.path.join(TR_ROOT, "pod_trace.json"), "w") as f:
+        json.dump(doc, f)
+    routers = [p for p in procs if p.identity.get("replica") is None]
+    workers = {p.identity.get("replica"): p for p in procs
+               if p.identity.get("replica") is not None}
+    if len(routers) != 1 or sorted(workers) != ["w0", "w1"]:
+        fail(f"trace (d): processes {[p.label for p in procs]}")
+    routed = {sp["trace_id"] for sp in routers[0].spans
+              if sp["name"] == "router_request"}
+    crossing = sorted(routed & {sp["trace_id"] for w in workers.values()
+                                for sp in w.spans
+                                if sp["name"] == "serving_request"})
+    dumps = {}
+    for name in sorted(os.listdir(run_dir)):
+        if name.startswith("flight-replica-w1"):
+            doc_f = flight.read_flight(os.path.join(run_dir, name))
+            dumps[doc_f["pid"]] = (name, doc_f)
+    if killed_pid not in dumps:
+        fail(f"trace (d): no flight dump of the killed worker "
+             f"(pid {killed_pid}) among {sorted(os.listdir(run_dir))}")
+    kname, kdoc = dumps[killed_pid]
+    log(f"trace (d) pod run directory: {sorted(os.listdir(run_dir))}; "
+        f"merged in {merge_s:.3f} s into {len(doc['traceEvents'])} events "
+        f"over processes {doc['metadata']['processes']}; {len(crossing)} "
+        f"trace ids cross from the router's journal into a worker's; the "
+        f"killed w1 (pid {killed_pid}): {kname}, reason "
+        f"{kdoc['reason']!r}, seq {kdoc['seq']}, {len(kdoc['spans'])} spans, "
+        f"{len(kdoc['journal_tail'])} journal records, last phase "
+        f"{kdoc['last_phase']!r}; ring {kdoc['trace']} on {card}")
+    if not crossing or not kdoc["spans"]:
+        fail("trace (d): no trace spans the router and a worker, or the "
+             "killed worker's dump holds no span")
+    report = aggregate.timeline_report(run_dir, trace_id=crossing[-1])
+    path = report.get("critical_path") or {}
+    if not report["ok"] or len(path.get("processes", ())) < 2:
+        fail(f"trace (d): timeline report {report}")
+    tr_print_path("a routed request of BERT-base at 8 clients (the median "
+                  "total)", aggregate.critical_path(
+                      procs, trace_id=out["median_trace"]), card)
+    tr_print_path("a routed request to a subprocess worker", path, card)
+    return {**out, "crossing": len(crossing), "merge_s": merge_s,
+            "killed_dump": {"reason": kdoc["reason"],
+                            "spans": len(kdoc["spans"])}}
+
 
 def phase_kernel_bf16(torch, ce, me):
     """K1 and K2 in bfloat16 at this phase's shapes: the 48 epilogues of a
@@ -5321,6 +5897,8 @@ def main():
         torch, mx, card, mx.gpu(0), out["serve BERT"]["burst"]))
     run("serve-decode", lambda: phase_serve_decode(torch, mx, card,
                                                    out["serve-pool"]))
+    run("trace", lambda: phase_trace(torch, mx, card, mx.gpu(0),
+                                     out["serve-pool"]))
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -5332,6 +5910,7 @@ def main():
     rc, ck = out["train-recipe"], out["train-checkpoint"]
     rm, rl = out["train-remat"], out["serve-reload"]
     pl, dc = out["serve-pool"], out["serve-decode"]
+    tr = out["trace"]
 
     def remat(kernel):
         """The kernel's launches per graphed step of (c) under each remat
@@ -5519,6 +6098,17 @@ def main():
         "serve_pool_per_forward": pl["k2_per_forward"],
         "serve_pool_worker_launches": pl["procs"]["k2"],
         "serve_decode_launches": dc["k2"],
+        "trace_launches": {m: r["k2"] for m, r in tr["cost"].items()},
+        "trace_launches_fixed": {m: r["k2_fixed"]
+                                 for m, r in tr["cost"].items()},
+        "trace_train_launches": {m: r["k2"] for m, r in tr["sync"].items()},
+        "trace_per": f"launches: {TR_ROUNDS} bursts of phase 6's "
+                     f"{N_REQUESTS} requests per MXNET_TPU_TRACE mode; "
+                     f"fixed: {N_REQUESTS // BATCH} batches of {BATCH} "
+                     "sent one at a time, per mode; "
+                     f"train: {TR_STEPS} graphed steps of the BERT-base MLM "
+                     f"at batch {TR_TRAIN_BATCH}, S {BERT_SEQ}, bf16, per "
+                     "mode",
         "serve_pool_per": f"launches: burst 1 of {PL_REQUESTS} requests "
                           "through the Router over two BERT-base "
                           f"LocalReplicas at S {BERT_SEQ}, fp32 (graph "

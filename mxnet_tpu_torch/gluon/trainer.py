@@ -42,6 +42,7 @@ from ..guardrails import fused
 from ..guardrails.monitor import (AnomalyMonitor, GuardConfig,
                                   handle_divergence,
                                   journal_scaler_only_skip)
+from ..observability import instrument as _obs
 from ..parallel import _ckpt
 from ..resilience.atomic import atomic_write
 
@@ -132,9 +133,14 @@ class Trainer:
         halves the scale and counts against the budget; the guard's
         ``clip_norm`` then scales the gradients. A weight no backward
         reached is updated with a zero gradient either way
-        (``ignore_stale_grad`` changes nothing)."""
-        self.allreduce_grads()
-        self._guarded_update(batch_size, loss)
+        (``ignore_stale_grad`` changes nothing). Traced as
+        ``gluon_trainer.step`` with the ``allreduce``, ``guard_fetch``
+        (with a scaler or a guard) and ``update`` phases."""
+        with _obs.trace.span("gluon_trainer.step",
+                             step=self._step_count + 1):
+            with _obs.step_phase("gluon_trainer", "allreduce"):
+                self.allreduce_grads()
+            self._guarded_update(batch_size, loss)
 
     def _guard_ok(self, loss):
         """The fused check of a step with an fp16 scaler or a guard, and
@@ -276,13 +282,18 @@ class Trainer:
     def _guarded_update(self, batch_size, loss):
         self._step_count += 1
         self._optimizer.rescale_grad = self._scale / batch_size
-        if not self._guard_ok(loss):
-            return
-        for i, weight in zip(self._index, self._params):
-            grad = weight.grad
-            if grad is None:
-                grad = torch.zeros_like(weight)
-            self._updater(i, grad, weight)
+        if self._guard_cfg is not None or \
+                self._active_scaler() is not None:
+            with _obs.step_phase("gluon_trainer", "guard_fetch"):
+                ok = self._guard_ok(loss)
+            if not ok:
+                return
+        with _obs.step_phase("gluon_trainer", "update"):
+            for i, weight in zip(self._index, self._params):
+                grad = weight.grad
+                if grad is None:
+                    grad = torch.zeros_like(weight)
+                self._updater(i, grad, weight)
         scaler = self._active_scaler()
         if scaler is not None:
             scaler.update_scale(False)

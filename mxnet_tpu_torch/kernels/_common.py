@@ -1,7 +1,7 @@
-"""What the epilogue kernels' wrappers share: the activation table of
-their plain versions, the codes passed to the CUDA sources
-(``csrc/epilogue_common.cuh``), the checks before a launch and the
-launch count."""
+"""What the kernels' wrappers share: the activation table of the
+epilogues' plain versions, the codes passed to the CUDA sources
+(``csrc/epilogue_common.cuh``), the checks before a launch, the launch
+count and the route note on the active trace span."""
 from __future__ import annotations
 
 import threading
@@ -10,9 +10,10 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..observability import trace as _trace
 
 __all__ = ["ACT_CODE", "DTYPE_CODE", "EPILOGUE_ACTS", "LaunchCount",
-           "act_fn", "check_cuda_inputs", "stream_capturing"]
+           "act_fn", "check_cuda_inputs", "note_route", "stream_capturing"]
 
 EPILOGUE_ACTS = ("identity", "relu", "gelu", "tanh", "sigmoid")
 ACT_CODE = {None: 0, "identity": 0, "relu": 1, "gelu": 2, "tanh": 3,
@@ -34,6 +35,17 @@ def stream_capturing() -> bool:
     graph (False without CUDA)."""
     return torch.cuda.is_available() and \
         torch.cuda.is_current_stream_capturing()
+
+
+def note_route(name, device) -> None:
+    """Annotate the active trace span with ``pallas.<name>``: "cuda" when
+    the wrapper launches the hand-written kernel, "plain" when a CPU
+    tensor takes the plain version (the counterpart of the reference
+    registry's dispatch note). One host-side ``annotate`` call; like the
+    reference's, it fires when the program is built, which on the card
+    is the capture: a replayed graph runs no Python."""
+    _trace.annotate(**{f"pallas.{name}":
+                       "cuda" if device.type == "cuda" else "plain"})
 
 
 class LaunchCount:

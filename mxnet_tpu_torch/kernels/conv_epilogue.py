@@ -34,7 +34,7 @@ import torch
 from ..base import MXNetError
 from . import _build
 from ._common import (ACT_CODE, DTYPE_CODE, EPILOGUE_ACTS, LaunchCount,
-                      act_fn, check_cuda_inputs)
+                      act_fn, check_cuda_inputs, note_route)
 
 __all__ = ["EPILOGUE_ACTS", "conv_epilogue_plain", "fused_conv_epilogue",
            "fused_conv_epilogue_plain", "launch_count"]
@@ -132,6 +132,7 @@ def fused_conv_epilogue_plain(x, scale=None, bias=None, res=None,
 
 
 def _forward(y, scale, bias, res, act_type, channel_axis, mode, c, inner):
+    note_route("conv_epilogue", y.device)
     if y.device.type == "cpu":
         return fused_conv_epilogue_plain(y, scale, bias, res, channel_axis,
                                          act_type)

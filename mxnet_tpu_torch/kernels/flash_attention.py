@@ -53,7 +53,7 @@ import torch
 
 from ..base import MXNetError
 from . import _build
-from ._common import DTYPE_CODE, LaunchCount
+from ._common import DTYPE_CODE, LaunchCount, note_route
 
 __all__ = ["MAX_HEAD_DIM", "bwd_dkv_launch_count", "bwd_dq_launch_count",
            "default_scale", "flash_attention", "flash_attention_bshd",
@@ -395,6 +395,7 @@ def _attend(q, k, v, causal, scale, block_size, want_lse, bshd):
     ``[..., S, D]``. Returns (out in q's layout, contiguous; lse or None):
     lse is (B, H, S_q) for the kernel, [..., S_q] of the plain version's
     layout on the CPU."""
+    note_route("flash_attention", q.device)
     if _device_kind(q, k, v) == "cpu":
         out, lse = flash_attention_plain(
             *(_plain_layout(t, bshd) for t in (q, k, v)),
@@ -417,6 +418,7 @@ def _attend_bwd(q, k, v, out, lse, dout, grads, causal, scale, block_size,
     """The backward into ``grads`` = (dq, dk, dv): tensors of q's, k's and
     v's shapes, or views of one fused gradient, in the layout of
     :func:`_attend`."""
+    note_route("flash_attention_bwd", q.device)
     if _device_kind(q, k, v) == "cpu":
         got = flash_attention_bwd_plain(
             *(_plain_layout(t, bshd) for t in (q, k, v, out)), lse,

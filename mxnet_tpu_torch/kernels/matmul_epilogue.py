@@ -40,7 +40,7 @@ import torch
 from ..base import MXNetError
 from . import _build
 from ._common import (ACT_CODE, DTYPE_CODE, EPILOGUE_ACTS, LaunchCount,
-                      act_fn, check_cuda_inputs)
+                      act_fn, check_cuda_inputs, note_route)
 
 __all__ = ["EPILOGUE_ACTS", "fused_matmul_epilogue", "keep_threshold",
            "launch_count", "matmul_epilogue_2d", "matmul_epilogue_plain"]
@@ -136,6 +136,7 @@ class _MatmulEpilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, bias, bits, act_type, p, mode):
+        note_route("matmul_epilogue", y.device)
         if y.device.type == "cpu":
             out = matmul_epilogue_plain(y, bias, bits, act_type, p)
         elif y.device.type == "cuda":

@@ -47,6 +47,16 @@ capture anew. A capture that fails on the card raises; nothing falls
 back to an eager step there. On the CPU, which a caller asks for with
 ``make_mesh(devices=[mx.cpu()])``, the same steps run eagerly.
 
+Telemetry (``observability.instrument``), as the reference records it:
+``step`` and ``run_steps`` are ``sharded_trainer.step`` /
+``sharded_trainer.run_steps`` spans with the ``data_wait``,
+``compiled_step`` and ``guard_fetch`` phases, each phase also observed
+into ``mxnet_tpu_step_phase_ms``. ``compiled_step`` wraps the host call
+that replays the graph (a span inside the captured function would fire
+at the capture only), and a capture, or on the CPU the first eager run
+of a signature, is one ``xla_compile`` span and one
+``mxnet_tpu_xla_compiles_total``. No span reads the device.
+
 The checkpoint family (``save_states``, ``load_states``,
 ``save_checkpoint``, ``load_checkpoint``, ``checkpoint``, ``restore``,
 ``load_checkpoint_resharded``, ``restore_resharded``) writes and reads
@@ -91,6 +101,7 @@ from ..gluon import cached_graph as _cg
 from ..guardrails import fused as _guard
 from ..guardrails.monitor import AnomalyMonitor, GuardConfig
 from ..guardrails.trainer_mixin import GuardedTrainerMixin
+from ..observability import instrument as _obs
 from ..ops import optimizer_op as _ops
 from . import _ckpt, _remat
 from .mesh import PartitionSpec, current_mesh
@@ -387,6 +398,7 @@ class ShardedTrainer(GuardedTrainerMixin):
         self._skipped_offset = 0
         self._backend = _cg.CudaGraphs()   # captures on the card
         self._programs = {}                # (steps, signature) -> Program
+        self._eager_keys = set()           # signatures run eagerly (CPU)
         self.last_outputs = None
 
     def _resolve_scaler(self):
@@ -621,30 +633,44 @@ class ShardedTrainer(GuardedTrainerMixin):
     def _scalar_tensor(self, lrs, t, rescale, lscale):
         return torch.tensor([*lrs, t, rescale, lscale], dtype=torch.float32)
 
-    def _run(self, batch, lrs, t):
+    def _run(self, batch, lrs, t, site, **attrs):
         """``len(lrs)`` steps from step ``t``: a graph replay on the card,
-        eager on the CPU."""
+        eager on the CPU. The ``data_wait`` and ``compiled_step`` phases
+        are timed here, on the host: ``compiled_step`` wraps the replay
+        (the Python of a captured function runs at capture only), and a
+        program build (``site``; the capture, or on the CPU the first
+        eager run of a signature) is an ``xla_compile`` span inside it."""
         lscale = self._scaler.loss_scale if self._scaler is not None else 1.0
         scalars = self._scalar_tensor(lrs, t, self._optimizer.rescale_grad,
                                       lscale)
         backend, n = self._backend, len(lrs)
-        if backend is not None and backend.accepts(self.device):
-            return self._graph_steps(batch, scalars, n)
-        xs = [self._on_device(b) for b in batch]
-        with _cg._inside():
-            return self._window(xs[:-1], xs[-1],
-                                scalars.to(self.device, non_blocking=True), n)
-
-    def _graph_steps(self, batch, scalars, n):
-        tensors = [self._host(b) for b in batch] + [scalars]
-        key = (n, tuple((tuple(x.shape), x.dtype) for x in tensors),
+        graphed = backend is not None and backend.accepts(self.device)
+        with _obs.step_phase("sharded_trainer", "data_wait"):
+            xs = [self._host(b) if graphed else self._on_device(b)
+                  for b in batch]
+        key = (n, tuple((tuple(x.shape), x.dtype) for x in xs + [scalars]),
                self._compute_dtype, self._scaler is not None)
-        prog = self._programs.get(key)
+        prog = self._programs.get(key) if graphed else None
         if prog is not None and prog.stale(self._block):
             # a parameter or buffer was rebound (Block.cast, a reinit):
             # every program reads and updates the old storage
             self._release()
             prog = None
+        compiling = prog is None if graphed else key not in self._eager_keys
+        with _obs.step_phase("sharded_trainer", "compiled_step"), \
+                _obs.maybe_compile_span(
+                    compiling, site,
+                    shapes=[list(x.shape) for x in xs] if compiling
+                    else None, **attrs):
+            if graphed:
+                return self._graph_steps(xs + [scalars], key, prog, n)
+            self._eager_keys.add(key)
+            with _cg._inside():
+                return self._window(xs[:-1], xs[-1],
+                                    scalars.to(self.device,
+                                               non_blocking=True), n)
+
+    def _graph_steps(self, tensors, key, prog, n):
         if prog is None:
             prog = self._programs[key] = self._capture(tensors, n)
         prog.load(tensors)
@@ -700,9 +726,12 @@ class ShardedTrainer(GuardedTrainerMixin):
         self._num_update += 1
         t = self._num_update
         self._optimizer.num_update = t
-        stats, *outs = self._run(batch, [_lr_at(self._optimizer, t)], t)
-        self.last_outputs = outs
-        self._after_step(t, stats)
+        with _obs.trace.span("sharded_trainer.step", step=t):
+            stats, *outs = self._run(batch, [_lr_at(self._optimizer, t)],
+                                     t, "sharded_trainer.step")
+            self.last_outputs = outs
+            with _obs.step_phase("sharded_trainer", "guard_fetch"):
+                self._after_step(t, stats)
         return stats[0]
 
     def run_steps(self, *batch, num_steps=8):
@@ -719,10 +748,15 @@ class ShardedTrainer(GuardedTrainerMixin):
         t = self._num_update + 1
         self._num_update += num_steps
         self._optimizer.num_update = self._num_update
-        stats = self._run(batch, _lr_sequence(self._optimizer, t,
-                                              num_steps), t)[0]
-        stats = stats.reshape(num_steps, 3)   # one step: step()'s program
-        self._after_run_steps(t, stats)
+        with _obs.trace.span("sharded_trainer.run_steps", start_step=t,
+                             num_steps=num_steps):
+            stats = self._run(batch, _lr_sequence(self._optimizer, t,
+                                                  num_steps), t,
+                              "sharded_trainer.run_steps",
+                              num_steps=num_steps)[0]
+            stats = stats.reshape(num_steps, 3)  # one step: step()'s program
+            with _obs.step_phase("sharded_trainer", "guard_fetch"):
+                self._after_run_steps(t, stats)
         return stats[-1, 0]
 
     def evaluate(self, *batch):

@@ -25,10 +25,10 @@ Reader protocol: every committed step newest first; a directory whose
 manifest is missing or corrupt, or whose files fail their CRC, is
 skipped (reported to the caller) and the next newest tried.
 
-The reference wraps ``finalize`` and ``find_restorable`` in
-``observability.trace`` spans (``ckpt_commit``, ``ckpt_restore_scan``);
-the port has no ``observability`` package yet (ROADMAP Queue 1 item
-13), so they run without spans. Stdlib only.
+``finalize`` and ``find_restorable`` run inside ``observability.trace``
+spans (``ckpt_commit`` with root and step, ``ckpt_restore_scan`` with
+root and the ``restored_step`` it found), as the reference's do. Stdlib
+only.
 """
 from __future__ import annotations
 
@@ -327,6 +327,12 @@ def finalize(root: str, step: int, meta: dict | None = None,
     """Commit a staged step: manifest, publish rename, ``latest``
     pointer, GC. The rename is the one commit point; every phase before
     it leaves the previous checkpoint untouched."""
+    from ..observability import trace as _trace
+    with _trace.span("ckpt_commit", root=root, step=int(step)):
+        return _finalize(root, step, meta, keep_last)
+
+
+def _finalize(root, step, meta, keep_last) -> dict:
     stage = stage_dir(root, step)
     doc = write_manifest(stage, step, meta)
     dst = step_dir(root, step)
@@ -357,12 +363,17 @@ def find_restorable(root: str, on_skip=None):
     Not driven by the ``latest`` pointer: it is written after the
     publish rename, so a crash between the two leaves it one step
     stale."""
-    for step in sorted(committed_steps(root), reverse=True):
-        try:
-            return step, validate_step(root, step)
-        except ValueError as e:
-            if on_skip is not None:
-                on_skip(step, str(e))
+    from ..observability import trace as _trace
+    with _trace.span("ckpt_restore_scan", root=root) as sp:
+        for step in sorted(committed_steps(root), reverse=True):
+            try:
+                doc = validate_step(root, step)
+                sp.set_attrs(restored_step=step)
+                return step, doc
+            except ValueError as e:
+                if on_skip is not None:
+                    on_skip(step, str(e))
+        sp.set_attrs(restored_step=None)
     return None
 
 

@@ -150,6 +150,12 @@ class PredictorCache:
                 self.evictions += 1
         return entry, False
 
+    def contains(self, key) -> bool:
+        """Whether ``key`` is cached (no LRU touch, no count): the server
+        asks before a batch so that a miss's build is timed."""
+        with self._lock:
+            return key in self._lru
+
     def entries(self) -> list:
         """[(key, entry)] from least to most recently used."""
         with self._lock:

@@ -37,10 +37,12 @@ beside the one-shot worker:
   ``decode_preempt``, ``decode_deadline_miss``, ``decode_shed`` and
   ``decode_stop`` with the reference's fields.
 
-Not ported yet: the reference's ``compile_span`` around a program build
-waits for the port's tracing (ROADMAP Queue 1 item 5; ``stats()``
-carries the count meanwhile), and a shard plan's placement of the state
-(``plan=``) waits for ``shardplan.py`` (item 9).
+Each program build (a CUDA-graph capture on the card) runs inside an
+``xla_compile`` span, site ``decode_program``, as the reference's XLA
+compile does; ``stats()`` counts the builds too.
+
+Not ported yet: a shard plan's placement of the state (``plan=``) waits
+for ``shardplan.py`` (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ from ..context import resolve_device
 from ..diagnostics.journal import get_journal
 from ..gluon import cached_graph as _cg
 from ..metric import LatencySummary
+from ..observability import instrument as _obs
 from .batcher import (DeadlineExceeded, RequestError, ServerOverloaded,
                       ServerStopped, SlotsExhausted)
 from .buckets import BucketGrid
@@ -413,7 +416,9 @@ class DecodeEngine:
                     _assign(state, model.prefill_fn(
                         state, b["slot"], b["tokens"], b["length"],
                         b["start"]))
-            prog = _Program(fn, b, state, dev)
+            with _obs.compile_span("decode_program", program=list(key),
+                                   engine=self._id):
+                prog = _Program(fn, b, state, dev)
             with self._lock:
                 self.counters["compiles"] += 1
             self._programs[key] = prog

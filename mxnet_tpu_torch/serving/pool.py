@@ -33,9 +33,17 @@ its peers serve: the port captures in "thread_local" mode
 (``gluon/cached_graph.py``), so the peers' replays and host copies on
 their own threads do not break the capture.
 
-Not ported yet: ``PoolConfig.trace_dir`` (pod-scope tracing) and
-``aot_dir`` (the AOT store), ROADMAP Queue 1 item 5; both raise when
-set.
+Pod-scope tracing: the pool publishes one pod run id
+(``MXNET_TPU_POD_RUN_ID``) in its own process and in every worker's
+environment, with the worker's ``MXNET_TPU_REPLICA_ID``. With
+``PoolConfig.trace_dir`` set, each subprocess worker journals to its own
+``<trace_dir>/journal-<rid>.jsonl`` in trace mode ``journal`` and runs
+the flight recorder there; ``observability.aggregate`` merges the
+directory into one trace. Request frames carry the router's trace
+context.
+
+Not ported yet: ``PoolConfig.aot_dir`` (the AOT store, ROADMAP Queue 1
+item 5g); it raises when set.
 """
 from __future__ import annotations
 
@@ -117,18 +125,18 @@ class PoolConfig:
     max_respawns: int = 3                       # crash-loop budget/replica
     monitor_s: float = 0.5                      # auto-respawn poll interval
     poll_s: float = 0.05
-    trace_dir: object = None                    # not ported yet: raises
+    # shared run directory for pod-scope tracing: each subprocess worker
+    # streams spans and journal to its own <trace_dir>/journal-<rid>.jsonl
+    # and runs the flight recorder there
+    trace_dir: object = field(default_factory=lambda: os.environ.get(
+        "MXNET_TPU_TRACE_DIR") or None)
     aot_dir: object = None                      # not ported yet: raises
 
     def __post_init__(self):
-        if self.trace_dir:
-            raise NotImplementedError(
-                "PoolConfig.trace_dir (pod-scope tracing) is not ported "
-                "yet (ROADMAP Queue 1 item 5)")
         if self.aot_dir:
             raise NotImplementedError(
                 "PoolConfig.aot_dir (the AOT store) is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
+                "(ROADMAP Queue 1 item 5g)")
         if self.deadline_s <= self.heartbeat_s:
             raise MXNetError(
                 f"pool deadline_s ({self.deadline_s:g}) must exceed "
@@ -401,7 +409,9 @@ class ProcReplica:
                   "dtype": str(x.dtype), "deadline_ms": deadline_ms}
         if tenant is not None:
             header["tenant"] = str(tenant)
-        header["v"] = wire.PROTOCOL_VERSION      # no trace context yet
+        # the router's trace context crosses the process boundary: the
+        # worker re-anchors its serving_request root under these ids
+        wire.attach_trace(header)
         header, payload = self._roundtrip(
             header, x.tobytes(), budget_s=budget_s)
         if not header.get("ok"):
@@ -426,7 +436,7 @@ class ProcReplica:
             header["max_new"] = int(max_new_tokens)
         if tenant is not None:
             header["tenant"] = str(tenant)
-        header["v"] = wire.PROTOCOL_VERSION
+        wire.attach_trace(header)
         header, payload = self._roundtrip(
             header, arr.tobytes(), budget_s=budget_s)
         if not header.get("ok"):
@@ -539,6 +549,16 @@ class ReplicaPool:
         # launcher already published one
         self.run_id = os.environ.get("MXNET_TPU_POD_RUN_ID") or \
             f"pod-{os.urandom(4).hex()}"
+        # published in this process too (trace.identity() reads the
+        # environment), and a journal-mode tracer configured before the
+        # pool anchors again so its records carry the id (the newest
+        # anchor wins in the aggregator; same epoch, same alignment)
+        if "MXNET_TPU_POD_RUN_ID" not in os.environ:
+            os.environ["MXNET_TPU_POD_RUN_ID"] = self.run_id
+            from ..observability import trace as _trace
+            tracer = _trace.get_tracer()
+            if tracer.mode == "journal":
+                tracer.journal_anchor()
         self.reader = LivenessReader(self.hb_dir, self.cfg.deadline_s,
                                      prefix="replica")
         self.replicas: dict = {}
@@ -569,11 +589,30 @@ class ReplicaPool:
         """Add a subprocess replica (``worker_args``: CLI flag → value,
         e.g. ``{"--model": "mlp", "--ckpt-root": root}``).  The worker
         inherits the pod run id and its replica identity through the
-        environment."""
+        environment and, when the pool has a ``trace_dir``, its own
+        journal and flight-recorder sinks there."""
         rid = str(rid)
+        # an env built as {**os.environ, ...} inherits the ambient
+        # MXNET_TPU_TRACE: only a value that differs from it is the
+        # caller's deliberate choice for this worker
+        caller_trace = (env is not None and "MXNET_TPU_TRACE" in env
+                        and env["MXNET_TPU_TRACE"]
+                        != os.environ.get("MXNET_TPU_TRACE"))
         env = dict(os.environ if env is None else env)
         env.setdefault("MXNET_TPU_POD_RUN_ID", self.run_id)
         env["MXNET_TPU_REPLICA_ID"] = rid
+        trace_dir = self.cfg.trace_dir
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+            # one journal per process is what the aggregator assembles:
+            # a shared file would interleave the timelines
+            env["MXNET_TPU_TRACE_DIR"] = str(trace_dir)
+            env["MXNET_TPU_JOURNAL"] = os.path.join(
+                str(trace_dir), f"journal-{rid}.jsonl")
+            # journal mode over any ambient mode, or the worker's
+            # journal would hold no spans
+            if not caller_trace:
+                env["MXNET_TPU_TRACE"] = "journal"
         # construction-phase single writer (see add_local)
         self.replicas[rid] = ProcReplica(
             rid, worker_args, self.hb_dir, self.cfg,
@@ -630,7 +669,8 @@ class ReplicaPool:
                             replicas=sorted(self.replicas),
                             heartbeat_s=self.cfg.heartbeat_s,
                             deadline_s=self.cfg.deadline_s,
-                            run_id=self.run_id, trace_dir=None)
+                            run_id=self.run_id,
+                            trace_dir=self.cfg.trace_dir)
         for rep in self.replicas.values():
             rep.start()
         if wait_ready and not self.wait_ready():

@@ -35,11 +35,21 @@ Decode streams (:meth:`Router.decode_call`) ride the same placement,
 retries and breakers without hedging. The canary tap (``set_deploy``)
 tags responses and mirrors a sample of control traffic onto a canary.
 
+Tracing: each call is a ``router_request`` span (``router_decode`` for a
+stream) and each attempt a ``router_attempt`` span under it; a hedged
+attempt runs in a ``router_hedge_arm`` span on its own thread and a
+mirrored probe in a ``deploy_mirror`` span, both re-anchored under the
+request. A subprocess replica's wire frame carries the attempt's
+context, so the worker's spans join the same trace.
+
+Metric families (``Router.metrics_text``): ``mxnet_tpu_router_events``,
+``mxnet_tpu_router_breaker_state``, ``mxnet_tpu_router_attempts_total``,
+``mxnet_tpu_router_replica_p99_ms``, and during a deployment
+``mxnet_tpu_deploy_arm`` and ``mxnet_tpu_deploy_mirrors``.
+
 Not ported yet (ROADMAP Queue 1 item 5): tuned tables (the reference's
-``_apply_tuned_router``; ``RouterConfig``'s own defaults apply), the
-``router_request``/``router_attempt`` spans (tracing), ``metrics_text``
-(exposition; it raises) and the ``MXNET_TPU_SERVING_DEADLINE_MS``
-default.
+``_apply_tuned_router``; ``RouterConfig``'s own defaults apply) and the
+``MXNET_TPU_SERVING_DEADLINE_MS`` default.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..diagnostics.journal import get_journal
+from ..observability import trace as _trace
 from ..observability.metrics import LatencySummary
 from ..resilience import atomic as _atomic
 from ..resilience.retry import backoff_delays
@@ -99,6 +110,7 @@ class RouterConfig:
 
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+_BREAKER_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 class _Breaker:
@@ -230,8 +242,10 @@ class Router:
         with self._lock:
             self.counters["requests"] += 1
         self._note_tenant(tenant, "requests")
-        return self._call_routed(x, deadline_ms, deadline_ts, priority,
-                                 tenant)
+        with _trace.span("router_request", priority=priority,
+                         tenant=tenant):
+            return self._call_routed(x, deadline_ms, deadline_ts,
+                                     priority, tenant)
 
     def _call_routed(self, x, deadline_ms, deadline_ts, priority,
                      tenant=None):
@@ -341,10 +355,18 @@ class Router:
         if deadline_ms is None:
             deadline_ms = cfg.default_deadline_ms
         deadline_ts = time.monotonic() + deadline_ms / 1000.0
-        t0 = time.monotonic()
         with self._lock:
             self.counters["requests"] += 1
         self._note_tenant(tenant, "requests")
+        with _trace.span("router_decode", priority=priority,
+                         tenant=tenant):
+            return self._decode_routed(tokens, max_new_tokens,
+                                       deadline_ts, priority, tenant)
+
+    def _decode_routed(self, tokens, max_new_tokens, deadline_ts, priority,
+                       tenant):
+        cfg = self.config
+        t0 = time.monotonic()
         self._admit(priority)
         delays = backoff_delays(cfg.retries, cfg.retry_base_s,
                                 cfg.retry_max_s, cfg.retry_jitter)
@@ -370,9 +392,11 @@ class Router:
                     self._attempt_counts.get(state.id, 0) + 1
             replica = self.pool.replicas[state.id]
             try:
-                value, meta = replica.decode(
-                    tokens, max_new_tokens=max_new_tokens,
-                    deadline_ms=remaining * 1000.0, tenant=tenant)
+                with _trace.span("router_attempt", replica=state.id,
+                                 tenant=tenant, op="decode"):
+                    value, meta = replica.decode(
+                        tokens, max_new_tokens=max_new_tokens,
+                        deadline_ms=remaining * 1000.0, tenant=tenant)
             except RequestError as exc:
                 last_exc = exc
                 self._record_failure(state.id, exc)
@@ -637,8 +661,10 @@ class Router:
             # targets exactly canary-bound dispatches (live or mirrored)
             _atomic.trip("deploy_canary", state.id)
         replica = self.pool.replicas[state.id]
-        return replica.predict(x, budget_s * 1000.0, cancel=cancel,
-                               tenant=tenant)
+        with _trace.span("router_attempt", replica=state.id,
+                         tenant=tenant):
+            return replica.predict(x, budget_s * 1000.0, cancel=cancel,
+                                   tenant=tenant)
 
     def _attempt(self, state, x, budget_s, attempt_no, tenant=None):
         """Primary attempt with optional hedging; returns
@@ -651,16 +677,25 @@ class Router:
 
         results = _queue.Queue(maxsize=4)    # bounded: <= 2 writers
         cancels = {}
+        ctx = _trace.current_context()
         t_start = time.monotonic()
 
         def run(st):
-            try:
-                remaining = budget_s - (time.monotonic() - t_start)
-                v, m = self._dispatch(st, x, max(remaining, 0.01),
-                                      cancels[st.id], tenant)
-                results.put_nowait((st, None, v, m))
-            except BaseException as e:
-                results.put_nowait((st, e, None, None))
+            # an arm thread re-anchors under the request span explicitly
+            # (context variables do not cross threads), as the current
+            # span, so its router_attempt and its wire frame join the
+            # request's trace
+            with _trace.start_span("router_hedge_arm", parent=ctx,
+                                   replica=st.id) as arm:
+                try:
+                    remaining = budget_s - (time.monotonic() - t_start)
+                    v, m = self._dispatch(st, x, max(remaining, 0.01),
+                                          cancels[st.id], tenant)
+                    results.put_nowait((st, None, v, m))
+                    arm.set_attrs(status="ok")
+                except BaseException as e:
+                    results.put_nowait((st, e, None, None))
+                    arm.set_attrs(status=type(e).__name__)
 
         def launch(st):
             cancels[st.id] = threading.Event()
@@ -786,50 +821,57 @@ class Router:
                 tap.mirror_skipped += 1    # bounded, never queued: a slow
                 return                     # canary must not pile threads
             tap.mirror_inflight += 1
+        ctx = _trace.current_context()
         threading.Thread(
             target=self._run_mirror,
-            args=(tap, x, expect, deadline_ms, tenant),
+            args=(tap, x, expect, deadline_ms, tenant, ctx),
             daemon=True, name="mxnet-torch-router-mirror").start()
 
-    def _run_mirror(self, tap, x, expect, deadline_ms, tenant):
+    def _run_mirror(self, tap, x, expect, deadline_ms, tenant, ctx):
         """One mirrored parity probe: duplicate the request onto an
         alive+ready canary replica, compare against the control answer
         within (rtol, atol).  A mismatch journals
-        ``deploy_mirror_mismatch``; a transport/predict failure counts
-        as a mirror error — the gate reads both."""
+        ``deploy_mirror_mismatch`` (under the request's trace); a
+        transport/predict failure counts as a mirror error — the gate
+        reads both."""
         try:
-            view = self.pool.view()
-            cands = [s for s in view if s.id in tap.canary
-                     and s.alive and s.ready]
-            if not cands:
+            with _trace.start_span("deploy_mirror", parent=ctx) as sp:
+                view = self.pool.view()
+                cands = [s for s in view if s.id in tap.canary
+                         and s.alive and s.ready]
+                if not cands:
+                    with self._lock:
+                        tap.mirrors += 1
+                        tap.mirror_errors += 1
+                    sp.set_attrs(status="no_canary")
+                    return
+                st = cands[next(self._rr) % len(cands)]
+                _atomic.trip("deploy_canary", st.id)
+                try:
+                    got, meta = self.pool.replicas[st.id].predict(
+                        x, deadline_ms, cancel=None, tenant=tenant)
+                except Exception as e:
+                    with self._lock:
+                        tap.mirrors += 1
+                        tap.mirror_errors += 1
+                    sp.set_attrs(status=type(e).__name__)
+                    return
+                a = np.asarray(got, dtype=np.float64)
+                b = np.asarray(expect, dtype=np.float64)
+                ok = a.shape == b.shape and bool(
+                    np.allclose(a, b, rtol=tap.rtol, atol=tap.atol))
                 with self._lock:
                     tap.mirrors += 1
-                    tap.mirror_errors += 1
-                return
-            st = cands[next(self._rr) % len(cands)]
-            _atomic.trip("deploy_canary", st.id)
-            try:
-                got, meta = self.pool.replicas[st.id].predict(
-                    x, deadline_ms, cancel=None, tenant=tenant)
-            except Exception:
-                with self._lock:
-                    tap.mirrors += 1
-                    tap.mirror_errors += 1
-                return
-            a = np.asarray(got, dtype=np.float64)
-            b = np.asarray(expect, dtype=np.float64)
-            ok = a.shape == b.shape and bool(
-                np.allclose(a, b, rtol=tap.rtol, atol=tap.atol))
-            with self._lock:
-                tap.mirrors += 1
+                    if not ok:
+                        tap.mirror_mismatch += 1
+                sp.set_attrs(status="ok" if ok else "mismatch",
+                             replica=st.id)
                 if not ok:
-                    tap.mirror_mismatch += 1
-            if not ok:
-                delta = (float(np.max(np.abs(a - b)))
-                         if a.shape == b.shape else None)
-                get_journal().event(
-                    "deploy_mirror_mismatch", replica=st.id,
-                    step=meta.get("params_step"), max_abs_delta=delta)
+                    delta = (float(np.max(np.abs(a - b)))
+                             if a.shape == b.shape else None)
+                    get_journal().event(
+                        "deploy_mirror_mismatch", replica=st.id,
+                        step=meta.get("params_step"), max_abs_delta=delta)
         finally:
             with self._lock:
                 tap.mirror_inflight -= 1
@@ -859,11 +901,56 @@ class Router:
         return out
 
     def metrics_text(self) -> str:
-        """Prometheus exposition of the router's counters: not ported
-        yet (metrics exposition, ROADMAP Queue 1 item 5)."""
-        raise NotImplementedError(
-            "Router.metrics_text (metrics exposition) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
+        """Prometheus text: the router's counters, breakers and latency
+        mirrored into the process default registry at call time (gauge
+        mirrors, the same contract as ``Server.metrics_text``)."""
+        from ..observability import metrics as _m
+        reg = _m.default_registry()
+        st = self.stats()
+        ev = reg.gauge("mxnet_tpu_router_events",
+                       "router counters (cumulative)", ("event",))
+        for k, v in st.items():
+            if k not in ("replicas", "tenants", "deploy"):
+                ev.labels(event=k).set(v)
+        dep = st.get("deploy")
+        if dep:
+            dg = reg.gauge("mxnet_tpu_deploy_arm",
+                           "live canary-vs-control stats for the active "
+                           "deployment", ("arm", "stat"))
+            for arm in ("canary", "control"):
+                dg.labels(arm=arm, stat="served").set(dep["served"][arm])
+                dg.labels(arm=arm, stat="failures").set(
+                    dep["failures"][arm])
+                if dep.get(f"{arm}_p99_ms") is not None:
+                    dg.labels(arm=arm, stat="p99_ms").set(
+                        dep[f"{arm}_p99_ms"])
+            mg = reg.gauge("mxnet_tpu_deploy_mirrors",
+                           "mirrored parity probes for the active "
+                           "deployment", ("outcome",))
+            mg.labels(outcome="total").set(dep["mirrors"])
+            mg.labels(outcome="mismatch").set(dep["mirror_mismatch"])
+            mg.labels(outcome="error").set(dep["mirror_errors"])
+        if st.get("tenants"):
+            tev = reg.gauge("mxnet_tpu_router_tenant_events",
+                            "per-tenant router counters (cumulative)",
+                            ("tenant", "event"))
+            for t, row in st["tenants"].items():
+                for k, v in row.items():
+                    tev.labels(tenant=t, event=k).set(v)
+        brg = reg.gauge("mxnet_tpu_router_breaker_state",
+                        "per-replica breaker (0 closed, 1 half-open, "
+                        "2 open)", ("replica",))
+        att = reg.gauge("mxnet_tpu_router_attempts_total",
+                        "attempts routed per replica", ("replica",))
+        p99 = reg.gauge("mxnet_tpu_router_replica_p99_ms",
+                        "per-replica end-to-end p99 as seen by the "
+                        "router", ("replica",))
+        for rid, row in st["replicas"].items():
+            brg.labels(replica=rid).set(_BREAKER_CODE[row["breaker"]])
+            att.labels(replica=rid).set(row["attempts"])
+            if row["p99_ms"] is not None:
+                p99.labels(replica=rid).set(row["p99_ms"])
+        return reg.prometheus_text()
 
     def stop(self) -> None:
         get_journal().event("router_stop", **{

@@ -40,14 +40,27 @@ request whose event is set is dropped at dequeue with
 ``RequestCancelled``. ``beacon()`` is the replica pool's readiness
 payload.
 
+Tracing (``observability.trace``): each request owns a
+``serving_request`` root span, opened at ``submit`` (under ``parent=``,
+the wire frame's context, when a worker admits it) and closed with its
+status by whichever thread resolves it, with an ``enqueue`` event, an
+``execute`` span and a ``respond`` event under it. Each batch is a
+``serving_batch`` span that lists its requests' spans, and a predictor
+build is an ``xla_compile`` span (site ``serving_predictor``; a
+CUDA-graph capture on the card). ``execute`` begins where ``exec_ms``
+does and ends after the predictor has copied the outputs to the host,
+so it covers the card's time. Every batch journals a ``serving_batch``
+record; :meth:`Server.metrics_text` renders the counters as Prometheus
+text.
+
 Not ported yet: the AOT cache's on-disk store (a CUDA graph cannot be
 serialized), shard plans (ROADMAP Queue 1 item 9), tenants and fleets,
-the ``serving_batch`` journal records, tracing and metrics exposition,
 tuned tables, device retries and the ``MXNET_TPU_SERVING_*``
-environment defaults (item 5).
+environment defaults (item 5f).
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -62,6 +75,8 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..diagnostics.journal import get_journal
 from ..metric import LatencySummary
+from ..observability import instrument as _obs
+from ..observability import trace as _trace
 from .batcher import (DeadlineExceeded, PendingResponse, Request,
                       RequestCancelled, RequestError, ServerOverloaded,
                       ServerStopped, drop_expired, take_batch)
@@ -71,6 +86,23 @@ from .cache import Predictor, PredictorCache
 __all__ = ["Server", "ServerConfig"]
 
 _STOP = object()
+_server_seq = itertools.count()
+
+
+def _req_ids(req) -> dict:
+    """trace_id/span_id of a request's root span for explicit journal
+    correlation (the root is started by hand at submit, so the journal's
+    provider cannot see it); {} with tracing off."""
+    sp = req.trace
+    if sp is None or sp.trace_id is None:
+        return {}
+    return {"trace_id": sp.trace_id, "span_id": sp.span_id}
+
+
+def _end_span(req, status):
+    """Close a request's root span (idempotent; None-safe)."""
+    if req.trace is not None:
+        req.trace.end(status=status)
 
 
 @dataclass
@@ -152,6 +184,8 @@ class Server:
                                        # in flight; worker thread only
         self._last_batch_t = None
         self.last_prewarm = None
+        self._metrics_httpd = None
+        self._metrics_id = f"srv{next(_server_seq)}"
         # the continuous batcher: its own worker thread and slot pool,
         # started and stopped with this server, on its device
         self.decoder = None
@@ -197,6 +231,10 @@ class Server:
         The join is bounded by ``timeout_s``."""
         if self._worker is None:
             return
+        if self._metrics_httpd is not None:
+            self._metrics_httpd.shutdown()
+            self._metrics_httpd.server_close()
+            self._metrics_httpd = None
         if self.decoder is not None:
             self.decoder.stop(timeout_s=timeout_s, drain=drain)
         with self._admit_lock:
@@ -248,7 +286,8 @@ class Server:
             for bucket in self.grid.batch_buckets:
                 _, hit = self.cache.get(
                     (bucket, key, self._dtype.str),
-                    lambda b=bucket, k=key: self._build_predictor(b, k))
+                    lambda b=bucket, k=key: self._build_ready_predictor(b,
+                                                                        k))
                 warmed += not hit
         compiled = warmed if self.device.type == "cuda" else 0
         out = {"warmed": warmed, "loaded": 0, "compiled": compiled,
@@ -261,9 +300,17 @@ class Server:
         return Predictor(self.block, self.device, (bucket,) + key,
                          self._dtype)
 
+    def _build_ready_predictor(self, bucket, key):
+        """Prewarm's build of one predictor: one timed program build (the
+        capture on the card), an ``xla_compile`` span with the
+        reference's prewarm attributes."""
+        with _obs.compile_span("serving_predictor", shape=[bucket, *key],
+                               dtype=self._dtype.str, aot=True):
+            return self._build_predictor(bucket, key)
+
     # -- client surface ------------------------------------------------------
     def submit(self, x, deadline_ms=None, cancel=None,
-               tenant=None) -> PendingResponse:
+               tenant=None, parent=None) -> PendingResponse:
         """Admit one sample (NO batch axis). Raises :class:`RequestError`
         for a shape outside the bucket grid or values the server's integer
         dtype would change, :class:`ServerOverloaded`
@@ -272,12 +319,14 @@ class Server:
         ``threading.Event``) is checked at dequeue: the hedging router
         sets it on the losing attempt. A single-tenant server refuses a
         ``tenant`` as the reference does (fleets: ROADMAP Queue 1 item
-        5)."""
+        5b). ``parent`` (a trace ``SpanContext``) re-anchors the request's
+        root span under a caller in another process: the worker passes
+        the wire frame's context here."""
         if tenant is not None:
             err = RequestError(
                 f"unknown tenant {tenant!r}: this replica serves a "
                 "single-tenant Server, not a fleet (fleets are not ported "
-                "yet: ROADMAP Queue 1 item 5)")
+                "yet: ROADMAP Queue 1 item 5b)")
             err.tenant = str(tenant)
             raise err
         payload = self._payload(x)
@@ -296,6 +345,14 @@ class Server:
             else deadline_ms / 1000.0
         req = Request(payload, payload.shape, key, deadline_s=deadline_s,
                       cancel=cancel)
+        # one span tree per request, its root closed by whichever thread
+        # resolves the request; attributes are built only when tracing
+        # is on, so admission costs nothing more with it off
+        traced = _trace.enabled()
+        if traced:
+            req.trace = _trace.start_span("serving_request",
+                                          parent=parent,
+                                          shape=list(payload.shape))
         try:
             with self._admit_lock:
                 stopped = self._closed
@@ -304,12 +361,22 @@ class Server:
         except queue.Full:
             with self._lock:
                 self.counters["shed"] += 1
+            get_journal().event("serving_shed", depth=self._queue.qsize(),
+                                limit=self.config.max_queue, tenant=None,
+                                **_req_ids(req))
+            _end_span(req, "shed")
             raise ServerOverloaded(self._queue.qsize(),
                                    self.config.max_queue) from None
         if stopped:
             with self._lock:
                 self.counters["rejected_stopped"] += 1
+            get_journal().event("serving_stopped_reject",
+                                stage="admission", **_req_ids(req))
+            _end_span(req, "stopped")
             raise ServerStopped("server is stopping")
+        if traced:
+            _trace.event("enqueue", parent=req.trace,
+                         depth=self._queue.qsize())
         with self._lock:
             self.counters["accepted"] += 1
         return PendingResponse(req, self.config.result_timeout_s)
@@ -392,6 +459,58 @@ class Server:
             out["decode"] = self.decoder.stats()
         return out
 
+    # -- metrics exposition --------------------------------------------------
+    def metrics_text(self) -> str:
+        """Prometheus text: the serving counters and gauges mirrored into
+        the process default registry at call time, plus everything
+        already there (program builds, step phases). The mirrors are
+        gauges, so a second Server in one process cannot trip a
+        counter's monotonicity check on the shared families."""
+        from ..observability import metrics as _m
+        reg = _m.default_registry()
+        st = self.stats()
+        sid = self._metrics_id
+        reg.gauge("mxnet_tpu_serving_queue_depth",
+                  "admission queue depth", ("server",)).labels(
+            server=sid).set(st["queue_depth"])
+        if st["params_step"] is not None:
+            reg.gauge("mxnet_tpu_serving_params_step",
+                      "hot-reloaded checkpoint step currently served",
+                      ("server",)).labels(server=sid).set(
+                st["params_step"])
+        ev = reg.gauge("mxnet_tpu_serving_events",
+                       "serving lifecycle counters (cumulative)",
+                       ("server", "event"))
+        for k in ("accepted", "served", "shed", "rejected_shape",
+                  "rejected_stopped", "cancelled",
+                  "deadline_miss_dequeue", "deadline_miss_post_batch",
+                  "errors", "reloads", "batches"):
+            ev.labels(server=sid, event=k).set(st[k])
+        cache = st["cache"]
+        ce = reg.gauge("mxnet_tpu_serving_cache_events",
+                       "compiled-predictor cache counters (cumulative; "
+                       "misses == compiles)", ("server", "event"))
+        for k in ("hits", "misses", "evictions", "entries"):
+            ce.labels(server=sid, event=k).set(cache[k])
+        lat = st["latency_ms"]
+        if lat["count"]:
+            lq = reg.gauge("mxnet_tpu_serving_latency_ms",
+                           "end-to-end request latency percentiles",
+                           ("server", "quantile"))
+            for q in ("p50", "p95", "p99"):
+                lq.labels(server=sid, quantile=q).set(lat[q])
+        return reg.prometheus_text()
+
+    def start_metrics_server(self, host="127.0.0.1", port=0):
+        """Expose ``GET /metrics`` (Prometheus text) on a stdlib daemon
+        HTTP server; returns it (``.server_address[1]`` is the bound
+        port; ``port=0`` picks a free one). Stopped by ``stop()``."""
+        if self._metrics_httpd is None:
+            from ..observability.export import serve_metrics
+            self._metrics_httpd = serve_metrics(self.metrics_text,
+                                                host=host, port=port)
+        return self._metrics_httpd
+
     # -- worker --------------------------------------------------------------
     def _run(self):
         pending, draining = [], False
@@ -451,7 +570,8 @@ class Server:
             if req.cancelled():
                 with self._lock:
                     self.counters["cancelled"] += 1
-                get_journal().event("serving_cancelled")
+                get_journal().event("serving_cancelled", **_req_ids(req))
+                _end_span(req, "cancelled")
                 req.set_error(RequestCancelled(
                     "cancelled at dequeue (hedged twin already answered)"))
             else:
@@ -462,6 +582,10 @@ class Server:
         late = req.late_ms()
         with self._lock:
             self.counters["deadline_miss_dequeue"] += 1
+        get_journal().event("serving_deadline_miss", stage="dequeue",
+                            late_ms=round(late, 2), tenant=None,
+                            **_req_ids(req))
+        _end_span(req, "deadline_miss_dequeue")
         req.set_error(DeadlineExceeded("dequeue", late))
 
     def _drain_queue(self, pending):
@@ -477,30 +601,52 @@ class Server:
         for req in pending:
             with self._lock:
                 self.counters["rejected_stopped"] += 1
+            _end_span(req, "stopped")
             req.set_error(ServerStopped("server stopped before this "
                                         "request was served"))
         pending.clear()
 
     def _process(self, batch, bucket, key):
-        cfg = self.config
         n = len(batch)
+        # the batch is a trace of its own, linked both ways: it lists
+        # its requests' spans, and each request's ``execute`` child
+        # names the batch span
+        with _trace.span(
+                "serving_batch", batch=n, bucket=bucket, key=list(key),
+                request_spans=[i["span_id"] for r in batch
+                               for i in [_req_ids(r)] if i]) as bsp:
+            self._process_traced(batch, bucket, key, n, bsp)
+
+    def _process_traced(self, batch, bucket, key, n, bsp):
+        cfg = self.config
         padded = np.full((bucket,) + key, cfg.pad_value, dtype=self._dtype)
         for i, req in enumerate(batch):
             padded[(i,) + tuple(slice(0, d) for d in req.shape)] = req.payload
+        cache_key = (bucket, key, self._dtype.str)
         try:
-            predictor, _ = self.cache.get(
-                (bucket, key, self._dtype.str),
-                lambda: self._build_predictor(bucket, key))
-            t0 = time.perf_counter()
-            outs, treedef = predictor(padded)
-            self.exec_ms.observe((time.perf_counter() - t0) * 1000.0)
+            # a cache miss builds the predictor (the capture, on the
+            # card) and runs it: the timed program build of this site
+            with _obs.maybe_compile_span(
+                    not self.cache.contains(cache_key),
+                    "serving_predictor", bucket=bucket, key=list(key),
+                    dtype=self._dtype.str, includes_execute=True):
+                predictor, hit = self.cache.get(
+                    cache_key, lambda: self._build_predictor(bucket, key))
+                t0 = time.perf_counter()
+                outs, treedef = predictor(padded)
+                t1 = time.perf_counter()
+            exec_ms = (t1 - t0) * 1000.0
+            self.exec_ms.observe(exec_ms)
         except Exception as exc:         # a failed batch fails its requests
             with self._lock:
                 self.counters["errors"] += n
+            get_journal().crash(exc, where="serving_predict", batch=n,
+                                bucket=bucket, tenant=None)
             err = RequestError(f"predictor failed: "
                                f"{type(exc).__name__}: {exc}")
             err.__cause__ = exc
             for req in batch:
+                _end_span(req, "error")
                 req.set_error(err)
             return
         now = time.monotonic()
@@ -508,10 +654,15 @@ class Server:
         step = self._params_step
         for i, req in enumerate(batch):
             if req.expired(now):
+                late = req.late_ms(now)
                 with self._lock:
                     self.counters["deadline_miss_post_batch"] += 1
-                req.set_error(DeadlineExceeded("post_batch",
-                                               req.late_ms(now)), now)
+                get_journal().event("serving_deadline_miss",
+                                    stage="post_batch",
+                                    late_ms=round(late, 2), tenant=None,
+                                    **_req_ids(req))
+                _end_span(req, "deadline_miss_post_batch")
+                req.set_error(DeadlineExceeded("post_batch", late), now)
                 continue
             rows = []
             for o in outs:
@@ -520,6 +671,13 @@ class Server:
                         and req.shape != key:
                     row = row[tuple(slice(0, d) for d in req.shape)]
                 rows.append(row)
+            if req.trace is not None and req.trace.span_id is not None:
+                # the batch's execution window, under this request's root
+                _trace.record("execute", parent=req.trace, t0=t0, t1=t1,
+                              batch_span=bsp.span_id, batch=n,
+                              bucket=bucket)
+                _trace.event("respond", parent=req.trace)
+            _end_span(req, "ok")
             req.params_step = step                 # version stamp
             req.set_result(rows[0] if treedef is None else treedef(rows),
                            now)
@@ -529,6 +687,18 @@ class Server:
         with self._lock:
             self.counters["served"] += delivered
             self.counters["batches"] += 1
+        lat = self.latency.summary()
+        cache_st = self.cache.stats()      # one snapshot: consistent trio
+        get_journal().event(
+            "serving_batch", queue_depth=self._queue.qsize(), batch=n,
+            delivered=delivered, bucket=bucket, fill=round(n / bucket, 4),
+            pad_waste=BucketGrid.pad_waste(
+                n, bucket, [r.shape for r in batch], key),
+            cache_hit=hit, exec_ms=round(exec_ms, 2),
+            params_step=step,
+            hits=cache_st["hits"], misses=cache_st["misses"],
+            evictions=cache_st["evictions"],
+            p50_ms=lat["p50"], p95_ms=lat["p95"], p99_ms=lat["p99"])
 
     # -- hot reload ----------------------------------------------------------
     def _check_reloadable(self, loaded):

@@ -18,11 +18,12 @@ name>, "retryable": bool, ...}``, which the router maps back onto the
 structured serving errors. ``v`` is the protocol version; readers ignore
 keys they do not know.
 
-Not ported yet: the trace context (``attach_trace``/``extract_parent``)
-waits for the port's ``observability.trace`` (ROADMAP Queue 1 item 5).
-Until then the port's frames carry no ``trace`` key, and a worker echoes
-a ``trace`` it receives on its error frames unchanged, as the reference
-does; the reference's readers treat the key as optional.
+Trace propagation: predict, decode and error frames carry the caller's
+trace context, ``{"v": 1, "trace": {"trace_id": ..., "span_id": ...}}``
+(:func:`attach_trace`), so the worker's ``serving_request`` and
+``serving_batch`` spans become children of the router's request span
+(:func:`extract_parent`). ``trace`` is always optional: with tracing off
+a frame gains only ``v``, and a malformed context is ignored.
 
 Every read is bounded by the socket timeout the caller set, and both
 length fields are capped, so a garbage peer cannot make a reader
@@ -34,12 +35,39 @@ import json
 import struct
 
 __all__ = ["MAX_HEADER", "MAX_PAYLOAD", "PROTOCOL_VERSION", "WireError",
-           "recv_frame", "send_frame"]
+           "attach_trace", "extract_parent", "recv_frame", "send_frame"]
 
 _PREFIX = struct.Struct("!II")
 MAX_HEADER = 1 << 20             # 1 MiB of JSON is already a bug
 MAX_PAYLOAD = 1 << 30            # caps a corrupt length field, not traffic
 PROTOCOL_VERSION = 1             # bump on incompatible header changes
+
+
+def attach_trace(header: dict) -> dict:
+    """Stamp the protocol version and the calling context's trace ids
+    onto an outgoing frame header (in place; returns it). With tracing
+    off, or outside any span, the header gains only ``v``."""
+    from ..observability import trace as _trace
+    header.setdefault("v", PROTOCOL_VERSION)
+    ids = _trace.current_ids()
+    if ids:
+        header["trace"] = ids
+    return header
+
+
+def extract_parent(header: dict):
+    """The propagated trace context of an incoming frame as a
+    :class:`~..observability.trace.SpanContext` (the ``parent=`` a
+    server-side root span re-anchors under), or None when the frame
+    carries none or a malformed one."""
+    doc = header.get("trace")
+    if not isinstance(doc, dict):
+        return None
+    tid, sid = doc.get("trace_id"), doc.get("span_id")
+    if not isinstance(tid, str) or not isinstance(sid, str):
+        return None
+    from ..observability import trace as _trace
+    return _trace.SpanContext(tid, sid)
 
 
 class WireError(ValueError):

@@ -26,13 +26,20 @@ Contract with the pool:
   router honours;
 - ``drain`` closes admission at the front door, lets the queue empty
   under a bounded deadline and reports the residual; ``stop`` shuts the
-  server down and exits 0.
+  server down and exits 0;
+- a predict frame's trace context (``wire.extract_parent``) re-anchors
+  the request's ``serving_request`` span under the router's attempt,
+  and an error frame echoes the context;
+- the worker stamps ``MXNET_TPU_REPLICA_ID`` into its environment, and
+  with ``MXNET_TPU_TRACE_DIR`` set it runs the flight recorder there
+  (``observability.flight``): dumps at SIGTERM, exit and stall, and
+  every ``MXNET_TPU_TRACE_FLIGHT_S`` seconds, so a SIGKILLed worker
+  leaves its last spans behind.
 
 Not ported yet, and refused by name: ``--tenants`` (fleets, ROADMAP
-Queue 1 item 5), ``--mesh-axes`` (item 9), ``--aot-dir`` (the AOT
-store, item 5), the flight recorder under ``MXNET_TPU_TRACE_DIR``
-(tracing, item 5) and the ``MXNET_TPU_TESTING_SLOW_PREDICT_S`` chaos
-seam (item 13).
+Queue 1 item 5b), ``--mesh-axes`` (item 9), ``--aot-dir`` (the AOT
+store, item 5g) and the ``MXNET_TPU_TESTING_SLOW_PREDICT_S`` chaos seam
+(item 13).
 """
 from __future__ import annotations
 
@@ -206,9 +213,12 @@ class _Front:
         budget_s = (deadline_ms / 1000.0 if deadline_ms
                     else self.server.config.result_timeout_s)
         conn.settimeout(budget_s + 10.0)
+        # the frame's trace context: one trace_id across both processes
+        parent = wire.extract_parent(header)
         try:
             resp = self.server.submit(x, deadline_ms=deadline_ms,
-                                      tenant=header.get("tenant"))
+                                      tenant=header.get("tenant"),
+                                      parent=parent)
             out = resp.result(timeout_s=budget_s + 5.0)
         except RequestError as exc:
             wire.send_frame(conn, _error_doc(exc, header))
@@ -300,18 +310,13 @@ def add_worker_args(parser) -> None:
 
 def _refuse_unported(args) -> None:
     for flag, value, item in (
-            ("--tenants", args.tenants, "the fleet entry of ROADMAP Queue 1 "
-             "item 5"),
+            ("--tenants", args.tenants, "fleets, ROADMAP Queue 1 item 5b"),
             ("--mesh-axes", args.mesh_axes, "ROADMAP Queue 1 item 9"),
-            ("--aot-dir", args.aot_dir, "the AOT store of ROADMAP Queue 1 "
-             "item 5")):
+            ("--aot-dir", args.aot_dir, "the AOT store, ROADMAP Queue 1 "
+             "item 5g")):
         if value:
             raise NotImplementedError(f"worker {flag} is not ported yet "
                                       f"({item})")
-    if os.environ.get("MXNET_TPU_TRACE_DIR"):
-        raise NotImplementedError(
-            "the worker's flight recorder (MXNET_TPU_TRACE_DIR) is not "
-            "ported yet (tracing, ROADMAP Queue 1 item 5)")
     if os.environ.get("MXNET_TPU_TESTING_SLOW_PREDICT_S"):
         raise NotImplementedError(
             "the MXNET_TPU_TESTING_SLOW_PREDICT_S chaos seam is not ported "
@@ -321,13 +326,19 @@ def _refuse_unported(args) -> None:
 def cmd_worker(args) -> int:
     from ..context import cpu, gpu
     from ..elastic.membership import Heartbeat
+    from ..observability import flight
     from .reload import ParamStore
     from .server import Server, ServerConfig
 
     _refuse_unported(args)
+    # pod attribution: every span, anchor and flight record names the
+    # replica, also when the worker is launched by hand
     os.environ.setdefault("MXNET_TPU_REPLICA_ID", str(args.replica_id))
     j = get_journal()
     j.set_phase("replica_worker_setup")
+    # the flight recorder (MXNET_TPU_TRACE_DIR), before the model is
+    # built: a worker killed while capturing still leaves its dump
+    recorder = flight.install_from_env()
     ctx = cpu() if args.ctx == "cpu" else gpu(0)
     kw = {}
     if args.decode_slots:
@@ -368,6 +379,8 @@ def cmd_worker(args) -> int:
             server.stop(timeout_s=30.0)
         finally:
             hb.stop(resign=True)
+        if recorder is not None:
+            recorder.stop(dump=True)       # the clean-exit flight dump
         j.event("replica_worker_stop", replica=args.replica_id)
     return 0
 

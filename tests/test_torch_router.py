@@ -12,7 +12,8 @@ outcome and by journal event names, never by timing:
   (``SlotsExhausted``) onto the free one;
 - capacity-floor shedding by priority;
 - the deploy tap: canary and control roles, mirrored parity probes;
-- the parts not ported yet raise.
+- ``metrics_text`` renders the router's families (it raised before
+  tracing was ported).
 """
 import time
 
@@ -233,6 +234,9 @@ def test_deploy_tap_roles_and_mirrors(tmp_path):
 def test_unported_router_parts_raise(tmp_path):
     pool = tp.local_pool("port", str(tmp_path / "p"), n=1)
     router = TRouter(pool)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        router.metrics_text()
+    text = router.metrics_text()
+    for family in ("mxnet_tpu_router_events", "mxnet_tpu_router_breaker_state",
+                   "mxnet_tpu_router_attempts_total"):
+        assert f"# TYPE {family} gauge" in text
+    assert 'mxnet_tpu_router_events{event="requests"} 0' in text
     assert router.config.default_deadline_ms == 2000.0
