@@ -405,6 +405,56 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                in the router's journal and a worker's, the killed worker's
                flight dump read back, and critical paths printed span by
                span.
+23. serve-   — (k) the tenant fleet. One Fleet on cuda:0 (buckets 1-8,
+    fleet      int32 ids, S 128, max_hot_tenants 2) serving three
+               full-width BERT-base tenants registered with block=:
+               bert_a and bert_b (fp32, seeds SEED+23 and SEED+24, each
+               on its own commit root, step 1) and bert_bf16 (seed
+               SEED+25, cast by contrib.amp.convert_hybrid_block to
+               bfloat16, SLO silver). 96 requests in rounds of 16 (4
+               threads) ordered a, b, bf16, a, b, bf16, so the LRU pages
+               in 6 times: every answer within 1e-3 of max |value| of
+               its tenant's weights run on the CPU in fp32 (bert_bf16:
+               3e-2 of the CPU's bf16 run of its cast weights, the
+               same function; its errors against fp32 runs of the cast
+               and the pre-cast weights printed), no batch
+               mixing tenants (the serving_batch records' tenant counts),
+               K2 25 per batch forward and per warm-up pass of each
+               capture. Per page-in its cost (the copy back, the reload,
+               the first batch's capture), capture seconds and bytes; per
+               page-out its ms, bytes and the bytes
+               torch.cuda.memory_allocated() got back (>= 0.9 of the
+               tenant's parameters), and the memory beside the hot
+               tenants' parameters after each page-out within 64 MiB of
+               the first's; hot batches' exec_ms p50/p99. Then a fault
+               hook raises at bert_b's serving_tenant seam for 3
+               batches: bert_b is quarantined (TenantQuarantined, not
+               retryable, at admission) while bert_a and bert_bf16
+               requests are all answered and right; after the 1 s
+               cooldown one probe re-admits it. A step 2 committed to
+               bert_a's root (one encoder layer x 1.1) and
+               reload_tenant("bert_a"): answers stamped 2 match the CPU
+               with step 2, bert_b stamps 1. metrics_text holds the
+               three tenant families; serving_report's page-ins,
+               page-outs and quarantines equal tenant_stats().
+24. serve-   — (l) canary deployment. Two LocalReplicas of full-width
+    deploy     BERT-base's encoder (S 128, the sequence output only: the
+               router's mirror compares one array; 24 K2 per forward)
+               over one commit root behind the Router, 4 client threads
+               through both deploys. The mirror's tolerance comes from
+               the largest difference of one sequence served from
+               different buckets with equal weights (16x it, at most
+               1e-3 of max |value|, rtol 0). DeployConfig(canary_k=1,
+               window_s=1.0, promote_after=2, min_samples=20,
+               mirror_fraction=0.25): step 2 (step 1's values) is
+               promoted, pool.reload() mid-canary raises
+               DeployInProgress, every answer stamped 1 or 2 and within
+               1e-3 of the CPU's; step 3 (one encoder layer x 1.5,
+               CRC-valid) is rolled back on parity, the canary ends on
+               step 2 with its pin installed, step-3 answers only from
+               the canary and equal to the CPU's with step 3's weights,
+               none lost. Seconds to promote and to roll back, the gate
+               evaluations, canary and control p99 printed.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
@@ -412,7 +462,8 @@ reads them just after, and each training phase just before its steps
 after the capturing window; phase 18 per policy after the capturing
 step; phase 19 per burst; phase 20 per burst, in a worker from its
 stats frames; phase 21 over the decode streams and the BERT burst
-beside them; phase 22 per burst and per mode). A graph's replay
+beside them; phase 22 per burst and per mode; phase 23 over the fleet
+burst; phase 24 over the good deploy's traffic). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -1097,14 +1148,14 @@ def phase_kernel_k2(torch, me):
 
 
 # -- phase 6: serve BERT -----------------------------------------------------
-def seeded_bert(torch, mx, ctx, seq, buckets, **kwargs):
+def seeded_bert(torch, mx, ctx, seq, buckets, seed=SEED, **kwargs):
     """Full-width BERT-base without the MLM decoder on ``ctx``:
     Normal(0.02) weights, every batch bucket materialized and warmed at
     sequence ``seq``, then seeded biases and LayerNorms, all from one
-    generator seeded with SEED."""
+    generator seeded with ``seed``."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
     dev = ctx.torch_device
-    gen = mx.random.generator(SEED, device=dev)
+    gen = mx.random.generator(seed, device=dev)
     net = bert_12_768_12(use_decoder=False, **kwargs)
     net.initialize(mx.init.Normal(0.02), ctx=ctx, generator=gen)
     with torch.inference_mode():        # materialize and warm every bucket
@@ -4694,9 +4745,10 @@ def pl_commit(root, step, params):
 
 
 def pl_events(path, kind):
+    """The journal's records of ``kind`` (None: all), in order."""
     with open(path, encoding="utf-8") as f:
         recs = [json.loads(line) for line in f if line.strip()]
-    return [r for r in recs if r.get("kind") == kind]
+    return [r for r in recs if kind is None or r.get("kind") == kind]
 
 
 def phase_serve_pool(torch, mx, card, ctx, single):
@@ -5786,6 +5838,599 @@ def tr_pod(torch, mx, card, ctx, untraced):
                             "spans": len(kdoc["spans"])}}
 
 
+FL_ROOT = os.path.join(ROOT, "build", "chip_smoke_fleet")
+# (tenant, weights seed, dtype, SLO class): three full-width BERT-base
+# families on one Fleet, the third cast to bf16 for serving
+FL_TENANTS = (("bert_a", SEED + 23, "float32", "gold"),
+              ("bert_b", SEED + 24, "float32", "gold"),
+              ("bert_bf16", SEED + 25, "bfloat16", "silver"))
+FL_HOT = 2                           # max_hot_tenants
+FL_ROUNDS = ("bert_a", "bert_b", "bert_bf16", "bert_a", "bert_b",
+             "bert_bf16")            # 16 requests each: 6 page-ins
+FL_PER_ROUND = 16
+FL_THREADS = 4
+FL_DISTINCT = 8                      # distinct sequences per tenant
+FL_BF16_RTOL = 3e-2                  # bf16 tenant vs the CPU's bf16 run
+FL_BREAKER_K = 3
+FL_COOLDOWN_S = 1.0
+FL_DEADLINE_MS = 30000.0             # page-ins stall a batch: no misses
+FL_LEAK_BYTES = 64 << 20             # residual drift across page cycles
+FL_FREED = 0.9                       # a page-out frees >= this share
+FL_SKEW_LAYER = "encoder.transformer_cells.3."
+DP_ROOT = os.path.join(ROOT, "build", "chip_smoke_deploy")
+DP_THREADS = 4
+DP_CFG = {"canary_k": 1, "window_s": 1.0, "promote_after": 2,
+          "min_samples": 20, "mirror_fraction": 0.25, "rollback_s": 60.0,
+          "deadline_s": 120.0}
+DP_SKEW = 1.5                        # one encoder layer's weights x 1.5
+DP_K2_PER_FORWARD = 24               # no pooler: ffn_1 and ffn_2 of 12 cells
+
+
+def fl_weights(torch, net):
+    """{structural name: CPU fp32 copy} of a block's tensors."""
+    return {k: v.detach().float().cpu().clone()
+            for k, v in net.collect_params().items()}
+
+
+def fl_cpu_outputs(torch, mx, weights, ids, dtype=None, **kwargs):
+    """The CPU forward (the plain versions; fp32, or cast to ``dtype``)
+    of BERT-base with ``weights`` on ``ids``: a list of arrays, one per
+    output."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    net = bert_12_768_12(use_decoder=False, **kwargs)
+    net.load_dict({k: v.numpy() for k, v in weights.items()}, ctx=mx.cpu())
+    if dtype is not None:
+        net.cast(dtype)
+    with torch.inference_mode():
+        out = net(torch.from_numpy(ids))
+    outs = [out] if isinstance(out, torch.Tensor) else list(out)
+    return [o.float().numpy().astype(np.float64) for o in outs]
+
+
+def fl_check(name, answers, refs, rtol):
+    """Each (row, answer, ...) against output k of ``refs`` at that row,
+    within ``rtol`` of the output's max |value|; returns the largest
+    relative error."""
+    import numpy as np
+    worst = 0.0
+    for k, ref in enumerate(refs):
+        got = np.stack([np.asarray(a[1][k] if isinstance(a[1], (tuple,
+                                                                list))
+                                   else a[1], dtype=np.float64)
+                        for a in answers])
+        want = np.stack([ref[a[0]] for a in answers])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"{name}: output {k} has shape {got.shape} (want "
+                 f"{want.shape}) or is not finite")
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        worst = max(worst, err / scale)
+        if not err <= rtol * scale:
+            fail(f"{name}: output {k} differs from the CPU run by {err} > "
+                 f"{rtol} x {scale}")
+    return worst
+
+
+def fl_send(fleet, tenant, ids, rows, n_threads, errors=None):
+    """``ids[rows]`` to ``tenant`` from ``n_threads`` threads, each
+    submitting its share at once; returns [(row, answer, params_step)].
+    Fails unless every request is answered (``errors`` collects the
+    failures instead, when given)."""
+    out, errs = [], []
+    lock = threading.Lock()
+
+    def client(part):
+        for r in part:
+            try:
+                resp = fleet.submit(ids[r], tenant=tenant,
+                                    deadline_ms=FL_DEADLINE_MS)
+                value = resp.result(120)
+            except Exception as exc:  # reported below, then fail
+                errs.append(f"{tenant} row {r}: {exc!r}")
+                continue
+            with lock:
+                out.append((r, value, resp.params_step))
+
+    threads = [threading.Thread(target=client, args=(rows[k::n_threads],))
+               for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors is not None:
+        errors.extend(errs)
+    elif errs or len(out) != len(rows):
+        fail(f"serve-fleet: {len(out)} of {len(rows)} {tenant} requests "
+             f"answered; errors {errs[:3]}")
+    return out
+
+
+def phase_serve_fleet(torch, mx, card, ctx):
+    """(k) Three full-width BERT-base tenants on one Fleet on ``ctx``,
+    two hot at a time."""
+    import shutil
+
+    from mxnet_tpu_torch.diagnostics import journal
+    shutil.rmtree(FL_ROOT, ignore_errors=True)
+    os.makedirs(FL_ROOT)
+    jpath = os.path.join(FL_ROOT, "journal.jsonl")
+    journal.reset_journal(jpath)
+    try:
+        return _serve_fleet(torch, mx, card, ctx, jpath)
+    finally:
+        journal.reset_journal()
+        shutil.rmtree(FL_ROOT, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _serve_fleet(torch, mx, card, ctx, jpath):
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.cached_graph import WARMUP_ITERS
+    from mxnet_tpu_torch.resilience import atomic
+    from mxnet_tpu_torch.serving import (Fleet, FleetConfig,
+                                         TenantQuarantined, serving_report)
+    t_phase = time.perf_counter()
+    ids = np.random.RandomState(SEED + 23).randint(
+        0, BERT_VOCAB, (FL_DISTINCT, BERT_SEQ)).astype(np.int32)
+    fleet = Fleet(FleetConfig(
+        max_batch=8, dtype="int32", max_hot_tenants=FL_HOT,
+        tenant_breaker_k=FL_BREAKER_K, tenant_cooldown_s=FL_COOLDOWN_S,
+        default_deadline_ms=FL_DEADLINE_MS, reload_poll_s=3600.0),
+        ctx=ctx)
+    weights, refs, nbytes, blocks = {}, {}, {}, {}
+    for name, seed, dtype, slo in FL_TENANTS:
+        net = seeded_bert(torch, mx, ctx, BERT_SEQ, (1,), seed=seed)
+        weights[name] = fl_weights(torch, net)
+        root = None
+        if dtype == "float32":      # its own commit root, step 1
+            root = os.path.join(FL_ROOT, name)
+            pl_commit(root, 1, weights[name])
+        else:
+            # bf16 BERT-base is ~3e-2 of max |value| off its fp32 self on
+            # the CPU too: the gate holds the card to the CPU's bf16 run
+            # of the same function, the fp32 runs are printed beside it
+            fp32_refs = {"the fp32 weights before the cast": fl_cpu_outputs(
+                torch, mx, weights[name], ids)}
+            amp.convert_hybrid_block(net, dtype)
+            weights[name] = fl_weights(torch, net)
+            fp32_refs["the cast weights in fp32"] = fl_cpu_outputs(
+                torch, mx, weights[name], ids)
+        nbytes[name] = sum(t.numel() * t.element_size()
+                           for t in net.collect_params().values())
+        blocks[name] = net
+        fleet.add_tenant(name, block=net, ckpt_root=root, slo=slo)
+        refs[name] = fl_cpu_outputs(
+            torch, mx, weights[name], ids,
+            dtype=None if dtype == "float32" else dtype)
+    _sync(torch)
+    fleet.start()
+    log(f"serve-fleet (k): Fleet(max_hot_tenants={FL_HOT}, buckets 1/2/4/"
+        f"8, int32 ids, S {BERT_SEQ}) on {card} with tenants "
+        + ", ".join(f"{n} ({d}, SLO {s}, {nbytes[n]} parameter bytes)"
+                    for n, _, d, s in FL_TENANTS)
+        + "; bert_a and bert_b hot-reload from their own commit roots")
+
+    # 1. the burst: rounds of one tenant each, so the LRU pages
+    _sync(torch)
+    before = fleet.stats()
+    kernels.reset_launch_counts()
+    answers = {n: [] for n, *_ in FL_TENANTS}
+    t0 = time.perf_counter()
+    for k, name in enumerate(FL_ROUNDS):
+        rows = [(k * FL_PER_ROUND + i) % FL_DISTINCT
+                for i in range(FL_PER_ROUND)]
+        answers[name] += fl_send(fleet, name, ids, rows, FL_THREADS)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    after = fleet.stats()
+    batches = after["batches"] - before["batches"]
+    captures = after["cache"]["misses"] - before["cache"]["misses"]
+    want_k2 = BERT_K2_PER_FORWARD * (batches + WARMUP_ITERS * captures)
+    log(f"serve-fleet (k) burst: {len(FL_ROUNDS) * FL_PER_ROUND} requests "
+        f"({FL_PER_ROUND} per round, rounds {list(FL_ROUNDS)}, "
+        f"{FL_THREADS} threads) answered in {batches} batches with "
+        f"{captures} graph captures, {wall:.2f} s wall on {card}; K2 "
+        f"{launches['matmul_epilogue']} launches (= {BERT_K2_PER_FORWARD} "
+        f"x ({batches} batch forwards + {WARMUP_ITERS} warm-up passes x "
+        f"{captures} captures))")
+    if launches["matmul_epilogue"] != want_k2 or any(
+            n for k, n in launches.items() if k != "matmul_epilogue"):
+        fail(f"serve-fleet: launches {launches}, want K2 {want_k2}")
+    errs = {}
+    for name, _, dtype, _ in FL_TENANTS:
+        rtol = LOGIT_RTOL if dtype == "float32" else FL_BF16_RTOL
+        errs[name] = fl_check(f"serve-fleet {name}", answers[name],
+                              refs[name], rtol)
+        steps = {s for _, _, s in answers[name]}
+        extra = ""
+        if dtype != "float32":
+            extra = "".join(
+                f", {fl_check(name, answers[name], ref, 1.0):.3e} "
+                f"against {what} run in fp32 (not gated)"
+                for what, ref in fp32_refs.items())
+            own = fl_check(name, [(r, [o[r] for o in refs[name]])
+                                  for r in range(FL_DISTINCT)],
+                           fp32_refs["the cast weights in fp32"], 1.0)
+            extra += (f"; the CPU's {dtype} run itself is {own:.3e} off "
+                      "its fp32 run")
+        log(f"serve-fleet (k): {name} ({dtype}) {len(answers[name])} "
+            f"answers, max relative error {errs[name]:.3e} against its "
+            f"weights run on the CPU in {dtype} (tolerance {rtol:g} of max "
+            f"|value|){extra}, stamped {sorted(steps, key=str)}")
+        if steps != ({1} if dtype == "float32" else {None}):
+            fail(f"serve-fleet: {name} answers stamped {steps}")
+    per_tenant = {}
+    for rec in pl_events(jpath, "serving_batch"):
+        per_tenant[rec["tenant"]] = per_tenant.get(rec["tenant"], 0) \
+            + rec["batch"]
+    if per_tenant != {n: len(a) for n, a in answers.items()}:
+        fail(f"serve-fleet: batches per tenant {per_tenant}: a batch "
+             "mixed tenants")
+
+    # 2. paging: what each page-in cost and each page-out freed
+    ins = pl_events(jpath, "tenant_page_in")
+    outs = pl_events(jpath, "tenant_page_out")
+    hot_exec = sorted(r["exec_ms"] for r in pl_events(jpath, "serving_batch")
+                      if r["cache_hit"])
+    for r in ins:
+        log(f"serve-fleet (k) page-in {r['tenant']}: cost {r['cost_ms']} "
+            f"ms (build, {r['bytes']} bytes host-to-device, reload, the "
+            f"first batch's capture {r['capture_s']} s), evicted "
+            f"{r['evicted']}, hot {r['hot']} on {card}")
+    if len(ins) < 4:
+        fail(f"serve-fleet: {len(ins)} page-ins, want >= 4")
+    residual = []
+    order = [r for r in pl_events(jpath, None)
+             if r["kind"] in ("tenant_page_in", "tenant_page_out")]
+    for i, r in enumerate(order):
+        if r["kind"] != "tenant_page_out":
+            continue
+        # the page-in that evicted this tenant: its hot set is what
+        # stays on the card after the page-out
+        nxt = next(p for p in order[i:] if p["kind"] == "tenant_page_in")
+        resident = r["allocated"] - sum(nbytes[n] for n in nxt["hot"])
+        residual.append(resident)
+        log(f"serve-fleet (k) page-out {r['tenant']}: {r['ms']} ms, "
+            f"{r['bytes']} bytes to pinned host memory, "
+            f"{r['freed_bytes']} bytes freed on the card "
+            f"({r['freed_bytes'] / nbytes[r['tenant']]:.3f} of its "
+            f"parameters); allocated after {r['allocated']} bytes, "
+            f"{resident} beside the hot tenants' parameters {nxt['hot']} "
+            f"on {card}")
+        if r["freed_bytes"] < FL_FREED * nbytes[r["tenant"]]:
+            fail(f"serve-fleet: a page-out of {r['tenant']} freed "
+                 f"{r['freed_bytes']} of {nbytes[r['tenant']]} bytes")
+    drift = [x - residual[0] for x in residual[1:]]
+    if any(abs(d) > FL_LEAK_BYTES for d in drift):
+        fail(f"serve-fleet: allocated memory beside the hot parameters "
+             f"drifted by {drift} bytes across page cycles")
+    p50 = hot_exec[len(hot_exec) // 2]
+    p99 = hot_exec[min(int(math.ceil(0.99 * len(hot_exec))) - 1,
+                       len(hot_exec) - 1)]
+    log(f"serve-fleet (k): hot batches' exec_ms p50 {p50:.2f}, p99 "
+        f"{p99:.2f} over {len(hot_exec)} batches, beside page-in costs "
+        f"{[r['cost_ms'] for r in ins]} ms; residual drift {drift} bytes "
+        f"(limit {FL_LEAK_BYTES}) on {card}")
+
+    # 3. quarantine: bert_b's predictor fails at its seam, the others serve
+    left = [FL_BREAKER_K]
+
+    def poison(point, path=None, nbytes=None, size=None):
+        if point == "serving_tenant" and path == "bert_b" and left[0] > 0:
+            left[0] -= 1
+            raise RuntimeError("bert_b's predictor poisoned")
+
+    side, side_errs = {}, []
+
+    def others():
+        for name in ("bert_a", "bert_bf16"):
+            side[name] = fl_send(fleet, name, ids, list(range(FL_DISTINCT)),
+                                 2, errors=side_errs)
+
+    prev = atomic.set_fault_hook(poison)
+    bystander = threading.Thread(target=others)
+    bystander.start()
+    b_errors = []
+    try:
+        for r in range(FL_BREAKER_K):
+            try:
+                fleet.predict(ids[r], tenant="bert_b", timeout_s=120)
+            except Exception as exc:   # the poisoned batches, expected
+                b_errors.append(type(exc).__name__)
+        try:
+            fleet.predict(ids[0], tenant="bert_b", timeout_s=120)
+            fail("serve-fleet: bert_b admitted while quarantined")
+        except TenantQuarantined as exc:
+            refused = (exc.tenant, exc.retryable)
+    finally:
+        atomic.set_fault_hook(prev)
+        bystander.join(timeout=300)
+    if side_errs:
+        fail(f"serve-fleet: bystander tenants failed: {side_errs[:3]}")
+    for name, got in side.items():
+        fl_check(f"serve-fleet quarantine window {name}", got, refs[name],
+                 LOGIT_RTOL if name == "bert_a" else FL_BF16_RTOL)
+    time.sleep(FL_COOLDOWN_S)
+    probe = fleet.predict(ids[1], tenant="bert_b", timeout_s=120)
+    fl_check("serve-fleet probe bert_b", [(1, probe)], refs["bert_b"],
+             LOGIT_RTOL)
+    stats = fleet.tenant_stats()
+    log(f"serve-fleet (k) quarantine: bert_b's {FL_BREAKER_K} poisoned "
+        f"batches failed ({b_errors}), then admission refused it with "
+        f"TenantQuarantined (tenant, retryable) = {refused}; meanwhile "
+        f"bert_a and bert_bf16 answered {sum(map(len, side.values()))} "
+        "requests, all within tolerance; after the "
+        f"{FL_COOLDOWN_S:g} s cooldown one probe re-admitted it: state "
+        f"{stats['bert_b']['state']}, readmissions "
+        f"{stats['bert_b']['readmissions']}")
+    if b_errors != ["RequestError"] * FL_BREAKER_K or \
+            refused != ("bert_b", False) or \
+            stats["bert_b"]["state"] != "admitted" or \
+            stats["bert_b"]["readmissions"] != 1 or \
+            any(stats[n]["quarantines"] for n in ("bert_a", "bert_bf16")):
+        fail(f"serve-fleet: quarantine {b_errors}, {refused}, {stats}")
+
+    # 4. a per-tenant reload: bert_a's root gets step 2
+    step2 = {k: v * 1.1 if k.startswith(FL_SKEW_LAYER) else v
+             for k, v in weights["bert_a"].items()}
+    pl_commit(os.path.join(FL_ROOT, "bert_a"), 2, step2)
+    ref2 = fl_cpu_outputs(torch, mx, step2, ids)
+    fleet.reload_tenant("bert_a")
+    t_end = time.monotonic() + 120
+    while True:
+        got = fl_send(fleet, "bert_a", ids, list(range(FL_DISTINCT)), 2)
+        if all(s == 2 for _, _, s in got):
+            break
+        if time.monotonic() > t_end:
+            fail("serve-fleet: bert_a never served step 2")
+    err2 = fl_check("serve-fleet bert_a step 2", got, ref2, LOGIT_RTOL)
+    b_steps = {s for _, _, s in fl_send(fleet, "bert_b", ids, [0, 1], 1)}
+    log(f"serve-fleet (k) reload: bert_a serves step 2 (max relative error "
+        f"{err2:.3e} against the CPU with step 2's weights); bert_b still "
+        f"stamps {b_steps}")
+    if b_steps != {1}:
+        fail(f"serve-fleet: bert_b's stamp moved to {b_steps}")
+
+    # 5. the reports
+    text = fleet.metrics_text()
+    stats = fleet.tenant_stats()
+    fleet.stop()
+    families = sorted({ln.split("{")[0] for ln in text.splitlines()
+                       if ln.startswith("mxnet_tpu_serving_tenant")})
+    rep = serving_report(jpath)["tenants"]
+    counts = {n: (rep[n]["page_ins"], rep[n]["page_outs"],
+                  sum(t["to"] == "quarantined"
+                      for t in rep[n]["quarantine_trail"]))
+              for n in stats}
+    want = {n: (r["page_ins"], r["page_outs"], r["quarantines"])
+            for n, r in stats.items()}
+    log(f"serve-fleet (k): metrics_text families {families}; "
+        f"serving_report (page-ins, page-outs, quarantines) {counts}, "
+        f"tenant_stats {want}")
+    if families != ["mxnet_tpu_serving_tenant_events",
+                    "mxnet_tpu_serving_tenant_latency_ms",
+                    "mxnet_tpu_serving_tenant_state"] or counts != want:
+        fail("serve-fleet: the reports disagree with tenant_stats")
+    del fleet, blocks
+    seconds = time.perf_counter() - t_phase
+    log(f"serve-fleet (k): {seconds:.1f} s on {card}")
+    return {"launches": launches["matmul_epilogue"], "batches": batches,
+            "captures": captures, "warmup": WARMUP_ITERS, "errs": errs,
+            "page_in_ms": [r["cost_ms"] for r in ins],
+            "capture_s": [r["capture_s"] for r in ins],
+            "page_out_ms": [r["ms"] for r in outs],
+            "freed": [r["freed_bytes"] for r in outs],
+            "drift": drift, "exec_p50": p50, "exec_p99": p99,
+            "seconds": seconds}
+
+
+def dp_burst(router, ids, until, what):
+    """Requests through ``router.call`` from DP_THREADS threads until
+    ``until()``; every request answered or the phase fails. Returns
+    [(row, value, replica, params_step)]."""
+    recs, _ = pl_burst(router, ids, DP_THREADS, n_threads=DP_THREADS,
+                       until=until, what=f"serve-deploy {what}")
+    return [(r[0] % len(ids), r[1], r[2], r[3]) for r in recs]
+
+
+def dp_check(what, recs, refs, steps):
+    import numpy as np
+    got = {r[3] for r in recs}
+    if not got <= set(steps):
+        fail(f"serve-deploy: {what}: answers stamped {got}, want {steps}")
+    for step in sorted(got):
+        rows = [(r[0], r[1]) for r in recs if r[3] == step]
+        fl_check(f"serve-deploy {what} step {step}", rows, [refs[step]],
+                 LOGIT_RTOL)
+    return {s: sum(r[3] == s for r in recs) for s in sorted(got)}
+
+
+def phase_serve_deploy(torch, mx, card, ctx):
+    """(l) A canary deploy over two BERT-base replicas on ``ctx``."""
+    import shutil
+
+    from mxnet_tpu_torch.diagnostics import journal
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    os.makedirs(DP_ROOT)
+    jpath = os.path.join(DP_ROOT, "journal.jsonl")
+    journal.reset_journal(jpath)
+    try:
+        return _serve_deploy(torch, mx, card, ctx, jpath)
+    finally:
+        journal.reset_journal()
+        shutil.rmtree(DP_ROOT, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _serve_deploy(torch, mx, card, ctx, jpath):
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.serving import (DeployConfig, DeployController,
+                                         DeployInProgress, ParamStore,
+                                         PoolConfig, ReplicaPool, Router,
+                                         RouterConfig, Server, ServerConfig)
+    t_phase = time.perf_counter()
+    dev = ctx.torch_device
+    ckpt = os.path.join(DP_ROOT, "ckpt")
+    # the encoder's sequence output alone: the router's mirror compares
+    # one array per answer
+    arch = {"use_pooler": False, "use_classifier": False}
+    net = seeded_bert(torch, mx, ctx, BERT_SEQ, (1,), seed=SEED + 24,
+                      **arch)
+    good = fl_weights(torch, net)
+    del net
+    skewed = {k: v * DP_SKEW if k.startswith(FL_SKEW_LAYER) else v
+              for k, v in good.items()}
+    ids = np.random.RandomState(SEED + 24).randint(
+        0, BERT_VOCAB, (FL_DISTINCT, BERT_SEQ)).astype(np.int32)
+    ref_good = fl_cpu_outputs(torch, mx, good, ids, **arch)[0]
+    refs = {1: ref_good, 2: ref_good,
+            3: fl_cpu_outputs(torch, mx, skewed, ids, **arch)[0]}
+    pl_commit(ckpt, 1, good)
+
+    def factory():
+        bert = bert_12_768_12(use_decoder=False, **arch)
+        bert.initialize(mx.init.Normal(0.02), ctx=ctx,
+                        generator=mx.random.generator(SEED, device=dev))
+        with torch.inference_mode():
+            bert(torch.zeros(1, BERT_SEQ, dtype=torch.int32, device=dev))
+        return Server(bert, ServerConfig(
+            max_batch=8, dtype="int32", aot_prewarm=((BERT_SEQ,),),
+            reload_poll_s=-1.0), param_store=ParamStore(ckpt), ctx=ctx)
+
+    pool = ReplicaPool(os.path.join(DP_ROOT, "pool"), PoolConfig(**PL_POOL))
+    pool.add_local("r0", factory).add_local("r1", factory)
+    pool.start()
+    router = Router(pool, RouterConfig(retries=PL_RETRIES))
+    try:
+        return _deploy_runs(torch, card, pool, router, ckpt, ids, refs,
+                            good, skewed, jpath, t_phase, kernels,
+                            DeployConfig, DeployController,
+                            DeployInProgress)
+    finally:
+        router.stop()
+        pool.stop()
+
+
+def _deploy_runs(torch, card, pool, router, ckpt, ids, refs, good, skewed,
+                 jpath, t_phase, kernels, DeployConfig, DeployController,
+                 DeployInProgress):
+    import numpy as np
+    servers = {rid: rep.server for rid, rep in pool.replicas.items()}
+    # the mirror's tolerance: one sequence served from different batch
+    # buckets on the two replicas differs by this much with equal weights
+    diff, scale = 0.0, float(np.abs(refs[1]).max())
+    for rid, srv in servers.items():
+        preds = {k[0]: p for k, p in srv.cache.entries()}
+        for r in range(FL_DISTINCT):
+            rows = {}
+            for b, p in preds.items():
+                padded = np.zeros((b, BERT_SEQ), np.int32)
+                padded[0] = ids[r]
+                rows[b] = p(padded)[0][0][0]
+            base = rows[min(rows)]
+            diff = max([diff] + [float(np.abs(v - base).max())
+                                 for v in rows.values()])
+    atol = min(LOGIT_RTOL * scale, max(16.0 * diff, 1e-6 * scale))
+    log(f"serve-deploy (l): two LocalReplicas of full-width BERT-base (the "
+        f"encoder's sequence output, S {BERT_SEQ}, int32 ids, fp32, buckets "
+        f"1/2/4/8 prewarmed) on {card} over one commit root; the same "
+        f"sequences served from every bucket differ by at most {diff:.3e} "
+        f"(max |value| {scale:.3e}), so the mirror compares with rtol 0, "
+        f"atol {atol:.3e} (16x that, at most {LOGIT_RTOL:g} of max "
+        "|value|, the serving gate)")
+    cfg = DeployConfig(**DP_CFG, mirror_rtol=0.0, mirror_atol=atol)
+    for b in (8, 4, 2, 1):
+        pl_burst(router, ids, b, n_threads=1, what="serve-deploy warm")
+
+    def deploy(step):
+        """ctl.deploy(step) under load; returns (result, records)."""
+        ctl = DeployController(pool, router, ckpt, cfg)
+        box = {}
+        th = threading.Thread(target=lambda: box.update(ctl.deploy(step)))
+        th.start()
+        recs = dp_burst(router, ids, lambda: not th.is_alive(),
+                        f"deploy of step {step}")
+        th.join()
+        return box, recs
+
+    # 1. a good step (the same values) is promoted
+    pl_commit(ckpt, 2, good)
+    refused = []
+
+    def reload_mid_canary():
+        pl_wait(lambda: pl_events(jpath, "canary_up"), "canary_up")
+        try:
+            pool.reload()
+        except DeployInProgress as exc:
+            refused.append(exc.op)
+
+    watcher = threading.Thread(target=reload_mid_canary)
+    watcher.start()
+    kernels.reset_launch_counts()
+    before = sum(s.stats()["batches"] for s in servers.values())
+    res1, recs1 = deploy(2)
+    launches = kernels.launch_counts()
+    batches = sum(s.stats()["batches"] for s in servers.values()) - before
+    watcher.join()
+    stamps1 = dp_check("good deploy", recs1, refs, (1, 2))
+    evals1 = pl_events(jpath, "gate_eval")
+    steps = {s.id: s.params_step for s in pool.view()}
+    log(f"serve-deploy (l) good deploy: {res1}; {len(recs1)} requests "
+        f"answered, none lost, stamps {stamps1}; pool.reload() mid-canary "
+        f"refused {refused}; gate evaluations "
+        + "; ".join(f"{e['verdict']} canary p99 {e['canary_p99_ms']} / "
+                    f"control p99 {e['control_p99_ms']} ms, mirrors "
+                    f"{e['mirrors']} (mismatch {e['mirror_mismatch']})"
+                    for e in evals1)
+        + f"; promoted in {res1.get('deploy_ms')} ms on {card}; replicas "
+        f"{steps}; K2 {launches['matmul_epilogue']} launches (= "
+        f"{DP_K2_PER_FORWARD} x {batches})")
+    if res1.get("result") != "promoted" or refused != ["reload"] or \
+            set(steps.values()) != {2}:
+        fail(f"serve-deploy: the good deploy: {res1}, {refused}, {steps}")
+    if launches["matmul_epilogue"] != DP_K2_PER_FORWARD * batches or any(
+            n for k, n in launches.items() if k != "matmul_epilogue"):
+        fail(f"serve-deploy: launches {launches} for {batches} batches")
+
+    # 2. a skewed step (CRC-valid, one layer x 1.5) is rolled back
+    pl_commit(ckpt, 3, skewed)
+    res2, recs2 = deploy(3)
+    stamps2 = dp_check("skewed deploy", recs2, refs, (2, 3))
+    canary = res2.get("canary", ["?"])[0]
+    evals2 = pl_events(jpath, "gate_eval")[len(evals1):]
+    steps = {s.id: s.params_step for s in pool.view()}
+    pinned = (pool.replicas[canary]._pin,
+              servers[canary].param_store.pinned_step)
+    wrong = {r[2] for r in recs2 if r[3] == 3}
+    log(f"serve-deploy (l) skewed deploy: {res2}; {len(recs2)} requests "
+        f"answered, none lost, stamps {stamps2} (step 3 only from "
+        f"{sorted(wrong)}); gate evaluations "
+        + "; ".join(f"{e['verdict']} {e['reasons']} canary p99 "
+                    f"{e['canary_p99_ms']} / control p99 "
+                    f"{e['control_p99_ms']} ms, mirrors {e['mirrors']} "
+                    f"(mismatch {e['mirror_mismatch']})" for e in evals2)
+        + f"; rolled back in {res2.get('rollback_ms')} ms (deploy "
+        f"{res2.get('deploy_ms')} ms) on {card}; replicas {steps}; canary "
+        f"pins {pinned}")
+    if res2.get("result") != "rolled_back" or res2.get("reason") != \
+            "parity" or set(steps.values()) != {2} or pinned != (2, 2) \
+            or not wrong <= {canary}:
+        fail(f"serve-deploy: the skewed deploy: {res2}, {steps}, {pinned}")
+    seconds = time.perf_counter() - t_phase
+    log(f"serve-deploy (l): {seconds:.1f} s on {card}")
+    return {"launches": launches["matmul_epilogue"], "batches": batches,
+            "promote_ms": res1.get("deploy_ms"),
+            "rollback_ms": res2.get("rollback_ms"),
+            "rollback_deploy_ms": res2.get("deploy_ms"),
+            "evals": (len(evals1), len(evals2)), "mirror_atol": atol,
+            "bucket_diff": diff, "seconds": seconds}
+
+
 def phase_kernel_bf16(torch, ce, me):
     """K1 and K2 in bfloat16 at this phase's shapes: the 48 epilogues of a
     ResNet-50 forward at batch 256 and the 24 of a BERT-base MLM training
@@ -5899,6 +6544,10 @@ def main():
                                                    out["serve-pool"]))
     run("trace", lambda: phase_trace(torch, mx, card, mx.gpu(0),
                                      out["serve-pool"]))
+    run("serve-fleet", lambda: phase_serve_fleet(torch, mx, card,
+                                                 mx.gpu(0)))
+    run("serve-deploy", lambda: phase_serve_deploy(torch, mx, card,
+                                                   mx.gpu(0)))
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -5910,7 +6559,7 @@ def main():
     rc, ck = out["train-recipe"], out["train-checkpoint"]
     rm, rl = out["train-remat"], out["serve-reload"]
     pl, dc = out["serve-pool"], out["serve-decode"]
-    tr = out["trace"]
+    tr, fl, dp = out["trace"], out["serve-fleet"], out["serve-deploy"]
 
     def remat(kernel):
         """The kernel's launches per graphed step of (c) under each remat
@@ -6102,6 +6751,17 @@ def main():
         "trace_launches_fixed": {m: r["k2_fixed"]
                                  for m, r in tr["cost"].items()},
         "trace_train_launches": {m: r["k2"] for m, r in tr["sync"].items()},
+        "serve_fleet_launches": fl["launches"],
+        "serve_fleet_per": f"the fleet burst: {fl['batches']} batch "
+                           f"forwards of three BERT-base tenants at S "
+                           f"{BERT_SEQ} (fp32 and bf16) and the "
+                           f"{fl['warmup']} warm-up passes of each of "
+                           f"{fl['captures']} captures, 25 each",
+        "serve_deploy_launches": dp["launches"],
+        "serve_deploy_per": f"the good deploy's traffic: {dp['batches']} "
+                            "batch forwards of the BERT-base encoder at S "
+                            f"{BERT_SEQ} on two replicas, "
+                            f"{DP_K2_PER_FORWARD} each",
         "trace_per": f"launches: {TR_ROUNDS} bursts of phase 6's "
                      f"{N_REQUESTS} requests per MXNET_TPU_TRACE mode; "
                      f"fixed: {N_REQUESTS // BATCH} batches of {BATCH} "

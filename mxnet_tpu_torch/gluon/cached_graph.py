@@ -107,6 +107,7 @@ class CudaGraphs:
     another thread fails, and the capture with it."""
 
     capture_error_mode = "thread_local"
+    _warm_streams = {}             # device -> its one warm-up stream
 
     @staticmethod
     def accepts(device):
@@ -119,7 +120,16 @@ class CudaGraphs:
 
     @staticmethod
     def warm_up(fn, device):
-        side = torch.cuda.Stream(device)
+        """Run ``fn`` on the device's warm-up stream (callers hold
+        ``_capture_lock``). One stream serves every capture: cuBLAS keeps
+        a workspace (32 MiB on Hopper) per thread and stream for the
+        life of the process, so a fresh stream per capture grew device
+        memory at every capture, up to the size of PyTorch's stream
+        pool."""
+        side = CudaGraphs._warm_streams.get(str(device))
+        if side is None:
+            side = torch.cuda.Stream(device)
+            CudaGraphs._warm_streams[str(device)] = side
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_ITERS):

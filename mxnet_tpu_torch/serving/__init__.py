@@ -5,7 +5,9 @@ the request plumbing, the predictor cache, hot reload
 (:mod:`.decode`) and the replica tier: :class:`ReplicaPool` of in-process
 and subprocess replicas (``python -m mxnet_tpu_torch.serving worker``)
 behind the health-routed :class:`Router`, over the wire protocol of
-:mod:`.wire`."""
+:mod:`.wire`; the tenant :class:`Fleet` (weight paging, per-tenant
+breakers, SLO admission), the canary :class:`DeployController` and the
+journal summary :func:`serving_report`."""
 from __future__ import annotations
 
 from .batcher import (DeadlineExceeded, PendingResponse, Request,
@@ -15,17 +17,22 @@ from .buckets import BucketGrid
 from .cache import Predictor, PredictorCache
 from .decode import (DecodeConfig, DecodeEngine, DecodeModel, DecodeStream,
                      TinyLM)
+from .deploy import DeployConfig, DeployController
+from .fleet import Fleet, FleetConfig, SLOClass, TenantQuarantined
 from .pool import (DeployInProgress, LocalReplica, PoolConfig, ProcReplica,
                    ReplicaPool, ReplicaState, ReplicaUnavailable)
 from .reload import ParamStore
+from .report import serving_report
 from .router import Router, RouterConfig, RouterResponse
 from .server import Server, ServerConfig
 
 __all__ = ["BucketGrid", "DeadlineExceeded", "DecodeConfig", "DecodeEngine",
-           "DecodeModel", "DecodeStream", "DeployInProgress", "LocalReplica",
+           "DecodeModel", "DecodeStream", "DeployConfig", "DeployController",
+           "DeployInProgress", "Fleet", "FleetConfig", "LocalReplica",
            "ParamStore", "PendingResponse", "PoolConfig", "Predictor",
            "PredictorCache", "ProcReplica", "ReplicaPool", "ReplicaState",
            "ReplicaUnavailable", "Request", "RequestCancelled",
            "RequestError", "Router", "RouterConfig", "RouterResponse",
-           "Server", "ServerConfig", "ServerOverloaded", "ServerStopped",
-           "SlotsExhausted", "TinyLM"]
+           "SLOClass", "Server", "ServerConfig", "ServerOverloaded",
+           "ServerStopped", "SlotsExhausted", "TenantQuarantined", "TinyLM",
+           "serving_report"]

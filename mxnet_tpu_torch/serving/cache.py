@@ -11,8 +11,13 @@ host numpy. The graph reads the block's parameters where they live, so
 an in-place reload reaches the next call without a capture; a rebound
 parameter makes the entry capture anew. On the CPU, which a caller asks
 for explicitly, the entry runs the block eagerly. The LRU bound and the
-hit/miss/eviction counters are the JAX package's; an evicted entry
-releases its graph and pool.
+hit/miss/eviction counters are the JAX package's; an evicted or
+dropped entry releases its graph and pool.
+
+Outputs reach the host as numpy arrays of their own dtype, but for
+bfloat16, which numpy lacks here: those are copied to the host as
+float32, which holds every bfloat16 value exactly (the JAX package
+returns an ``ml_dtypes`` bfloat16 array).
 """
 from __future__ import annotations
 
@@ -28,6 +33,14 @@ from ..base import MXNetError
 from ..gluon import cached_graph as _cg
 
 __all__ = ["Predictor", "PredictorCache"]
+
+
+def _host(t):
+    """``t`` copied to a host numpy array (bfloat16 as float32, exact)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
 
 
 class Predictor:
@@ -74,13 +87,13 @@ class Predictor:
             with torch.inference_mode(), _autograd.pause():
                 out = self._block(x.to(self.device))
             if isinstance(out, torch.Tensor):
-                return [out.cpu().numpy()], None
-            return [o.cpu().numpy() for o in out], type(out)
+                return [_host(out)], None
+            return [_host(o) for o in out], type(out)
         if tuple(x.shape) != self.shape:
             raise MXNetError(f"predictor for {self.shape} called with "
                              f"{tuple(x.shape)}")
         prog = self.replay(x)
-        outs = [o.to("cpu", copy=True).numpy() for o in prog.out]
+        outs = [_host(o) for o in prog.out]
         return outs, None if prog.tree is None else prog.tree[0]
 
     def replay(self, x=None):
@@ -155,6 +168,31 @@ class PredictorCache:
         asks before a batch so that a miss's build is timed."""
         with self._lock:
             return key in self._lru
+
+    def drop_where(self, predicate) -> int:
+        """Drop and release every entry whose key satisfies ``predicate``
+        (counted as evictions); returns how many went. The fleet's
+        page-out and tenant removal: a cold tenant's graphs and pools
+        are freed."""
+        with self._lock:
+            doomed = [self._lru.pop(k) for k in list(self._lru)
+                      if predicate(k)]
+            self.evictions += len(doomed)
+        for entry in doomed:
+            entry.close()
+        return len(doomed)
+
+    def clear(self) -> None:
+        """Drop and release every entry (not counted as evictions)."""
+        with self._lock:
+            doomed = list(self._lru.values())
+            self._lru.clear()
+        for entry in doomed:
+            entry.close()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._lru)
 
     def entries(self) -> list:
         """[(key, entry)] from least to most recently used."""

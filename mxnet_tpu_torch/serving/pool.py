@@ -394,6 +394,15 @@ class ProcReplica:
             raise SlotsExhausted(header.get("slots", -1),
                                  queued=header.get("queued", 0),
                                  tenant=tenant)
+        if name == "TenantQuarantined":
+            from .fleet import TenantQuarantined
+            err = TenantQuarantined(tenant,
+                                    header.get("reason", detail or
+                                               "remote quarantine"))
+            # the wire's verdict: a half-open probe slot that is busy is
+            # retryable on another replica, a real quarantine is not
+            err.retryable = bool(header.get("retryable", False))
+            raise err
         err = RequestError(f"{name}: {detail}")
         err.retryable = bool(header.get("retryable", True))
         err.tenant = tenant
@@ -723,8 +732,7 @@ class ReplicaPool:
             raise MXNetError(f"replica {rid!r} did not come back ready "
                              f"within {self.cfg.spawn_s:g}s after restart")
 
-    # -- deploy ownership (the reference's serving/deploy.py; the port's
-    #    DeployController is ROADMAP Queue 1 item 5) ----------------------
+    # -- deploy ownership (serving/deploy.py) ---------------------------
     def deploy_acquire(self, owner) -> None:
         """Claim exclusive fleet-version ownership for a deployment.
         Raises :class:`DeployInProgress` when another deploy holds it —

@@ -53,10 +53,14 @@ so it covers the card's time. Every batch journals a ``serving_batch``
 record; :meth:`Server.metrics_text` renders the counters as Prometheus
 text.
 
+The tenant and execution hooks (``_admit_tenant`` … ``_batch_succeeded``)
+are the reference's: a single-tenant Server refuses a tenant and runs
+its one block; :class:`~.fleet.Fleet` overrides them with its tenant
+registry, per-tenant breakers and weight paging.
+
 Not ported yet: the AOT cache's on-disk store (a CUDA graph cannot be
-serialized), shard plans (ROADMAP Queue 1 item 9), tenants and fleets,
-tuned tables, device retries and the ``MXNET_TPU_SERVING_*``
-environment defaults (item 5f).
+serialized), shard plans (ROADMAP Queue 1 item 9), tuned tables, device
+retries and the ``MXNET_TPU_SERVING_*`` environment defaults (item 5f).
 """
 from __future__ import annotations
 
@@ -77,6 +81,7 @@ from ..diagnostics.journal import get_journal
 from ..metric import LatencySummary
 from ..observability import instrument as _obs
 from ..observability import trace as _trace
+from ..resilience import atomic as _atomic
 from .batcher import (DeadlineExceeded, PendingResponse, Request,
                       RequestCancelled, RequestError, ServerOverloaded,
                       ServerStopped, drop_expired, take_batch)
@@ -141,22 +146,30 @@ class ServerConfig:
                 "shard_plan": None}
 
 
+def _check_device(block, device):
+    """Raise unless every materialized parameter of ``block`` lives on
+    ``device``."""
+    for name, t in block.state_dict(keep_vars=True).items():
+        if not is_lazy(t) and t.device != device:
+            raise MXNetError(f"parameter {name} is on {t.device}; the "
+                             f"server runs on {device}")
+
+
 class Server:
     """Dynamic-batching inference server around one initialized Block.
 
     ``ctx`` picks the device (default ``cuda:0``); the block's
     parameters must already live there (``initialize(ctx=...)`` or a
     load onto it). ``param_store`` (a :class:`~.reload.ParamStore`)
-    enables hot reload."""
+    enables hot reload. ``block=None`` is for a subclass that brings its
+    own blocks (:class:`~.fleet.Fleet`)."""
 
     def __init__(self, block, config=None, param_store=None, ctx=None):
         self.block = block
         self.config = cfg = config or ServerConfig()
         self.device = resolve_device(ctx)
-        for name, t in block.state_dict(keep_vars=True).items():
-            if not is_lazy(t) and t.device != self.device:
-                raise MXNetError(f"parameter {name} is on {t.device}; the "
-                                 f"server runs on {self.device}")
+        if block is not None:
+            _check_device(block, self.device)
         self.grid = BucketGrid(cfg.max_batch, cfg.batch_buckets,
                                cfg.dim_buckets)
         self.cache = PredictorCache(cfg.cache_entries)
@@ -286,8 +299,8 @@ class Server:
             for bucket in self.grid.batch_buckets:
                 _, hit = self.cache.get(
                     (bucket, key, self._dtype.str),
-                    lambda b=bucket, k=key: self._build_ready_predictor(b,
-                                                                        k))
+                    lambda b=bucket, k=key: self._build_ready_predictor(
+                        self.block, b, k))
                 warmed += not hit
         compiled = warmed if self.device.type == "cuda" else 0
         out = {"warmed": warmed, "loaded": 0, "compiled": compiled,
@@ -296,17 +309,56 @@ class Server:
         self.last_prewarm = out
         return out
 
-    def _build_predictor(self, bucket, key):
-        return Predictor(self.block, self.device, (bucket,) + key,
-                         self._dtype)
+    def _build_predictor(self, block, bucket, key):
+        """One predictor of ``block`` for one padded shape (the capture,
+        on the card)."""
+        return Predictor(block, self.device, (bucket,) + key, self._dtype)
 
-    def _build_ready_predictor(self, bucket, key):
+    def _build_ready_predictor(self, block, bucket, key):
         """Prewarm's build of one predictor: one timed program build (the
         capture on the card), an ``xla_compile`` span with the
         reference's prewarm attributes."""
         with _obs.compile_span("serving_predictor", shape=[bucket, *key],
                                dtype=self._dtype.str, aot=True):
-            return self._build_predictor(bucket, key)
+            return self._build_predictor(block, bucket, key)
+
+    # -- tenant hooks (overridden by serving/fleet.py) -----------------------
+    def _admit_tenant(self, tenant, payload):
+        """Tenant-registry admission gate: a single-tenant Server serves
+        one anonymous family and refuses a tenant; the fleet looks the
+        tenant up and applies its breaker and rate budget. Returns the
+        tenant's state handle (None here)."""
+        if tenant is not None:
+            err = RequestError(
+                f"unknown tenant {tenant!r}: this replica serves a "
+                "single-tenant Server, not a fleet")
+            err.tenant = tenant
+            raise err
+        return None
+
+    def _note_reject(self, tenant):
+        """Shape-reject hook (the fleet feeds its per-tenant breaker)."""
+
+    def _effective_deadline(self, deadline_ms, tstate):
+        """The tenant's SLO deadline floor (fleet); the identity here."""
+        return self.config.default_deadline_ms if deadline_ms is None \
+            else deadline_ms
+
+    def _class_gate(self, tstate, tenant):
+        """Per-tenant-class queue budget (fleet); only the hard bound
+        sheds here."""
+
+    def _note_shed(self, tenant):
+        """Per-tenant shed hook (fleet)."""
+
+    def _note_accept(self, tenant):
+        """Per-tenant accept hook (fleet)."""
+
+    def _note_cancelled(self, tenant):
+        """Per-tenant cancel hook (the fleet frees a half-open probe)."""
+
+    def _note_deadline_miss(self, tenant):
+        """Per-tenant deadline-miss hook (fleet)."""
 
     # -- client surface ------------------------------------------------------
     def submit(self, x, deadline_ms=None, cancel=None,
@@ -317,34 +369,35 @@ class Server:
         when the bounded queue is full and :class:`ServerStopped` once
         ``stop()`` has closed admission. ``cancel`` (a
         ``threading.Event``) is checked at dequeue: the hedging router
-        sets it on the losing attempt. A single-tenant server refuses a
-        ``tenant`` as the reference does (fleets: ROADMAP Queue 1 item
-        5b). ``parent`` (a trace ``SpanContext``) re-anchors the request's
-        root span under a caller in another process: the worker passes
-        the wire frame's context here."""
+        sets it on the losing attempt. ``tenant`` targets a fleet tenant
+        (serving/fleet.py); a single-tenant Server refuses one with a
+        structured error. ``parent`` (a trace ``SpanContext``) re-anchors
+        the request's root span under a caller in another process: the
+        worker passes the wire frame's context here."""
         if tenant is not None:
-            err = RequestError(
-                f"unknown tenant {tenant!r}: this replica serves a "
-                "single-tenant Server, not a fleet (fleets are not ported "
-                "yet: ROADMAP Queue 1 item 5b)")
-            err.tenant = str(tenant)
-            raise err
-        payload = self._payload(x)
+            # normalized once at the door: every later lookup (registry,
+            # dequeue sweep, counters, journal) is by this string
+            tenant = str(tenant)
+        payload = self._payload(x, tenant)
+        tstate = self._admit_tenant(tenant, payload)
         key = self.grid.feature_key(payload.shape)
         if key is None:
             with self._lock:
                 self.counters["rejected_shape"] += 1
+            self._note_reject(tenant)
             err = RequestError(
                 f"request shape {tuple(payload.shape)} exceeds the bucket "
-                f"grid {self.grid!r} — oversized inputs are rejected")
+                f"grid {self.grid!r} — oversized inputs are rejected"
+                + (f" [tenant: {tenant}]" if tenant else ""))
             err.retryable = False      # every replica shares the grid
+            err.tenant = tenant
             raise err
-        if deadline_ms is None:
-            deadline_ms = self.config.default_deadline_ms
+        deadline_ms = self._effective_deadline(deadline_ms, tstate)
         deadline_s = None if deadline_ms is None or deadline_ms <= 0 \
             else deadline_ms / 1000.0
+        self._class_gate(tstate, tenant)
         req = Request(payload, payload.shape, key, deadline_s=deadline_s,
-                      cancel=cancel)
+                      cancel=cancel, tenant=tenant)
         # one span tree per request, its root closed by whichever thread
         # resolves the request; attributes are built only when tracing
         # is on, so admission costs nothing more with it off
@@ -362,11 +415,13 @@ class Server:
             with self._lock:
                 self.counters["shed"] += 1
             get_journal().event("serving_shed", depth=self._queue.qsize(),
-                                limit=self.config.max_queue, tenant=None,
+                                limit=self.config.max_queue, tenant=tenant,
                                 **_req_ids(req))
+            self._note_shed(tenant)
             _end_span(req, "shed")
             raise ServerOverloaded(self._queue.qsize(),
-                                   self.config.max_queue) from None
+                                   self.config.max_queue,
+                                   tenant=tenant) from None
         if stopped:
             with self._lock:
                 self.counters["rejected_stopped"] += 1
@@ -379,9 +434,10 @@ class Server:
                          depth=self._queue.qsize())
         with self._lock:
             self.counters["accepted"] += 1
+        self._note_accept(tenant)
         return PendingResponse(req, self.config.result_timeout_s)
 
-    def _payload(self, x):
+    def _payload(self, x, tenant=None):
         """``x`` as an array of the server's dtype. For an integer dtype
         (token ids) a value that the dtype would change — a fraction, or
         one outside its range — is a rejected request, not a silently
@@ -397,6 +453,7 @@ class Server:
         err = RequestError(f"request of {given.dtype} values is not exactly "
                            f"{self._dtype} (the server's dtype)")
         err.retryable = False          # every replica shares the dtype
+        err.tenant = tenant
         raise err
 
     def predict(self, x, deadline_ms=None, timeout_s=None, tenant=None):
@@ -557,9 +614,19 @@ class Server:
         """Expire, group and run one micro-batch off ``pending``."""
         drop_expired(pending, self._on_dequeue_expired)
         self._drop_cancelled(pending)
-        batch, bucket, key = take_batch(pending, self.grid)
+        self._sweep_unroutable(pending)
+        batch, bucket, key = take_batch(pending, self.grid,
+                                        self._group_key)
         if batch:
             self._process(batch, bucket, key)
+
+    # worker-loop grouping and sweep hooks (the fleet batches per
+    # (tenant, key) and resolves a quarantined or removed tenant's queued
+    # requests instead of spending batch slots on them)
+    _group_key = None
+
+    def _sweep_unroutable(self, pending):
+        pass
 
     def _drop_cancelled(self, pending):
         """The dequeue half of hedging: a request whose cancel event is
@@ -571,6 +638,7 @@ class Server:
                 with self._lock:
                     self.counters["cancelled"] += 1
                 get_journal().event("serving_cancelled", **_req_ids(req))
+                self._note_cancelled(req.tenant)
                 _end_span(req, "cancelled")
                 req.set_error(RequestCancelled(
                     "cancelled at dequeue (hedged twin already answered)"))
@@ -583,10 +651,11 @@ class Server:
         with self._lock:
             self.counters["deadline_miss_dequeue"] += 1
         get_journal().event("serving_deadline_miss", stage="dequeue",
-                            late_ms=round(late, 2), tenant=None,
+                            late_ms=round(late, 2), tenant=req.tenant,
                             **_req_ids(req))
+        self._note_deadline_miss(req.tenant)
         _end_span(req, "deadline_miss_dequeue")
-        req.set_error(DeadlineExceeded("dequeue", late))
+        req.set_error(DeadlineExceeded("dequeue", late, tenant=req.tenant))
 
     def _drain_queue(self, pending):
         while True:
@@ -617,12 +686,52 @@ class Server:
                                for i in [_req_ids(r)] if i]) as bsp:
             self._process_traced(batch, bucket, key, n, bsp)
 
+    # -- execution hooks (overridden by serving/fleet.py) --------------------
+    def _acquire_predictor(self, batch, bucket, key):
+        """``(cache key, builder)`` of this batch's predictor. The cache
+        lookup and a miss's build (the capture, on the card) run under
+        the batch's program-build span; the fleet pages a cold tenant in
+        here, before that span and outside ``exec_ms``."""
+        return ((bucket, key, self._dtype.str),
+                lambda: self._build_predictor(self.block, bucket, key))
+
+    def _trip_sites(self, batch):
+        """Chaos seam consulted per predictor call (``serving_predict``);
+        the fleet adds the per-tenant ``serving_tenant`` site."""
+        _atomic.trip("serving_predict", self._metrics_id)
+
+    def _note_predict_error(self, batch, exc):
+        """Failed-batch hook: the fleet feeds the tenant's breaker."""
+
+    def _batch_step(self, batch):
+        """Checkpoint step stamped on this batch's answers (the fleet
+        answers per tenant)."""
+        return self._params_step
+
+    def _batch_fields(self, batch) -> dict:
+        """Extra fields of the ``serving_batch`` record (the fleet adds
+        ``tenant``)."""
+        return {}
+
+    def _observe_latency(self, req, ms):
+        self.latency.observe(ms)
+
+    def _batch_succeeded(self, batch):
+        """Delivered-batch hook: the fleet's half-open probe re-admits
+        its tenant here."""
+
     def _process_traced(self, batch, bucket, key, n, bsp):
         cfg = self.config
         padded = np.full((bucket,) + key, cfg.pad_value, dtype=self._dtype)
         for i, req in enumerate(batch):
             padded[(i,) + tuple(slice(0, d) for d in req.shape)] = req.payload
-        cache_key = (bucket, key, self._dtype.str)
+        tenant = batch[0].tenant
+        try:
+            cache_key, build = self._acquire_predictor(batch, bucket, key)
+        except Exception as exc:
+            self._fail_batch(batch, n, bucket, tenant, exc,
+                             where="serving_page_in")
+            return
         try:
             # a cache miss builds the predictor (the capture, on the
             # card) and runs it: the timed program build of this site
@@ -630,28 +739,20 @@ class Server:
                     not self.cache.contains(cache_key),
                     "serving_predictor", bucket=bucket, key=list(key),
                     dtype=self._dtype.str, includes_execute=True):
-                predictor, hit = self.cache.get(
-                    cache_key, lambda: self._build_predictor(bucket, key))
+                predictor, hit = self.cache.get(cache_key, build)
                 t0 = time.perf_counter()
+                self._trip_sites(batch)
                 outs, treedef = predictor(padded)
                 t1 = time.perf_counter()
             exec_ms = (t1 - t0) * 1000.0
             self.exec_ms.observe(exec_ms)
         except Exception as exc:         # a failed batch fails its requests
-            with self._lock:
-                self.counters["errors"] += n
-            get_journal().crash(exc, where="serving_predict", batch=n,
-                                bucket=bucket, tenant=None)
-            err = RequestError(f"predictor failed: "
-                               f"{type(exc).__name__}: {exc}")
-            err.__cause__ = exc
-            for req in batch:
-                _end_span(req, "error")
-                req.set_error(err)
+            self._fail_batch(batch, n, bucket, tenant, exc,
+                             where="serving_predict")
             return
         now = time.monotonic()
         delivered = 0
-        step = self._params_step
+        step = self._batch_step(batch)
         for i, req in enumerate(batch):
             if req.expired(now):
                 late = req.late_ms(now)
@@ -659,10 +760,12 @@ class Server:
                     self.counters["deadline_miss_post_batch"] += 1
                 get_journal().event("serving_deadline_miss",
                                     stage="post_batch",
-                                    late_ms=round(late, 2), tenant=None,
-                                    **_req_ids(req))
+                                    late_ms=round(late, 2),
+                                    tenant=req.tenant, **_req_ids(req))
+                self._note_deadline_miss(req.tenant)
                 _end_span(req, "deadline_miss_post_batch")
-                req.set_error(DeadlineExceeded("post_batch", late), now)
+                req.set_error(DeadlineExceeded("post_batch", late,
+                                               tenant=req.tenant), now)
                 continue
             rows = []
             for o in outs:
@@ -682,11 +785,13 @@ class Server:
             req.set_result(rows[0] if treedef is None else treedef(rows),
                            now)
             delivered += 1
-            self.latency.observe((now - req.enq_t) * 1000.0)
+            self._observe_latency(req, (now - req.enq_t) * 1000.0)
         self._last_batch_t = time.monotonic()
         with self._lock:
             self.counters["served"] += delivered
             self.counters["batches"] += 1
+        if delivered:
+            self._batch_succeeded(batch)
         lat = self.latency.summary()
         cache_st = self.cache.stats()      # one snapshot: consistent trio
         get_journal().event(
@@ -698,18 +803,38 @@ class Server:
             params_step=step,
             hits=cache_st["hits"], misses=cache_st["misses"],
             evictions=cache_st["evictions"],
-            p50_ms=lat["p50"], p95_ms=lat["p95"], p99_ms=lat["p99"])
+            p50_ms=lat["p50"], p95_ms=lat["p95"], p99_ms=lat["p99"],
+            **self._batch_fields(batch))
+
+    def _fail_batch(self, batch, n, bucket, tenant, exc, where):
+        """Resolve every request of a failed batch with one structured,
+        tenant-labelled error, journal the crash and feed the tenant's
+        fault domain."""
+        with self._lock:
+            self.counters["errors"] += n
+        get_journal().crash(exc, where=where, batch=n, bucket=bucket,
+                            tenant=tenant)
+        self._note_predict_error(batch, exc)
+        err = RequestError(f"predictor failed: {type(exc).__name__}: {exc}"
+                           + (f" [tenant: {tenant}]" if tenant else ""))
+        err.__cause__ = exc
+        err.tenant = tenant
+        for req in batch:
+            _end_span(req, "error")
+            req.set_error(err)
 
     # -- hot reload ----------------------------------------------------------
-    def _check_reloadable(self, loaded):
-        """Check every live parameter and buffer against the checkpoint
-        up front (``arg:``/``aux:`` prefixes normalized as ``load_dict``
-        does): each must be there, with the live shape. Raises on drift;
-        returns the normalized dict."""
+    def _check_reloadable(self, loaded, block=None):
+        """Check every live parameter and buffer of ``block`` (default
+        the server's) against the checkpoint up front (``arg:``/``aux:``
+        prefixes normalized as ``load_dict`` does): each must be there,
+        with the live shape. Raises on drift; returns the normalized
+        dict."""
         norm = {(k.partition(":")[2] if k.partition(":")[0] in
                  ("arg", "aux") and ":" in k else k): v
                 for k, v in loaded.items()}
-        for key, param in self.block.collect_params().items():
+        block = self.block if block is None else block
+        for key, param in block.collect_params().items():
             if key not in norm:
                 raise MXNetError(f"checkpoint missing parameter {key!r}")
             got = tuple(norm[key].shape)

@@ -36,10 +36,17 @@ Contract with the pool:
   every ``MXNET_TPU_TRACE_FLIGHT_S`` seconds, so a SIGKILLed worker
   leaves its last spans behind.
 
-Not ported yet, and refused by name: ``--tenants`` (fleets, ROADMAP
-Queue 1 item 5b), ``--mesh-axes`` (item 9), ``--aot-dir`` (the AOT
-store, item 5g) and the ``MXNET_TPU_TESTING_SLOW_PREDICT_S`` chaos seam
-(item 13).
+``--tenants "a=scale,b=mlp@/ckpt/b"`` runs a :class:`~.fleet.Fleet`
+instead: one tenant per entry, its block built by the factory of the
+named worker model at page-in, hot-reloading from its own commit root
+when ``@root`` is given. Requests name their tenant in the frame
+header, failures come back tenant-labelled (a quarantined tenant as
+``TenantQuarantined`` with the fleet's ``retryable`` verdict), and the
+beacon advertises the served tenants.
+
+Not ported yet, and refused by name: ``--mesh-axes`` (ROADMAP Queue 1
+item 9), ``--aot-dir`` (the AOT store, item 5g) and the
+``MXNET_TPU_TESTING_SLOW_PREDICT_S`` chaos seam (item 13).
 """
 from __future__ import annotations
 
@@ -92,6 +99,25 @@ def _build_block(model: str, dim: int, ctx):
                          "(scale|mlp)")
     net.initialize(ctx=ctx, generator=_random.generator(0))
     return net
+
+
+def _parse_tenants(spec: str) -> list:
+    """``--tenants "a=scale,b=mlp@/ckpt/b"`` → [(name, model, root)].
+    ``@root`` is optional; the model is one of the worker models."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, rest = part.partition("=")
+        if not rest:
+            raise ValueError(f"tenant spec {part!r} is not "
+                             "name=model[@ckpt_root]")
+        model, _, root = rest.partition("@")
+        out.append((name.strip(), model.strip(), root.strip() or None))
+    if not out:
+        raise ValueError(f"--tenants {spec!r} names no tenants")
+    return out
 
 
 def _error_doc(exc, request_header=None) -> dict:
@@ -286,7 +312,7 @@ def add_worker_args(parser) -> None:
     parser.add_argument("--ckpt-root", default=None,
                         help="resilience.commit root for hot reload")
     parser.add_argument("--tenants", default=None,
-                        help="a multi-tenant fleet (not ported yet)")
+                        help='a multi-tenant fleet: "a=scale,b=mlp@root"')
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--window-ms", type=float, default=2.0)
     parser.add_argument("--max-queue", type=int, default=64)
@@ -310,7 +336,6 @@ def add_worker_args(parser) -> None:
 
 def _refuse_unported(args) -> None:
     for flag, value, item in (
-            ("--tenants", args.tenants, "fleets, ROADMAP Queue 1 item 5b"),
             ("--mesh-axes", args.mesh_axes, "ROADMAP Queue 1 item 9"),
             ("--aot-dir", args.aot_dir, "the AOT store, ROADMAP Queue 1 "
              "item 5g")):
@@ -345,19 +370,30 @@ def cmd_worker(args) -> int:
         from .decode import DecodeConfig, TinyLM
         kw["decode_model"] = TinyLM(max_len=args.decode_max_len)
         kw["decode"] = DecodeConfig(slots=args.decode_slots)
-    net = _build_block(args.model, args.dim, ctx)
-    if args.model == "mlp":
-        # its one feature shape: every bucket's graph captured at start()
-        kw["aot_prewarm"] = ((args.dim,),)
-    cfg = ServerConfig(max_batch=args.max_batch, window_ms=args.window_ms,
-                       max_queue=args.max_queue,
-                       default_deadline_ms=args.deadline_ms,
-                       reload_poll_s=args.reload_poll_s, **kw)
-    store = ParamStore(args.ckpt_root) if args.ckpt_root else None
-    if store is not None and args.pin_step is not None:
-        store.pin_step(args.pin_step)      # before start(): the initial
+    knobs = dict(max_batch=args.max_batch, window_ms=args.window_ms,
+                 max_queue=args.max_queue,
+                 default_deadline_ms=args.deadline_ms,
+                 reload_poll_s=args.reload_poll_s, **kw)
+    if args.tenants:
+        from .fleet import Fleet, FleetConfig
+        server = Fleet(FleetConfig(**knobs), ctx=ctx)
+        for name, model, root in _parse_tenants(args.tenants):
+            server.add_tenant(
+                name, factory=lambda m=model: _build_block(m, args.dim, ctx),
+                ckpt_root=root)
+        server.start()
+    else:
+        net = _build_block(args.model, args.dim, ctx)
+        if args.model == "mlp":
+            # its one feature shape: every bucket's graph captured at
+            # start()
+            knobs["aot_prewarm"] = ((args.dim,),)
+        store = ParamStore(args.ckpt_root) if args.ckpt_root else None
+        if store is not None and args.pin_step is not None:
+            store.pin_step(args.pin_step)  # before start(): the initial
                                            # reload lands on the pin
-    server = Server(net, config=cfg, param_store=store, ctx=ctx).start()
+        server = Server(net, config=ServerConfig(**knobs),
+                        param_store=store, ctx=ctx).start()
 
     front = _Front(server, args)
     hb = Heartbeat(args.hb_dir, args.replica_id, args.heartbeat_s,

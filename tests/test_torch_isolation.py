@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
-def test_no_cuda_means_raise_not_cpu(monkeypatch):
+def test_no_cuda_means_raise_not_cpu(monkeypatch, tmp_path):
+    from mxnet_tpu_torch.serving import Fleet, ReplicaPool
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tmx.current_context() == tmx.gpu(0)
     with pytest.raises(MXNetError, match="no CUDA device"):
@@ -80,6 +81,17 @@ def test_no_cuda_means_raise_not_cpu(monkeypatch):
         assert Server(dense).device == torch.device("cpu")
     assert dense.weight.device == torch.device("cpu")
     assert tmx.current_context() == tmx.gpu(0)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        Fleet()
+    assert Fleet(ctx=tmx.cpu()).device == torch.device("cpu")
+    # a DeployController runs nothing itself: it moves the pool's
+    # servers, which built without ctx raise, so no deploy reaches the
+    # CPU
+    pool = ReplicaPool(str(tmp_path / "pool"))
+    pool.add_local("r0", lambda: Server(nn.Activation("relu")))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        pool.start()
+    pool.stop()
 
 
 def test_no_cuda_mesh_and_sharded_trainer_raise(monkeypatch):

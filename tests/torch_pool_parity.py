@@ -115,3 +115,13 @@ def slow_hook(replica, delay_s):
         if point == "router_attempt" and path == replica:
             time.sleep(delay_s)
     return hook
+
+
+def commit_mlp(root, step, arrays):
+    """Commit the mlp's ``arrays`` as step ``step`` under ``root`` (the
+    port's ``.params`` container, which both packages read)."""
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch.resilience import commit as tcommit
+    stage = tcommit.prepare_stage(root, step)
+    tnd.save(os.path.join(stage, "model.params"), dict(arrays))
+    return tcommit.finalize(root, step)
