@@ -455,6 +455,50 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                the canary and equal to the CPU's with step 3's weights,
                none lost. Seconds to promote and to roll back, the gate
                evaluations, canary and control p99 printed.
+25. layers   — every nn layer, contrib.nn block and loss of the rest of
+               Gluon (transposed convolutions with output_padding and
+               groups, Conv1D/3D, the 1-D and 3-D pools in ceil mode and
+               without counting padding, the global max pools,
+               ReflectionPad2D, GroupNorm, InstanceNorm, SyncBatchNorm,
+               each LeakyReLU mode, PReLU, ELU, SELU, Swish, Lambda,
+               HybridLambda, the ten losses, CTCLoss with lengths and
+               with padded labels) on cuda:0 against the same module on
+               the CPU under record(): outputs, input and parameter
+               gradients and running statistics within 1e-5 of max
+               |value| (fp32, TF32 off, cuDNN deterministic). The DCGAN
+               generator and discriminator and the VAE, built as
+               examples/train_dcgan.py and train_vae.py build them, one
+               Adam step each through gluon.Trainer: losses and
+               gradients within 1e-5, then the weights after the CPU's
+               step from the card's gradients. clip_global_norm on
+               device tensors: 1 host read with check_isfinite, 0
+               without (set_sync_debug_mode counts).
+26. serve-   — (m) one full-width model of each vision family behind the
+    zoo        Server on cuda:0 (resnet50_v2, vgg16, alexnet,
+               densenet121, mobilenetv2_1.0, squeezenet1.1 at 224x224x3,
+               inceptionv3 at 299x299x3; 1000 classes, fp32, seeded
+               Xavier weights and BatchNorm statistics), buckets 1-8
+               captured at start(): 16 requests from 4 threads answered,
+               K2 2 per batch forward in vgg16 and alexnet (fc6, fc7) and
+               0 elsewhere, K1 0; requests 0 and 1 against the CPU (1e-3
+               of max |value|), the graphed batch-8 logits against the
+               eager forward (1e-6); images/s, p50/p99, capture and pool
+               per bucket, peak memory, the graphed forward's device ms
+               and busy share; each model freed before the next, its
+               memory back within 64 MiB (cuBLAS workspaces cleared).
+27. train-   — (n) examples/train_imagenet.py's configuration (batch 256,
+    zoo        224x224, the RandomState(0) batch, SGD lr 0.1 momentum 0.9
+               wd 1e-4, ShardedTrainer(compute_dtype="bfloat16") on the
+               {"data": 1, "model": 1} mesh) for --network
+               mobilenetv2_1.0 and vgg16_bn: 6 graphed steps (losses
+               finite and falling, K2 2 per step for vgg16_bn and 0 for
+               MobileNetV2, step ms, images/s, peak memory, pool, capture
+               s, a profiled step); a graphed step against an eager one
+               (cuDNN deterministic, 1e-5); a batch-1 bf16 step against
+               the CPU (3e-2) with the card's relu and relu6 decisions,
+               max pool windows and every convolution's, BatchNorm's and
+               K2's output replayed; 3 eager bf16 steps against 3 fp32
+               ones on the same dropout bits (5%).
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
@@ -463,7 +507,8 @@ after the capturing window; phase 18 per policy after the capturing
 step; phase 19 per burst; phase 20 per burst, in a worker from its
 stats frames; phase 21 over the decode streams and the BERT burst
 beside them; phase 22 per burst and per mode; phase 23 over the fleet
-burst; phase 24 over the good deploy's traffic). A graph's replay
+burst; phase 24 over the good deploy's traffic; phase 26 per model's
+burst; phase 27 per network before its graphed steps). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -2476,11 +2521,13 @@ class ReluTape:
     signs: tens per image, and each moves the early layers' gradients by
     up to percents (PERF.md §6, PR 7). Replaying the card's signs on the
     CPU keeps every discrete decision equal and every value computed
-    apart. Sites: the stem's Activation (forward order) and each conv
+    apart. Sites: each relu Activation (forward order), each relu6
+    Activation (its masks below 0 and above 6) and each conv or matmul
     epilogue's relu, which on the card runs in the kernel and is recorded
     where the backward (the plain VJP) recomputes it, in reverse order;
     the CPU's epilogue applies it in its forward and again in its
-    backward."""
+    backward. The two kernels share the one act_fn of kernels/_common.py
+    and one list here."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -2502,6 +2549,7 @@ class ReluTape:
 
     def __enter__(self):
         from mxnet_tpu_torch.kernels import conv_epilogue as ce
+        from mxnet_tpu_torch.kernels import matmul_epilogue as me
         from mxnet_tpu_torch.ops import nn as ops_nn
         torch, tape = self.torch, self
         self._saved = (ce.act_fn, ops_nn.activation)
@@ -2528,6 +2576,8 @@ class ReluTape:
         acts = iter(self.act) if self.replay else None
 
         def stem_act(x, act_type=None):
+            if act_type == "relu6":
+                return relu6(x)
             if act_type != "relu":
                 return activation(x, act_type)
             if tape.replay:
@@ -2538,19 +2588,37 @@ class ReluTape:
             return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 
-        ce.act_fn, ops_nn.activation = k1_act, stem_act
+        def relu6(x):
+            """clamp(x, 0, 6) deciding at both ends: the masks of x < 0
+            and x > 6 (the gradient passes where neither holds, as
+            clamp's does) recorded on the card and replayed."""
+            if tape.replay:
+                low = tape._decide(-x, next(acts))
+                high = tape._decide(x - 6, next(acts))
+            else:
+                low, high = x < 0, x > 6
+                tape.act += [low.cpu(), high.cpu()]
+            return torch.where(low, torch.zeros((), dtype=x.dtype,
+                                                device=x.device),
+                               torch.where(high, torch.full(
+                                   (), 6, dtype=x.dtype, device=x.device),
+                                   x))
+
+        ce.act_fn, me.act_fn, ops_nn.activation = k1_act, k1_act, stem_act
         return self
 
     def __exit__(self, *exc):
         from mxnet_tpu_torch.kernels import conv_epilogue as ce
+        from mxnet_tpu_torch.kernels import matmul_epilogue as me
         from mxnet_tpu_torch.ops import nn as ops_nn
         ce.act_fn, ops_nn.activation = self._saved
+        me.act_fn = self._saved[0]
 
 
 class PoolTape:
-    """The window each max pool output took its value from, recorded on
-    the card (``return_indices``) and replayed on the CPU, as ReluTape
-    replays the relu decisions. The CPU's own choices are counted against
+    """The window each 2-D max pool output took its value from (either
+    convention), recorded on the card (``return_indices``) and replayed
+    on the CPU, as ReluTape replays the relu decisions. The CPU's own choices are counted against
     the card's; with ``apply`` the card's are taken by a gather, so the
     gradient reaches the position the card chose. An fp32 ResNet-50's
     stem max pool has, now and then, a window whose two largest inputs
@@ -2575,16 +2643,21 @@ class PoolTape:
 
         def pool(x, kernel=(), pool_type="max", global_pool=False,
                  stride=None, pad=None, **kwargs):
-            if pool_type != "max" or global_pool or x.ndim != 4 \
-                    or kwargs.get("pooling_convention", "valid") != "valid":
+            if pool_type != "max" or global_pool or x.ndim != 4:
                 return pooling(x, kernel, pool_type, global_pool, stride,
                                pad, **kwargs)
             pad = ops_nn._pair(pad or 0, 2)
-            xp = F.pad(x, (pad[1], pad[1], pad[0], pad[0]),
+            kernel = ops_nn._pair(kernel, 2)
+            stride = ops_nn._pair(stride or 1, 2)
+            hi = list(pad)
+            if kwargs.get("pooling_convention", "valid") == "full":
+                for i in range(2):      # the ceil convention's extra pad
+                    rem = (x.shape[2 + i] + 2 * pad[i] - kernel[i]) \
+                        % stride[i]
+                    hi[i] += (stride[i] - rem) % stride[i]
+            xp = F.pad(x, (pad[1], hi[1], pad[0], hi[0]),
                        value=-float("inf"))
-            out, idx = F.max_pool2d(xp, ops_nn._pair(kernel, 2),
-                                    ops_nn._pair(stride or 1, 2),
-                                    return_indices=True)
+            out, idx = F.max_pool2d(xp, kernel, stride, return_indices=True)
             if not tape.replay:
                 tape.choices.append(idx.cpu())
                 return out
@@ -2863,19 +2936,9 @@ def sh_mesh(mx, ctx):
 
 
 def sh_resnet(torch, mx, ctx, dtype, state=None):
-    """examples/train_imagenet.py's trainer: resnet50_v1 (1000 classes,
-    Xavier from SEED, or ``state``), SGD lr 0.1 momentum 0.9 wd 1e-4."""
-    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
-    net = resnet50_v1(classes=1000)
-    net.initialize(mx.init.Xavier(), ctx=ctx,
-                   generator=mx.random.generator(SEED))
-    if state is not None:
-        net.load_dict(state)
-    trainer = mx.parallel.ShardedTrainer(
-        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
-        optimizer_params=dict(RN_SGD), mesh=sh_mesh(mx, ctx),
-        compute_dtype=dtype)
-    return net, trainer
+    """examples/train_imagenet.py's trainer for its default network,
+    resnet50_v1 (see :func:`tz_trainer`)."""
+    return tz_trainer(torch, mx, ctx, "resnet50_v1", dtype, state)
 
 
 def mlm_model(torch, mx, ctx, seq, state=None, dropout=0.1, seed=SEED):
@@ -2918,7 +2981,9 @@ def sh_bert(torch, mx, ctx, dtype, seq, state=None):
 
 
 def sh_release(torch, trainer):
-    """Free a trainer's graphs and their pools."""
+    """Free a trainer's graphs and their pools (its last outputs live in
+    the pool of the graph that made them)."""
+    trainer.last_outputs = None
     trainer._release()
     torch.cuda.empty_cache()
 
@@ -3072,6 +3137,9 @@ def sh_graph_vs_eager(torch, mx, trainer, batch, names, deterministic):
         graph_q = sh_params(trainer, names)
         graph_q["loss"] = loss.cpu().numpy()
         bits = [b.clone() for b in tape.drawn]
+        del loss
+        if deterministic:
+            sh_release(torch, trainer)      # room for the eager step
         sh_restore(torch, snap)
         trainer._num_update = snap[2]
         backend, trainer._backend = trainer._backend, None
@@ -3098,9 +3166,10 @@ def sh_graph_vs_eager(torch, mx, trainer, batch, names, deterministic):
 
 
 class ValueTape:
-    """The output of every BatchNorm and residual epilogue of one ResNet
-    step, and the gradient arriving at it, recorded on the card and
-    replayed on the CPU.
+    """The output of every BatchNorm, residual epilogue and matmul
+    epilogue (and, with ``convs``, convolution) of one step, and the
+    gradient arriving at it, recorded on the card and replayed on the
+    CPU.
 
     In bf16 ResNet-50 is a chaotic amplifier of rounding: an H100 and
     the CPU, which round a convolution differently, part by 0.13% at the
@@ -3115,10 +3184,18 @@ class ValueTape:
     is gated too: before it is replaced, the CPU's own value, and the
     gradient the CPU computed arriving at the site, against the card's
     (``parted`` and ``grad_parted``: the worst relative difference, of
-    the card's max |value| at that site, and the site's index)."""
+    the card's max |value| at that site, and the site's index).
 
-    def __init__(self, torch):
+    With ``convs`` each convolution's output is a site too, so that a
+    BatchNorm's own arithmetic starts from the card's convolution: at
+    batch 1 a channel whose variance is small against its mean turns
+    the one-ulp bf16 difference of two devices' convolutions into
+    percents of the normalized output (phase 27's vgg16_bn: 2.956e-2 at
+    its third BatchNorm without them)."""
+
+    def __init__(self, torch, convs=False):
         self.torch = torch
+        self.convs = convs
         self.values, self.grads = [], {}
         self.replay = False
         self.parted = self.grad_parted = (0.0, 0)
@@ -3159,8 +3236,10 @@ class ValueTape:
         from mxnet_tpu_torch.ops import contrib
         from mxnet_tpu_torch.ops import nn as ops_nn
         self._n = 0
-        self._saved = (ops_nn.batch_norm, contrib.conv_epilogue)
-        batch_norm, conv_epilogue = self._saved
+        self._saved = (ops_nn.batch_norm, contrib.conv_epilogue,
+                       contrib.matmul_epilogue, ops_nn.convolution)
+        batch_norm, conv_epilogue, matmul_epilogue, convolution = \
+            self._saved
         tape = self
 
         def bn(*args, **kwargs):
@@ -3170,16 +3249,22 @@ class ValueTape:
         ops_nn.batch_norm = bn
         contrib.conv_epilogue = lambda *a, **k: tape._site(
             conv_epilogue(*a, **k))
+        contrib.matmul_epilogue = lambda *a, **k: tape._site(
+            matmul_epilogue(*a, **k))
+        if self.convs:
+            ops_nn.convolution = lambda *a, **k: tape._site(
+                convolution(*a, **k))
         return self
 
     def __exit__(self, *exc):
         from mxnet_tpu_torch.ops import contrib
         from mxnet_tpu_torch.ops import nn as ops_nn
-        ops_nn.batch_norm, contrib.conv_epilogue = self._saved
+        (ops_nn.batch_norm, contrib.conv_epilogue, contrib.matmul_epilogue,
+         ops_nn.convolution) = self._saved
 
 
 def sh_card_vs_cpu(torch, mx, trainer, make_cpu, batch1, grads, stats,
-                   resnet):
+                   resnet, pools=False, convs=False):
     """One batch-1 bf16 step's loss and gradients (the trainer's own
     differentiated function) on the card and on the CPU from the same
     weights and statistics, and the running statistics after the
@@ -3200,7 +3285,9 @@ def sh_card_vs_cpu(torch, mx, trainer, make_cpu, batch1, grads, stats,
         got["loss"] = loss.cpu().numpy()
         return got
 
-    tapes = [ReluTape(torch), ValueTape(torch)] if resnet else []
+    tapes = [ReluTape(torch), ValueTape(torch, convs)] if resnet else []
+    if pools:
+        tapes.append(PoolTape(torch))
     with mx.random.bits_tape() as bits, contextlib.ExitStack() as stack:
         for tape in tapes:
             stack.enter_context(tape)
@@ -3213,15 +3300,21 @@ def sh_card_vs_cpu(torch, mx, trainer, make_cpu, batch1, grads, stats,
             contextlib.ExitStack() as stack:
         for tape in tapes:
             tape.replay = True
+            tape.apply = True           # PoolTape: take the card's windows
             stack.enter_context(tape)
         cpu_q = quantities(cpu_tr, [x.cpu() for x in batch1])
     extra = ""
     if resnet:
-        relu, value = tapes
+        relu, value = tapes[:2]
         extra = (f"; {relu.differ} of {relu.total} relu inputs the CPU "
                  f"alone would have decided the other way; {value._n} "
-                 "BatchNorm and residual epilogue outputs and "
+                 f"BatchNorm, epilogue{' and convolution' * convs} "
+                 "outputs and "
                  f"{value.grads_compared} of their gradients replayed")
+    if pools:
+        extra += (f"; {tapes[2].differ} of {tapes[2].total} max pool "
+                  "windows the CPU alone would have taken from another "
+                  "position")
     log(f"train-sharded: the CPU's batch-1 bf16 step took "
         f"{time.perf_counter() - t0:.1f} s ({len(bits.drawn)} dropout "
         f"draws replayed from the card{extra})")
@@ -6493,6 +6586,695 @@ def phase_kernel_bf16(torch, ce, me):
     return out
 
 
+# -- phase 25: layers --------------------------------------------------------
+LY_RTOL = 1e-5                       # card vs CPU, fp32, of max |value|
+
+
+def ly_layers(mx):
+    """name -> (factory of one layer of this slice, input shapes), at
+    small shapes: every new nn and contrib.nn class and each LeakyReLU
+    mode of the operator."""
+    nn, cnn = mx.gluon.nn, mx.gluon.contrib.nn
+
+    def lrelu(act_type):
+        return nn.HybridLambda(lambda F, x: F.LeakyReLU(
+            x, act_type=act_type, slope=0.3))
+
+    def concurrent(block, first):
+        block.add(first, nn.Activation("tanh"), cnn.Identity())
+        return block
+
+    return {
+        "Conv1D": (lambda: nn.Conv1D(6, 3, strides=2, padding=1, dilation=2,
+                                     groups=2), [(4, 4, 33)]),
+        "Conv3D": (lambda: nn.Conv3D(8, (2, 3, 3), strides=(1, 2, 1),
+                                     padding=1, activation="relu"),
+                   [(2, 4, 6, 12, 10)]),
+        "Conv1DTranspose": (lambda: nn.Conv1DTranspose(
+            4, 3, strides=2, padding=1, output_padding=2, groups=2),
+            [(4, 6, 17)]),
+        "Conv2DTranspose": (lambda: nn.Conv2DTranspose(
+            8, 4, strides=2, padding=1, output_padding=1, groups=2),
+            [(4, 6, 9, 8)]),
+        "Conv3DTranspose": (lambda: nn.Conv3DTranspose(
+            4, 3, strides=2, padding=1, output_padding=1, groups=2,
+            activation="tanh"), [(2, 4, 3, 4, 5)]),
+        "MaxPool1D": (lambda: nn.MaxPool1D(3, 2, padding=1, ceil_mode=True),
+                      [(4, 5, 30)]),
+        "MaxPool3D": (lambda: nn.MaxPool3D(3, 2, ceil_mode=True),
+                      [(2, 3, 8, 9, 10)]),
+        "AvgPool1D": (lambda: nn.AvgPool1D(3, 2, padding=1, ceil_mode=True,
+                                           count_include_pad=False),
+                      [(4, 5, 30)]),
+        "AvgPool3D": (lambda: nn.AvgPool3D(3, 2, padding=1, ceil_mode=True,
+                                           count_include_pad=False),
+                      [(2, 3, 8, 9, 10)]),
+        "GlobalMaxPool1D": (lambda: nn.GlobalMaxPool1D(), [(4, 5, 30)]),
+        "GlobalMaxPool2D": (lambda: nn.GlobalMaxPool2D(), [(4, 5, 9, 7)]),
+        "GlobalMaxPool3D": (lambda: nn.GlobalMaxPool3D(),
+                            [(2, 3, 4, 5, 6)]),
+        "GlobalAvgPool1D": (lambda: nn.GlobalAvgPool1D(), [(4, 5, 30)]),
+        "GlobalAvgPool3D": (lambda: nn.GlobalAvgPool3D(),
+                            [(2, 3, 4, 5, 6)]),
+        "ReflectionPad2D": (lambda: nn.ReflectionPad2D(3), [(2, 3, 9, 8)]),
+        "GroupNorm": (lambda: nn.GroupNorm(num_groups=4), [(4, 8, 6, 5)]),
+        "InstanceNorm": (lambda: nn.InstanceNorm(), [(4, 6, 7, 5)]),
+        "SyncBatchNorm": (lambda: nn.SyncBatchNorm(momentum=0.8),
+                          [(8, 6, 5, 4)]),
+        "LeakyReLU": (lambda: nn.LeakyReLU(0.2), [(16, 33)]),
+        "PReLU": (lambda: nn.PReLU(in_channels=5), [(4, 5, 9)]),
+        "ELU": (lambda: nn.ELU(alpha=0.7), [(16, 33)]),
+        "SELU": (lambda: nn.SELU(), [(16, 33)]),
+        "Swish": (lambda: nn.Swish(beta=1.5), [(16, 33)]),
+        "LeakyReLU op: rrelu": (lambda: lrelu("rrelu"), [(16, 33)]),
+        "LeakyReLU op: gelu": (lambda: lrelu("gelu"), [(16, 33)]),
+        "Lambda": (lambda: nn.Lambda("tanh"), [(16, 33)]),
+        "HybridLambda": (lambda: nn.HybridLambda(
+            lambda F, x: F.reshape(F.relu(x), (-1, 3, 0))), [(6, 4, 11)]),
+        "HybridConcurrent": (lambda: concurrent(cnn.HybridConcurrent(
+            axis=-1), nn.Dense(5, flatten=False)), [(4, 6, 7)]),
+        "Concurrent": (lambda: concurrent(cnn.Concurrent(axis=1),
+                                          nn.GroupNorm(num_groups=2)),
+                       [(4, 6, 7)]),
+    }
+
+
+def ly_losses(mx):
+    """name -> (factory of one loss, its inputs as numpy arrays): the ten
+    losses of this slice (CTCLoss with lengths and with padded labels)."""
+    import numpy as np
+    loss = mx.gluon.loss
+    rng = np.random.RandomState(SEED + 25)
+
+    def randn(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def bits(*shape):
+        return rng.randint(0, 2, shape).astype(np.float32)
+
+    def probs(*shape):
+        e = np.exp(randn(*shape))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    label = rng.randint(0, 9, (6, 5)).astype(np.float32)
+    label[0, 3:] = -1                   # padded labels
+    label[4, 1:] = -1
+    return {
+        "L1Loss": (lambda: loss.L1Loss(), [randn(16, 8), randn(16, 8)]),
+        "SigmoidBinaryCrossEntropyLoss": (
+            lambda: loss.SigmoidBinaryCrossEntropyLoss(),
+            [randn(16, 8) * 3, bits(16, 8), None,
+             np.abs(randn(8)) + 0.5]),
+        "SigmoidBCE from_sigmoid": (
+            lambda: loss.SigmoidBCELoss(from_sigmoid=True),
+            [1 / (1 + np.exp(-randn(16, 8))), bits(16, 8)]),
+        "KLDivLoss": (lambda: loss.KLDivLoss(from_logits=False),
+                      [randn(16, 10), probs(16, 10)]),
+        "HuberLoss": (lambda: loss.HuberLoss(rho=0.7),
+                      [randn(16, 8), randn(16, 8)]),
+        "HingeLoss": (lambda: loss.HingeLoss(),
+                      [randn(16, 8), np.sign(randn(16, 8))]),
+        "SquaredHingeLoss": (lambda: loss.SquaredHingeLoss(),
+                             [randn(16, 8), np.sign(randn(16, 8))]),
+        "LogisticLoss": (lambda: loss.LogisticLoss(label_format="binary"),
+                         [randn(16, 8) * 2, bits(16, 8)]),
+        "TripletLoss": (lambda: loss.TripletLoss(),
+                        [randn(16, 8), randn(16, 8), randn(16, 8)]),
+        "CosineEmbeddingLoss": (
+            lambda: loss.CosineEmbeddingLoss(margin=0.2),
+            [randn(16, 8), randn(16, 8), np.sign(randn(16))]),
+        "CTCLoss NTC, lengths": (
+            lambda: loss.CTCLoss(),
+            [randn(6, 20, 10), label,
+             np.array([20, 17, 12, 20, 9, 15], np.float32),
+             np.array([3, 5, 4, 2, 1, 5], np.float32)]),
+        "CTCLoss TNC, padded labels": (
+            lambda: loss.CTCLoss(layout="TNC", label_layout="TN"),
+            [randn(20, 6, 10), label.T.copy()]),
+    }
+
+
+def ly_run(torch, mx, block, inputs, dev, heads=None):
+    """``block`` under record() on ``inputs`` put on ``dev`` (the first
+    float inputs require grad; None is passed through), then backward
+    from ``heads`` (seeded normals of the outputs' shapes when None).
+    Returns (quantities, heads): every output, each input's gradient,
+    every parameter and running statistic and each parameter's
+    gradient, as numpy arrays."""
+    import numpy as np
+    xs = [None if a is None else torch.from_numpy(a) for a in inputs]
+    if dev is not None:
+        xs = [None if x is None else x.to(dev) for x in xs]
+    for x in xs[:1]:
+        x.requires_grad_()
+    with mx.autograd.record():
+        outs = block(*xs)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    if heads is None:
+        rng = np.random.RandomState(SEED + 26)
+        heads = [rng.randn(*o.shape).astype(np.float32) for o in outs]
+    torch.autograd.backward(outs, [torch.from_numpy(h).to(dev)
+                                   for h in heads])
+    q = {f"out{i}": o.detach().cpu().numpy() for i, o in enumerate(outs)}
+    q["dx0"] = xs[0].grad.cpu().numpy()
+    for name, t in block.collect_params().items():
+        q[name] = t.detach().cpu().numpy()
+        if t.grad is not None:
+            q[f"grad:{name}"] = t.grad.cpu().numpy()
+    return q, heads
+
+
+def ly_compare(what, got, want, tol=LY_RTOL):
+    """Worst relative difference of ``got`` from ``want`` (each quantity
+    of max |value|; an all-zero one exactly); fails past ``tol``."""
+    import numpy as np
+    if sorted(got) != sorted(want):
+        fail(f"layers: {what}: card quantities {sorted(got)} vs CPU "
+             f"{sorted(want)}")
+    worst, where = 0.0, None
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or not np.isfinite(g).all():
+            fail(f"layers: {what}: {key} is {g.shape}, not finite or not "
+                 f"the CPU's {w.shape}")
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        err = float(np.abs(g - w).max()) if w.size else 0.0
+        rel = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if rel >= worst:
+            worst, where = rel, key
+    if not worst <= tol:
+        fail(f"layers: {what}: {where} differs from the CPU by {worst} of "
+             f"max |value| > {tol}")
+    return worst, where
+
+
+def ly_pair(torch, mx, make, shapes, ctx):
+    """The same layer on the CPU (seeded Xavier, BatchNorm and PReLU
+    parameters drawn from SEED) and on ``ctx`` (its state loaded)."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    inputs = [rng.randn(*s).astype(np.float32) for s in shapes]
+    cpu = make()
+    cpu.initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                   generator=mx.random.generator(SEED))
+    with torch.no_grad():               # parameters autograd may save
+        cpu(*[torch.from_numpy(a) for a in inputs])
+    state = {}
+    for name, t in cpu.collect_params().items():
+        if name.endswith(("gamma", "running_var", "alpha")):
+            state[name] = (rng.rand(*t.shape) + 0.5).astype(np.float32)
+        else:
+            state[name] = t.detach().numpy().copy()
+    cpu.load_dict(state)
+    card = make()
+    card.load_dict(state, ctx=ctx)
+    return cpu, card, inputs
+
+
+def ly_examples(torch, mx, ctx):
+    """examples/train_dcgan.py's generator and discriminator and
+    examples/train_vae.py's VAE, built as the examples build them, one
+    Adam step each (lr 2e-3; beta1 0.5 for DCGAN) through gluon.Trainer
+    on the card and on the CPU from the same weights and batch: the
+    losses and every gradient within 1e-5 of max |value|; then the CPU's
+    Trainer steps from the card's gradients, and the weights after the
+    step agree within 1e-5 (Adam's first step, lr * g / (|g| + eps),
+    turns a gradient near eps's size into a step that two devices'
+    rounding of g moves by a share of lr)."""
+    import numpy as np
+    nn, F = mx.gluon.nn, mx.ops.namespace
+    rng = np.random.RandomState(SEED + 27)
+    batch, nz = 32, 16
+
+    def generator():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(16 * 2 * 4 * 4, use_bias=False),
+                nn.HybridLambda(lambda F, x: F.reshape(x, (-1, 32, 4, 4))),
+                nn.Conv2DTranspose(16, 4, strides=2, padding=1,
+                                   use_bias=False),
+                nn.Activation("relu"),
+                nn.Conv2DTranspose(1, 4, strides=2, padding=1,
+                                   use_bias=False),
+                nn.Activation("tanh"))
+        return net
+
+    def discriminator():
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(16, 4, strides=2, padding=1), nn.LeakyReLU(0.2),
+                nn.Conv2D(32, 4, strides=2, padding=1), nn.LeakyReLU(0.2),
+                nn.Dense(1))
+        return net
+
+    class VAE(mx.gluon.HybridBlock):
+        def __init__(self, nz=8, nf=16):
+            super().__init__()
+            self._nz = nz
+            self.enc = nn.HybridSequential()
+            self.enc.add(nn.Conv2D(nf, 4, strides=2, padding=1),
+                         nn.Activation("relu"),
+                         nn.Conv2D(nf * 2, 4, strides=2, padding=1),
+                         nn.Activation("relu"), nn.Dense(2 * nz))
+            self.dec = nn.HybridSequential()
+            self.dec.add(nn.Dense(nf * 2 * 4 * 4, activation="relu"),
+                         nn.HybridLambda(
+                             lambda F, x: F.reshape(x, (-1, nf * 2, 4, 4))),
+                         nn.Conv2DTranspose(nf, 4, strides=2, padding=1),
+                         nn.Activation("relu"),
+                         nn.Conv2DTranspose(1, 4, strides=2, padding=1),
+                         nn.Activation("tanh"))
+
+        def forward(self, x, eps):
+            h = self.enc(x)
+            mu = F.slice_axis(h, axis=1, begin=0, end=self._nz)
+            logvar = F.slice_axis(h, axis=1, begin=self._nz,
+                                  end=2 * self._nz)
+            return self.dec(mu + F.exp(0.5 * logvar) * eps), mu, logvar
+
+    real = np.tanh(rng.randn(batch, 1, 16, 16)).astype(np.float32)
+    z = rng.randn(batch, nz).astype(np.float32)
+    eps = rng.randn(batch, 8).astype(np.float32)
+    bce = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    ones, zeros = np.ones(batch, np.float32), np.zeros(batch, np.float32)
+
+    def d_loss(nets, t):
+        gen, dis = nets
+        fake = gen(t(z)).detach()
+        return (bce(dis(t(real)).reshape(-1), t(ones))
+                + bce(dis(fake).reshape(-1), t(zeros))).mean()
+
+    def g_loss(nets, t):
+        gen, dis = nets
+        return bce(dis(gen(t(z))).reshape(-1), t(ones)).mean()
+
+    def vae_loss(nets, t):
+        x = t(real)
+        xh, mu, logvar = nets[0](x, t(eps))
+        kl = (-0.5 * (1 + logvar - mu * mu - torch.exp(logvar))).sum(
+            axis=1).mean()
+        return ((xh - x) ** 2).mean() + 5e-3 * kl
+
+    def build(makers, shapes):
+        """The nets on the CPU (seeded Xavier) and the same on ``ctx``
+        (their state loaded into fresh blocks there)."""
+        cpu = []
+        for make, shape in zip(makers, shapes):
+            net = make()
+            net.initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                           generator=mx.random.generator(SEED))
+            with torch.no_grad():
+                net(*[torch.zeros(s) for s in shape])
+            cpu.append(net)
+        card = []
+        for make, net in zip(makers, cpu):
+            card.append(make())
+            card[-1].load_dict({k: v.detach().numpy() for k, v in
+                                net.collect_params().items()}, ctx=ctx)
+        return card, cpu
+
+    cases = (("dcgan", (generator, discriminator),
+              ((batch, nz),), ((batch, 1, 16, 16),),
+              (("discriminator", 1, d_loss, {"beta1": 0.5}),
+               ("generator", 0, g_loss, {"beta1": 0.5}))),
+             ("vae", (VAE,), ((batch, 1, 16, 16), (batch, 8)), None,
+              (("vae", 0, vae_loss, {}),)))
+    worst = 0.0
+    for name, makers, shape0, shape1, steps in cases:
+        shapes = (shape0,) if shape1 is None else (shape0, shape1)
+        card, cpu = build(makers, shapes)
+        for what, which, loss_fn, opt in steps:
+            opt = {"learning_rate": 2e-3, **opt}
+            q = {}
+            for nets, dev in ((card, ctx.torch_device), (cpu, None)):
+                def t(a, dev=dev):
+                    x = torch.from_numpy(a)
+                    return x if dev is None else x.to(dev)
+                for n in nets:
+                    for p in n.collect_params().values():
+                        p.grad = None
+                with mx.autograd.record():
+                    loss = loss_fn(nets, t)
+                mx.autograd.backward(loss)
+                params = nets[which].collect_params()
+                q[dev is None] = {"loss": loss.detach().cpu().numpy(), **{
+                    f"grad:{k}": p.grad.cpu().numpy()
+                    for k, p in params.items() if p.grad is not None}}
+            rel, key = ly_compare(f"{name} {what} step's gradients",
+                                  q[False], q[True])
+            worst = max(worst, rel)
+            with torch.no_grad():
+                for (k, tp), cp in zip(card[which].collect_params().items(),
+                                       cpu[which].collect_params().values()):
+                    if tp.grad is not None:
+                        cp.grad.copy_(tp.grad.cpu())
+            for nets in (card, cpu):
+                mx.gluon.Trainer(nets[which].collect_params(), "adam",
+                                 opt).step(batch)
+            after = [{k: v.detach().cpu().numpy() for k, v in
+                      nets[which].collect_params().items()}
+                     for nets in (card, cpu)]
+            rel_w, key_w = ly_compare(f"{name} {what} Adam step",
+                                      after[0], after[1])
+            worst = max(worst, rel_w)
+            log(f"layers: {name} {what}: loss {float(q[False]['loss']):.6f}"
+                f" (CPU {float(q[True]['loss']):.6f}); gradients worst "
+                f"{rel:.3e} ({key}), weights after one Adam step (the CPU "
+                f"given the card's gradients) worst {rel_w:.3e} ({key_w})")
+    return worst
+
+
+def phase_layers(torch, mx, card, ctx):
+    """Every layer class and loss of this slice on ``ctx`` against the
+    same module on the CPU (fp32, TF32 off, cuDNN deterministic); the
+    DCGAN and VAE examples' blocks one Adam step each; clip_global_norm
+    on device tensors with its host reads counted."""
+    import numpy as np
+    dev = ctx.torch_device
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    worst = {}
+    try:
+        for name, (make, shapes) in ly_layers(mx).items():
+            cpu, card_block, inputs = ly_pair(torch, mx, make, shapes, ctx)
+            want, heads = ly_run(torch, mx, cpu, inputs, None)
+            got, _ = ly_run(torch, mx, card_block, inputs, dev, heads)
+            worst[name] = ly_compare(name, got, want)
+        for name, (make, inputs) in ly_losses(mx).items():
+            want, heads = ly_run(torch, mx, make(), inputs, None)
+            got, _ = ly_run(torch, mx, make(), inputs, dev, heads)
+            worst[name] = ly_compare(name, got, want)
+        for name, (rel, key) in worst.items():
+            log(f"layers: {name}: card vs CPU worst {rel:.3e} of max |value|"
+                f" ({key}; tolerance {LY_RTOL:g})")
+        worst["examples"] = (ly_examples(torch, mx, ctx), "")
+    finally:
+        torch.backends.cudnn.deterministic = old
+    # clip_global_norm on device tensors: one host read with
+    # check_isfinite, none without
+    rng = np.random.RandomState(SEED + 28)
+    arrays = [rng.randn(*s).astype(np.float32)
+              for s in ((512, 256), (4096,), (64, 3, 7, 7))]
+    clip = {}
+    for check in (True, False):
+        on_card = [torch.from_numpy(a.copy()).to(dev) for a in arrays]
+        on_cpu = [torch.from_numpy(a.copy()) for a in arrays]
+        box = []
+        syncs, _ = tr_syncs(torch, lambda: box.append(
+            mx.gluon.utils.clip_global_norm(on_card, 1.0,
+                                            check_isfinite=check)))
+        want = mx.gluon.utils.clip_global_norm(on_cpu, 1.0,
+                                               check_isfinite=check)
+        got = box[0]
+        if check != isinstance(got, float) or syncs != (1 if check else 0):
+            fail(f"layers: clip_global_norm(check_isfinite={check}) made "
+                 f"{syncs} host reads and returned {type(got)}")
+        rel, key = ly_compare(
+            f"clip_global_norm(check_isfinite={check})",
+            {"norm": np.float32(float(got)),
+             **{f"a{i}": t.cpu().numpy() for i, t in enumerate(on_card)}},
+            {"norm": np.float32(float(want)),
+             **{f"a{i}": t.numpy() for i, t in enumerate(on_cpu)}})
+        clip[check] = syncs
+        log(f"layers: clip_global_norm(check_isfinite={check}) on the card: "
+            f"norm {float(got):.6f} (CPU {float(want):.6f}), {syncs} host "
+            f"read(s), scaled arrays worst {rel:.3e} ({key})")
+    return {"worst": max(r for r, _ in worst.values()),
+            "cases": len(worst), "clip_syncs": clip}
+
+
+# -- phase 26: serve-zoo -----------------------------------------------------
+SZ_MODELS = (("resnet50_v2", 224, 0), ("vgg16", 224, 2), ("alexnet", 224, 2),
+             ("densenet121", 224, 0), ("mobilenetv2_1.0", 224, 0),
+             ("squeezenet1.1", 224, 0), ("inceptionv3", 299, 0))
+SZ_REQUESTS = 16
+SZ_CHECKED = 2                       # served requests held against the CPU
+SZ_LEAK_BYTES = 64 << 20             # memory left after a model is freed
+
+
+def sz_profile(torch, server, x, k2):
+    """The graphed batch-8 forward of the served model: its replay's wall
+    time (host clock around the replay and a synchronize, median of 10)
+    and device span (CUDA events around 10 back-to-back replays, the
+    mean), and one profiled replay's kernel time, launches, busy share and top
+    kernels. CUPTI has dropped a replay's records late in a long run
+    (PROFILE_TRIES): a profile whose kernels sum to less than half the
+    event span is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    key = (x.shape[0], tuple(x.shape[1:]), x.dtype.str)
+    pred = dict(server.cache.entries())[key]
+    pred.replay(torch.from_numpy(x).to(server.device))
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pred.replay()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall, span = _median(walls), event_ms(torch, pred.replay, 10)
+
+    def measure():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            pred.replay()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")}
+
+    def complete(dev):
+        return sum(ms for _, ms in dev.values()) >= 0.5 * span \
+            and _kernel_count(dev, "matmul_epilogue") == k2
+
+    dev = profiled("serve-zoo graphed forward", measure, complete)
+    device_ms = sum(ms for _, ms in dev.values())
+    k2_seen = _kernel_count(dev, "matmul_epilogue")
+    log(f"serve-zoo: graphed batch-8 forward {wall:.3f} ms wall, {span:.3f}"
+        f" ms on the device between CUDA events (10 replays); "
+        f"one profiled replay: kernels {device_ms:.3f} ms "
+        f"({sum(c for c, _ in dev.values()):.0f} launches), busy "
+        f"{device_ms / wall:.3f}; matmul_epilogue {k2_seen} launches"
+        + ("" if complete(dev) else "; the profiler dropped records"))
+    for name, (c, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:5]:
+        log(f"  {ms:9.4f} ms {c:5.0f}x  {name[:90]}")
+    if dev and k2_seen != k2:
+        fail(f"serve-zoo: the profiler saw {k2_seen} matmul_epilogue "
+             f"launches in a graphed forward, want {k2}")
+    return {"wall_ms": wall, "event_ms": span, "device_ms": device_ms,
+            "busy": device_ms / wall}
+
+
+def sz_allocated(torch):
+    """Device bytes allocated once garbage is collected and PyTorch's
+    cached cuBLAS workspaces are released: cuBLAS keeps one 32 MiB
+    workspace per (thread, stream) it ran on for the process's life, so
+    a server's first worker thread and the capture warm-up stream would
+    read as a model that was not freed."""
+    import gc
+    gc.collect()
+    _sync(torch)
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def sz_model(torch, mx, card, ctx, name, size, k2):
+    """One full-width model behind the Server on ``ctx``, then freed."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    dev = ctx.torch_device
+    base = sz_allocated(torch)
+    torch.cuda.reset_peak_memory_stats()
+    net = get_model(name, classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=mx.random.generator(SEED))
+    with torch.inference_mode():
+        net(torch.zeros(1, 3, size, size, device=dev))
+    rng = np.random.RandomState(SEED)
+    params = {}
+    for key, t in net.collect_params().items():
+        shape = tuple(t.shape)
+        if key.endswith(("running_mean", "beta")):
+            params[key] = rng.randn(*shape).astype(np.float32) * 0.1
+        elif key.endswith(("running_var", "gamma")):
+            params[key] = rng.rand(*shape).astype(np.float32) + 0.5
+        else:
+            params[key] = t.detach().cpu().numpy()
+    net.load_dict(params)
+    images = rng.randn(SZ_REQUESTS, 3, size, size).astype(np.float32)
+    log(f"serve-zoo {name}: {size}x{size}x3, 1000 classes, "
+        f"{sum(v.size for v in params.values())} parameters and statistics,"
+        f" fp32, buckets 1/2/4/8 captured at start()")
+    server = Server(net, ServerConfig(max_batch=BATCH,
+                                      aot_prewarm=((3, size, size),)),
+                    ctx=ctx).start()
+    graphs = report_prewarm(server, card)
+    per_forward = {"conv_epilogue": 0, "matmul_epilogue": k2}
+    results, launches, stats = serve_burst(
+        torch, server, images, per_forward, card, "images",
+        n_requests=SZ_REQUESTS)
+    stray = {k: n for k, n in launches.items()
+             if k not in per_forward and n}
+    if stray:
+        fail(f"serve-zoo {name}: kernels off the path launched: {stray}")
+    graph_rel = graphed_vs_eager(torch, server, net, images[:BATCH],
+                                 ("logits",))
+    prof = sz_profile(torch, server, images[:BATCH], k2)
+    peak = torch.cuda.max_memory_allocated()
+    cpu_net = get_model(name, classes=1000)
+    cpu_net.load_dict(params, ctx=mx.cpu())
+    with torch.inference_mode():
+        ref = cpu_net(torch.from_numpy(images[:SZ_CHECKED])).numpy()
+    check_against_cpu(f"{name} logits of requests 0-{SZ_CHECKED - 1}",
+                      np.stack(results[:SZ_CHECKED]), ref)
+    server.cache.clear()
+    del server, net, cpu_net
+    left = sz_allocated(torch) - base
+    log(f"serve-zoo {name}: peak device memory {peak / 2**30:.3f} GiB; "
+        f"after the model, its server and its graphs are freed "
+        f"{left / 2**20:+.1f} MiB allocated against before (cuBLAS "
+        "workspaces cleared both times)")
+    if left > SZ_LEAK_BYTES:
+        fail(f"serve-zoo {name}: {left} bytes still allocated after the "
+             "model was freed")
+    return {"launches": launches, "graphs": graphs, "graph_rel": graph_rel,
+            "profile": prof, "peak_bytes": peak, "left_bytes": left,
+            **stats}
+
+
+def phase_serve_zoo(torch, mx, card, ctx):
+    """One full-width representative of each vision family behind the
+    Server on ``ctx``, one after the other."""
+    out = {}
+    for name, size, k2 in SZ_MODELS:
+        t0 = time.perf_counter()
+        out[name] = sz_model(torch, mx, card, ctx, name, size, k2)
+        log(f"serve-zoo {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- phase 27: train-zoo -----------------------------------------------------
+TZ_NETWORKS = {                       # network -> K2 launches per step
+    "mobilenetv2_1.0": {},
+    "vgg16_bn": {"matmul_epilogue": 2},
+}
+TZ_GATE = {                           # gated weights, BatchNorm statistics
+    "mobilenetv2_1.0": (
+        ("features.0.weight", "features.3.out.3.weight",
+         "features.10.out.4.gamma", "features.20.weight", "output.0.weight"),
+        ("features.1.running_mean", "features.1.running_var",
+         "features.19.out.7.running_mean", "features.19.out.7.running_var")),
+    "vgg16_bn": (
+        ("features.0.weight", "features.24.weight", "features.35.gamma",
+         "features.44.weight", "features.46.bias", "output.weight"),
+        ("features.1.running_mean", "features.1.running_var",
+         "features.41.running_mean", "features.41.running_var")),
+}
+
+
+def tz_trainer(torch, mx, ctx, name, dtype, state=None):
+    """examples/train_imagenet.py's trainer for ``--network name``: 1000
+    classes, Xavier from SEED (or ``state``), SGD lr 0.1 momentum 0.9 wd
+    1e-4 on the {"data": 1, "model": 1} mesh."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    net = get_model(name, classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=mx.random.generator(SEED))
+    if state is not None:
+        net.load_dict(state)
+    trainer = mx.parallel.ShardedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        optimizer_params=dict(RN_SGD), mesh=sh_mesh(mx, ctx),
+        compute_dtype=dtype)
+    return net, trainer
+
+
+def tz_fp32(torch, mx, ctx, name, init, batch):
+    """The bf16 trainer and the same trainer in fp32 (compute_dtype
+    None), each from ``init`` for 3 eager steps on ``batch``, the fp32
+    steps replaying the bf16 steps' dropout bits: the losses within
+    SH_LOSS_RTOL. Eager, as graphed-vs-eager is gated bit for bit
+    apart: vgg16_bn's fp32 step graph at batch 256 would not fit beside
+    its pool (51 GiB for the bf16 step on the H100)."""
+    runs = {}
+    bits = None
+    for dtype in ("bfloat16", None):
+        mx.random.seed(SEED)
+        _, trainer = tz_trainer(torch, mx, ctx, name, dtype, init)
+        trainer._backend = None
+        losses, times = [], []
+        with mx.random.bits_tape(replay=bits) as tape:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                losses.append(float(trainer.step(*batch)))
+                times.append((time.perf_counter() - t0) * 1e3)
+        bits = bits if bits is not None else [b.clone() for b in tape.drawn]
+        runs[dtype] = (losses, times)
+        sh_release(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+    (bf16, bf16_ms), (fp32, fp32_ms) = runs["bfloat16"], runs[None]
+    rel = [abs(a - b) / abs(b) for a, b in zip(bf16, fp32)]
+    log(f"train-zoo {name}: eager fp32 losses {[round(v, 6) for v in fp32]}"
+        f" vs eager bf16 {[round(v, 6) for v in bf16]} ({len(bits)} dropout "
+        f"draws replayed): relative {[round(r, 5) for r in rel]} (tolerance "
+        f"{SH_LOSS_RTOL}); eager step ms fp32 "
+        f"{[round(t, 3) for t in fp32_ms]}, bf16 "
+        f"{[round(t, 3) for t in bf16_ms]}")
+    if max(rel) > SH_LOSS_RTOL:
+        fail(f"train-zoo {name}: bf16 losses differ from fp32 ones by "
+             f"{max(rel)} > {SH_LOSS_RTOL}")
+    return {"losses": fp32, "bf16_losses": bf16, "rel": max(rel),
+            "eager_ms": fp32_ms}
+
+
+def phase_train_zoo(torch, mx, card, ctx):
+    """examples/train_imagenet.py's configuration (batch 256, 224x224,
+    the RandomState(0) batch) for --network mobilenetv2_1.0 and vgg16_bn
+    through ShardedTrainer(compute_dtype="bfloat16"), gated as phase 15
+    (a)."""
+    import numpy as np
+    dev = ctx.torch_device
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(0)      # train_imagenet.py's synthetic batch
+    x = rng.randn(SH_RN_BATCH, 3, RN_SIZE, RN_SIZE).astype(np.float32)
+    y = rng.randint(0, 1000, (SH_RN_BATCH,))
+    batch = (torch.from_numpy(x).to(dev),
+             torch.from_numpy(y.astype(np.int32)).to(dev))
+    del x
+    out = {}
+    for name, per_step in TZ_NETWORKS.items():
+        t0 = time.perf_counter()
+        net, trainer = tz_trainer(torch, mx, ctx, name, "bfloat16")
+        trainer.prepare(batch[0])
+        init = {k: v.detach().cpu().numpy().copy()
+                for k, v in net.collect_params().items()}
+        log(f"train-zoo {name}: batch {SH_RN_BATCH}, {RN_SIZE}x{RN_SIZE}, "
+            f"bf16 compute, fp32 masters, SGD lr "
+            f"{RN_SGD['learning_rate']:g} momentum {RN_SGD['momentum']:g} "
+            f"wd {RN_SGD['wd']:g}, mesh "
+            f"{mx.parallel.mesh_signature(trainer.mesh)}")
+        res = sh_train(torch, mx, name, trainer, batch, SH_RN_STEPS,
+                       per_step, "images", SH_RN_BATCH, card)
+        params, stats = TZ_GATE[name]
+        res["graph_rel"], res["graph_equal"] = sh_graph_vs_eager(
+            torch, mx, trainer, batch, params + stats, deterministic=True)
+        res["gate_rel"] = sh_card_vs_cpu(
+            torch, mx, trainer,
+            lambda state, name=name: tz_trainer(torch, mx, mx.cpu(), name,
+                                                "bfloat16", state)[1],
+            [b[:1] for b in batch], params, stats, resnet=True, pools=True,
+            convs=True)
+        sh_release(torch, trainer)
+        del net, trainer
+        torch.cuda.empty_cache()
+        res["fp32"] = tz_fp32(torch, mx, ctx, name, init, batch)
+        out[name] = res
+        del init
+        torch.cuda.empty_cache()
+        log(f"train-zoo {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
         fail(f"no mxnet_tpu_torch package beside {__file__}: run from the "
@@ -6505,6 +7287,7 @@ def main():
     from mxnet_tpu_torch.kernels import flash_attention as fa
     from mxnet_tpu_torch.kernels import matmul_epilogue as me
     out = {}
+    t_start = time.perf_counter()
 
     def run(name, fn):
         t0 = time.perf_counter()
@@ -6548,6 +7331,10 @@ def main():
                                                  mx.gpu(0)))
     run("serve-deploy", lambda: phase_serve_deploy(torch, mx, card,
                                                    mx.gpu(0)))
+    run("layers", lambda: phase_layers(torch, mx, card, mx.gpu(0)))
+    run("serve-zoo", lambda: phase_serve_zoo(torch, mx, card, mx.gpu(0)))
+    run("train-zoo", lambda: phase_train_zoo(torch, mx, card, mx.gpu(0)))
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
     k3, s3 = out["kernel K3"], out["serve long BERT"]
@@ -6560,6 +7347,7 @@ def main():
     rm, rl = out["train-remat"], out["serve-reload"]
     pl, dc = out["serve-pool"], out["serve-decode"]
     tr, fl, dp = out["trace"], out["serve-fleet"], out["serve-deploy"]
+    sz, tz = out["serve-zoo"], out["train-zoo"]
 
     def remat(kernel):
         """The kernel's launches per graphed step of (c) under each remat
@@ -6757,6 +7545,17 @@ def main():
                            f"{BERT_SEQ} (fp32 and bf16) and the "
                            f"{fl['warmup']} warm-up passes of each of "
                            f"{fl['captures']} captures, 25 each",
+        "serve_zoo_launches": {m: r["launches"]["matmul_epilogue"]
+                               for m, r in sz.items()},
+        "serve_zoo_per": f"{SZ_REQUESTS} single-image requests per model "
+                         "of phase 26, fp32: 2 per batch forward in vgg16 "
+                         "and alexnet (fc6 and fc7), 0 elsewhere",
+        "train_zoo_launches": {m: r["launches"]["matmul_epilogue"]
+                               for m, r in tz.items()},
+        "train_zoo_per": f"{SH_RN_STEPS} bf16 ShardedTrainer steps at "
+                         f"batch {SH_RN_BATCH} and the capture's warm-up "
+                         "passes: 2 per step in vgg16_bn, 0 in "
+                         "mobilenetv2_1.0",
         "serve_deploy_launches": dp["launches"],
         "serve_deploy_per": f"the good deploy's traffic: {dp['batches']} "
                             "batch forwards of the BERT-base encoder at S "

@@ -8,12 +8,17 @@ the batch)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..ops import nn as _nn
 from ..ops import tensor as _tensor
 from .block import HybridBlock
 
-__all__ = ["L2Loss", "Loss", "SoftmaxCELoss", "SoftmaxCrossEntropyLoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "LogisticLoss", "TripletLoss", "CTCLoss", "CosineEmbeddingLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -56,6 +61,59 @@ class L2Loss(Loss):
         loss = torch.square(label - pred)
         loss = _apply_weighting(loss, self._weight / 2, sample_weight)
         return self._mean_over_nonbatch(loss)
+
+
+class L1Loss(Loss):
+    """``|pred - label|`` (ref: loss.py L1Loss)."""
+
+    def __init__(self, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+
+    def forward(self, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        loss = _apply_weighting(torch.abs(label - pred), self._weight,
+                                sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+def _softrelu_neg_abs(pred):
+    """``log(1 + exp(-|pred|))``, the stable half of the log-sigmoid."""
+    return F.softplus(-torch.abs(pred))
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy (ref: loss.py SigmoidBCELoss). On logits
+    (the default) in the stable form ``relu(pred) - pred * label +
+    log(1 + exp(-|pred|))``, with ``pos_weight`` scaling the positive
+    term; with ``from_sigmoid`` on probabilities, ``log(p + 1e-12)``."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._from_sigmoid = from_sigmoid
+
+    def forward(self, pred, label, sample_weight=None, pos_weight=None):
+        label = _reshape_like(label, pred)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = torch.relu(pred) - pred * label \
+                    + _softrelu_neg_abs(pred)
+            else:
+                log_weight = 1 + (pos_weight - 1) * label
+                loss = torch.relu(pred) - pred * label + log_weight * (
+                    _softrelu_neg_abs(pred) + torch.relu(-pred))
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(torch.log(pred + eps) * label
+                         + torch.log(1. - pred + eps) * (1. - label))
+            else:
+                loss = -(torch.log(pred + eps) * label * pos_weight
+                         + torch.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -116,3 +174,148 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """``label * (log(label + 1e-12) - pred)`` (ref: loss.py KLDivLoss);
+    ``pred`` are log-probabilities unless ``from_logits`` is False."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def forward(self, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = _tensor.log_softmax(pred, axis=self._axis)
+        loss = label * (torch.log(label + 1e-12) - pred)
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+class HuberLoss(Loss):
+    """Smooth L1: quadratic below ``rho``, linear above (ref: loss.py
+    HuberLoss)."""
+
+    def __init__(self, rho=1.0, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._rho = rho
+
+    def forward(self, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        loss = torch.abs(label - pred)
+        loss = torch.where(loss > self._rho, loss - 0.5 * self._rho,
+                           (0.5 / self._rho) * torch.square(loss))
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+class HingeLoss(Loss):
+    """``max(0, margin - pred * label)`` (ref: loss.py HingeLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._margin = margin
+
+    def forward(self, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        loss = torch.relu(self._margin - pred * label)
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+class SquaredHingeLoss(Loss):
+    """``max(0, margin - pred * label)^2`` (ref: loss.py
+    SquaredHingeLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._margin = margin
+
+    def forward(self, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        loss = torch.square(torch.relu(self._margin - pred * label))
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+class LogisticLoss(Loss):
+    """Logistic loss on logits (ref: loss.py LogisticLoss); labels in
+    {-1, 1} (``signed``) or {0, 1} (``binary``)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed"):
+        super().__init__(weight, batch_axis)
+        if label_format not in ("signed", "binary"):
+            raise MXNetError(f"bad label_format {label_format!r}")
+        self._label_format = label_format
+
+    def forward(self, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = torch.relu(pred) - pred * label + _softrelu_neg_abs(pred)
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_over_nonbatch(loss)
+
+
+class TripletLoss(Loss):
+    """``max(0, |pos - pred|^2 - |neg - pred|^2 + margin)`` summed over
+    the non-batch axes (ref: loss.py TripletLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._margin = margin
+
+    def forward(self, pred, positive, negative, sample_weight=None):
+        positive = _reshape_like(positive, pred)
+        negative = _reshape_like(negative, pred)
+        axes = tuple(range(1, pred.ndim))
+        loss = torch.sum(torch.square(positive - pred)
+                         - torch.square(negative - pred), dim=axes)
+        loss = torch.relu(loss + self._margin)
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification (ref: loss.py CTCLoss →
+    :func:`ops.nn.ctc_loss`): ``pred`` in the ``layout`` NTC or TNC,
+    ``label`` in NT or TN, padded with values < 0 unless
+    ``label_lengths`` is given; one -log p per sample."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None):
+        if layout not in ("NTC", "TNC"):
+            raise MXNetError(f"bad layout {layout!r}")
+        super().__init__(weight, 0)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = torch.swapaxes(pred, 0, 1)
+        if self._label_layout == "TN":
+            label = torch.swapaxes(label, 0, 1)
+        loss = _nn.ctc_loss(pred, label, data_lengths=pred_lengths,
+                            label_lengths=label_lengths)
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CosineEmbeddingLoss(Loss):
+    """``1 - cos`` for label 1, else ``max(0, cos - margin)`` (ref: loss.py
+    CosineEmbeddingLoss)."""
+
+    def __init__(self, weight=None, batch_axis=0, margin=0):
+        super().__init__(weight, batch_axis)
+        self._margin = margin
+
+    def forward(self, input1, input2, label, sample_weight=None):
+        input1 = _reshape_like(input1, input2)
+        def norm(x):
+            return torch.sqrt(torch.sum(torch.square(x), dim=-1))
+
+        cos = torch.sum(input1 * input2, dim=-1) / (
+            norm(input1) * norm(input2) + 1e-12)
+        label = label.reshape((-1,))
+        loss = torch.where(label == 1, 1.0 - cos,
+                           torch.relu(cos - self._margin))
+        return _apply_weighting(loss, self._weight, sample_weight)

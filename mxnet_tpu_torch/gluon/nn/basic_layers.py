@@ -11,14 +11,19 @@ import math
 import torch
 
 from ... import autograd as _autograd
+from ... import initializer as _initializer
+from ...base import MXNetError
 from ...ops import contrib as _contrib
+from ...ops import namespace as _F
 from ...ops import nn as _nn
 from ...ops import tensor as _tensor
 from ..block import Block, HybridBlock
 from ..parameter import DeferredParams
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding", "Activation", "GELU", "Flatten"]
+           "LayerNorm", "GroupNorm", "InstanceNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "GELU", "Swish", "SyncBatchNorm"]
 
 
 class Sequential(Block):
@@ -206,6 +211,70 @@ class BatchNorm(DeferredParams, HybridBlock):
                 f"activation={self._activation}")
 
 
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (ref: contrib.nn.SyncBatchNorm). In one
+    process it is BatchNorm over axis 1, as in the JAX package."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True, **kwargs):
+        super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
+                         center=center, scale=scale, in_channels=in_channels,
+                         **kwargs)
+
+
+class _ChannelNorm(DeferredParams, HybridBlock):
+    """gamma and beta, one per channel of axis 1 (GroupNorm,
+    InstanceNorm)."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels):
+        super().__init__()
+        self._epsilon = epsilon
+        self._declare("gamma", (in_channels,), gamma_initializer,
+                      differentiable=scale)
+        self._declare("beta", (in_channels,), beta_initializer,
+                      differentiable=center)
+
+    def infer_shape(self, x):
+        self._set_shape("gamma", (x.shape[1],))
+        self._set_shape("beta", (x.shape[1],))
+
+
+class GroupNorm(_ChannelNorm):
+    """ref: nn.GroupNorm."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels)
+        self._num_groups = num_groups
+
+    def forward(self, x):
+        return _nn.group_norm(x, self.gamma, self.beta,
+                              num_groups=self._num_groups, eps=self._epsilon)
+
+    def extra_repr(self):
+        return f"num_groups={self._num_groups}, eps={self._epsilon}"
+
+
+class InstanceNorm(_ChannelNorm):
+    """ref: nn.InstanceNorm (statistics per sample and channel of axis 1,
+    whatever ``axis`` says, as in the JAX package)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels)
+
+    def forward(self, x):
+        return _nn.instance_norm(x, self.gamma, self.beta, eps=self._epsilon)
+
+    def extra_repr(self):
+        return f"eps={self._epsilon}"
+
+
 class LayerNorm(DeferredParams, HybridBlock):
     """ref: nn.LayerNorm — normalize along ``axis`` with two-pass fp32
     moments, then ``* gamma + beta``."""
@@ -254,6 +323,57 @@ class Embedding(DeferredParams, HybridBlock):
         return f"{self._input_dim} -> {self._output_dim}"
 
 
+def _namespace_function(name):
+    if name not in _F.__all__:
+        raise MXNetError(f"{name!r} is not in the port's operator namespace "
+                         "yet: NDArray and the operator registry are ROADMAP "
+                         "Queue 1 item 6")
+    return getattr(_F, name)
+
+
+class Lambda(Block):
+    """Wrap a function as a Block (ref: nn.Lambda). A string names a
+    function of the operator namespace :mod:`ops.namespace` (the JAX
+    package looks it up in ``mx.nd``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__()
+        if isinstance(function, str):
+            self._func = _namespace_function(function)
+            self._name = function
+        else:
+            self._func = function
+            self._name = getattr(function, "__name__", "lambda")
+
+    def forward(self, *args):
+        return self._func(*args)
+
+    def extra_repr(self):
+        return self._name
+
+
+class HybridLambda(HybridBlock):
+    """ref: nn.HybridLambda — ``function(F, x, *args)``, where ``F`` is
+    the operator namespace :mod:`ops.namespace` (the JAX package passes
+    ``mx.nd`` or ``mx.sym``); a string names a function of it."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__()
+        if isinstance(function, str):
+            func = _namespace_function(function)
+            self._func = lambda F, *args: func(*args)
+            self._name = function
+        else:
+            self._func = function
+            self._name = getattr(function, "__name__", "lambda")
+
+    def forward(self, x, *args):
+        return self._func(_F, x, *args)
+
+    def extra_repr(self):
+        return self._name
+
+
 class Activation(HybridBlock):
     """ref: nn.Activation."""
 
@@ -275,8 +395,66 @@ class Flatten(HybridBlock):
         return _tensor.flatten(x)
 
 
+class LeakyReLU(HybridBlock):
+    """ref: nn.LeakyReLU — ``x`` where ``x >= 0``, else ``alpha * x``."""
+
+    def __init__(self, alpha):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _nn.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+    def extra_repr(self):
+        return str(self._alpha)
+
+
+class PReLU(DeferredParams, HybridBlock):
+    """ref: nn.PReLU — a learned slope ``alpha`` per channel of axis 1
+    (``in_channels`` of them, 1 by default), Constant(0.25) unless
+    ``alpha_initializer`` says otherwise."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1):
+        super().__init__()
+        if alpha_initializer is None:
+            alpha_initializer = _initializer.Constant(0.25)
+        self._declare("alpha", (in_channels,), alpha_initializer)
+
+    def forward(self, x):
+        return _nn.leaky_relu(x, self.alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """ref: nn.ELU — ``alpha * (exp(x) - 1)`` below 0."""
+
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _nn.leaky_relu(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """ref: nn.SELU."""
+
+    def forward(self, x):
+        return _nn.leaky_relu(x, act_type="selu")
+
+
 class GELU(HybridBlock):
     """ref: nn.GELU — exact-erf gelu (the LeakyReLU op's gelu mode)."""
 
     def forward(self, x):
         return _nn.leaky_relu(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    """ref: nn.Swish — ``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0):
+        super().__init__()
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)

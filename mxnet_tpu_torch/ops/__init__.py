@@ -2,6 +2,6 @@
 functions on tensors, named after the JAX package's registered ops."""
 from __future__ import annotations
 
-from . import contrib, nn, optimizer_op, tensor
+from . import contrib, namespace, nn, optimizer_op, tensor
 
-__all__ = ["contrib", "nn", "optimizer_op", "tensor"]
+__all__ = ["contrib", "namespace", "nn", "optimizer_op", "tensor"]

@@ -17,8 +17,10 @@ from .. import random as _random
 from ..base import MXNetError
 from ..kernels import fused_conv_epilogue, keep_threshold
 
-__all__ = ["activation", "batch_norm", "convolution", "dropout", "embedding",
-           "fully_connected", "layer_norm", "leaky_relu", "pooling"]
+__all__ = ["activation", "batch_norm", "convolution", "ctc_loss",
+           "deconvolution", "dropout", "embedding", "fully_connected",
+           "group_norm", "instance_norm", "layer_norm", "leaky_relu",
+           "pooling"]
 
 
 def _pair(v, n):
@@ -53,6 +55,53 @@ def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
                      stride=_pair(stride or 1, nd),
                      padding=_pair(pad or 0, nd),
                      dilation=_pair(dilate or 1, nd), groups=num_group)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconvolution(x, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_filter=None, num_group=1, no_bias=True):
+    """ref: Deconvolution — transposed N-D convolution, weight ``(in,
+    out/groups, *kernel)`` (PyTorch's layout too). Output length per axis
+    ``(i - 1)·stride - 2·pad + dilate·(k - 1) + 1 + adj``, as the JAX op
+    computes it; like the JAX op, ``target_shape`` is accepted and not
+    read. PyTorch takes ``adj`` as ``output_padding`` only below the
+    stride or the dilation; any other ``adj`` (which the JAX op accepts)
+    takes the full transposed convolution, cropped by ``pad`` on both
+    sides and zero-extended at the end where ``adj`` passes it."""
+    nd = len(kernel)
+    if nd not in _CONV_T or x.ndim != nd + 2:
+        raise MXNetError(f"Deconvolution: unsupported input ndim {x.ndim} "
+                         f"for a {nd}-D kernel")
+    stride = _pair(stride or 1, nd)
+    dilate = _pair(dilate or 1, nd)
+    pad = _pair(pad or 0, nd)
+    adj = _pair(adj or 0, nd)
+    b = None if no_bias else bias
+    conv_t = _CONV_T[nd]
+    if all(a < max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        return conv_t(x, weight, b, stride=stride, padding=pad,
+                      output_padding=adj, groups=num_group, dilation=dilate)
+    full = conv_t(x, weight, b, stride=stride, groups=num_group,
+                  dilation=dilate)
+    for i in range(nd):
+        axis = 2 + i
+        length = full.shape[axis] - 2 * pad[i] + adj[i]
+        lo = min(pad[i], full.shape[axis])
+        kept = full.narrow(axis, lo, min(length, full.shape[axis] - lo))
+        short = length - kept.shape[axis]
+        if short > 0:
+            tail = list(kept.shape)
+            tail[axis] = short
+            fill = torch.zeros(tail, dtype=kept.dtype, device=kept.device)
+            if b is not None:
+                fill = fill + b.reshape((1, -1) + (1,) * nd)
+            kept = torch.cat([kept, fill], dim=axis)
+        full = kept
+    return full
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -179,14 +228,34 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
 
 
-def leaky_relu(x, act_type="leaky", slope=0.25, lower_bound=0.125,
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def leaky_relu(x, gamma=None, act_type="leaky", slope=0.25, lower_bound=0.125,
                upper_bound=0.334):
-    """ref: LeakyReLU, its ``gelu`` mode (exact erf), the one the BERT
-    slice needs; the other modes are not ported yet."""
+    """ref: LeakyReLU — the leaky, prelu (learned slope ``gamma``, one per
+    channel of axis 1), elu, selu, gelu (exact erf) and rrelu modes, as
+    the JAX op: ``x >= 0`` takes the positive branch, and rrelu's slope is
+    the middle of its bounds."""
     if act_type == "gelu":
         return F.gelu(x, approximate="none")
-    raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not ported yet; "
-                     "only 'gelu'")
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(x > 0, x,
+                                         _SELU_ALPHA * torch.expm1(x))
+    if act_type == "leaky":
+        neg = slope * x
+    elif act_type == "prelu":
+        if gamma.ndim == 1 and x.ndim > 1:
+            gamma = gamma.reshape((1, -1) + (1,) * (x.ndim - 2))
+        neg = gamma * x
+    elif act_type == "elu":
+        neg = slope * torch.expm1(x)
+    elif act_type == "rrelu":
+        neg = (lower_bound + upper_bound) / 2.0 * x
+    else:
+        raise MXNetError(f"LeakyReLU: unknown act_type {act_type!r}")
+    return torch.where(x >= 0, x, neg)
 
 
 def _moments_acc(x, axis):
@@ -207,6 +276,27 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     bshape = [1] * x.ndim
     bshape[axis % x.ndim] = x.shape[axis % x.ndim]
     out = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """ref: GroupNorm — moments over each group of ``num_groups`` channel
+    groups and the spatial axes (two-pass, at least fp32), normalize in
+    ``x``'s dtype, then ``* gamma + beta`` per channel."""
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    mean, var = _moments_acc(xg, tuple(range(2, xg.ndim)))
+    xg = (xg - mean.to(xg.dtype)) * torch.rsqrt(var + eps).to(xg.dtype)
+    bshape = (1, c) + (1,) * (x.ndim - 2)
+    return xg.reshape(x.shape) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
+def instance_norm(x, gamma, beta, eps=1e-3):
+    """ref: InstanceNorm — per sample and channel over the spatial axes."""
+    mean, var = _moments_acc(x, tuple(range(2, x.ndim)))
+    out = (x - mean.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+    bshape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
 
 
@@ -247,3 +337,74 @@ def embedding(indices, weight, input_dim=None, output_dim=None):
     return torch.where(inside.unsqueeze(-1), rows,
                        torch.full((), math.nan, dtype=rows.dtype,
                                   device=rows.device))
+
+
+_CTC_NEG = -1e30                     # the JAX op's "log 0"
+
+
+def _ctc_alpha(logp, ext, t_mask, s_len):
+    """The CTC forward (alpha) recursion in log space over time, as the
+    JAX op's ``lax.scan``: ``logp`` (T, N, C), ``ext`` (N, S) the
+    blank-interleaved labels (blank C - 1), ``t_mask`` (T, N) the valid
+    steps, ``s_len`` (N,) the valid extended length. Returns -log p."""
+    T, N, C = logp.shape
+    S = ext.shape[1]
+    neg = torch.full((), _CTC_NEG, dtype=logp.dtype, device=logp.device)
+    emit = torch.gather(logp, 2, ext.unsqueeze(0).expand(T, N, S))
+    can_skip = torch.cat([torch.zeros(N, 2, dtype=torch.bool,
+                                      device=ext.device),
+                          (ext[:, 2:] != ext[:, :-2]) & (ext[:, 2:] != C - 1)],
+                         dim=1)
+    alpha = torch.cat([emit[0, :, :1],
+                       torch.where(s_len[:, None] > 1, emit[0, :, 1:2], neg),
+                       neg.expand(N, S - 2)], dim=1)
+    for t in range(1, T):
+        shift1 = torch.cat([neg.expand(N, 1), alpha[:, :-1]], dim=1)
+        shift2 = torch.where(can_skip, torch.cat(
+            [neg.expand(N, 2), alpha[:, :-2]], dim=1), neg)
+        merged = torch.logaddexp(torch.logaddexp(alpha, shift1), shift2) \
+            + emit[t]
+        alpha = torch.where(t_mask[t][:, None], merged, alpha)
+    last = torch.gather(alpha, 1, (s_len - 1)[:, None])[:, 0]
+    last2 = torch.gather(alpha, 1, torch.clamp(s_len - 2, min=0)[:, None])[:, 0]
+    return -torch.logaddexp(last, torch.where(s_len > 1, last2, neg))
+
+
+def ctc_loss(data, labels, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="last"):
+    """ref: CTCLoss — -log p(label | data) per sample, as the JAX op.
+    ``data`` (T, N, C) are activations (log-softmax taken here),
+    ``labels`` (N, L). ``blank_label`` "last" makes class C - 1 the blank,
+    "first" class 0 (the classes and labels shift down by one). Without
+    ``label_lengths`` a label counts where it is >= 0 and not the blank
+    (padding at the end); without ``data_lengths`` every step counts.
+    With no labels (L = 0) the only path is all blanks. An impossible
+    alignment costs about 1e30, the JAX op's "log 0", not inf."""
+    T, N, C = data.shape
+    if use_data_lengths and data_lengths is None:
+        raise MXNetError("CTCLoss: use_data_lengths without data_lengths")
+    if use_label_lengths and label_lengths is None:
+        raise MXNetError("CTCLoss: use_label_lengths without label_lengths")
+    dev = data.device
+    t_len = torch.full((N,), T, dtype=torch.int64, device=dev) \
+        if data_lengths is None else data_lengths.to(dev).to(
+            torch.int32).long()
+    t_mask = torch.arange(T, device=dev)[:, None] < t_len[None, :]
+    logp = torch.log_softmax(data, dim=2)
+    if labels.shape[1] == 0:
+        blank0 = C - 1 if blank_label == "last" else 0
+        return -torch.sum(torch.where(t_mask, logp[:, :, blank0],
+                                      logp.new_zeros(())), dim=0)
+    labels = labels.to(dev).to(torch.int32).long()
+    if blank_label != "last":
+        logp = torch.cat([logp[:, :, 1:], logp[:, :, :1]], dim=2)
+        labels = labels - 1
+    if label_lengths is None:
+        label_len = torch.sum((labels >= 0) & (labels < C - 1), dim=1)
+    else:
+        label_len = label_lengths.to(dev).to(torch.int32).long()
+    L = labels.shape[1]
+    ext = torch.full((N, 2 * L + 1), C - 1, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = labels.clamp(0, C - 1)
+    return _ctc_alpha(logp, ext, t_mask, 2 * label_len + 1)

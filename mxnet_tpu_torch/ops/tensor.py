@@ -2,10 +2,14 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["broadcast_like", "expand_dims", "flatten", "gather_nd",
-           "log_softmax", "logsumexp", "pick", "shifted_expsum",
-           "slice_like", "squeeze", "stack"]
+from ..base import MXNetError
+
+__all__ = ["broadcast_like", "concat", "expand_dims", "flatten", "gather_nd",
+           "log_softmax", "logsumexp", "pad", "pick", "reshape",
+           "reshape_like", "shifted_expsum", "slice_axis", "slice_like",
+           "squeeze", "stack", "swapaxes"]
 
 
 def flatten(x):
@@ -96,3 +100,92 @@ def gather_nd(data, indices):
 def stack(*args, axis=0):
     """ref: stack."""
     return torch.stack(args, dim=axis)
+
+
+def concat(*args, dim=1, num_args=None):
+    """ref: Concat — join along ``dim``."""
+    return torch.cat(args, dim=dim)
+
+
+def swapaxes(x, dim1=0, dim2=0):
+    """ref: SwapAxis."""
+    return torch.swapaxes(x, dim1, dim2)
+
+
+def slice_axis(x, axis=0, begin=0, end=None):
+    """ref: slice_axis — ``x[begin:end]`` along ``axis``."""
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(begin, end)
+    return x[tuple(idx)]
+
+
+def reshape(x, shape=None, reverse=False):
+    """ref: Reshape with MXNet's special codes, as the JAX op reads them:
+    0 copies a dimension, -1 infers one, -2 copies the rest, -3 merges
+    two, -4 splits one into the next two numbers (either may be -1);
+    ``reverse`` reads both shapes from the right."""
+    src = list(x.shape)
+    shape = list(shape)
+    if reverse:
+        src, shape = src[::-1], shape[::-1]
+    out, i, j = [], 0, 0
+    while j < len(shape):
+        s = shape[j]
+        if s == 0:
+            out.append(src[i])
+            i += 1
+        elif s == -1:
+            out.append(-1)
+            i += 1
+        elif s == -2:
+            out.extend(src[i:])
+            i = len(src)
+        elif s == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif s == -4:
+            a, b = shape[j + 1], shape[j + 2]
+            if a == -1:
+                a = src[i] // b
+            if b == -1:
+                b = src[i] // a
+            out.extend([a, b])
+            i += 1
+            j += 2
+        else:
+            out.append(int(s))
+            i += 1
+        j += 1
+    if reverse:
+        out = out[::-1]
+    return torch.reshape(x, tuple(out))
+
+
+def reshape_like(lhs, rhs):
+    """ref: reshape_like — ``lhs`` in ``rhs``'s shape."""
+    return lhs.reshape(rhs.shape)
+
+
+_PAD_MODES = {"edge": "replicate", "reflect": "reflect"}
+
+
+def pad(x, mode="constant", pad_width=None, constant_value=0.0):
+    """ref: Pad — ``pad_width`` is MXNet's flat (before, after) pair per
+    axis. ``constant`` pads any axis; ``edge`` and ``reflect`` pad at most
+    the last three axes of a 2-D to 5-D input and none of its first two
+    (PyTorch's replicate and reflect modes), as MXNet's op requires."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(x.ndim)]
+    flat = [v for lo_hi in reversed(pw) for v in lo_hi]
+    if mode == "constant":
+        return F.pad(x, flat, value=constant_value)
+    if mode not in _PAD_MODES:
+        raise MXNetError(f"Pad: unknown mode {mode!r}")
+    padded = [i for i, p in enumerate(pw) if p != (0, 0)]
+    if not padded:
+        return x
+    if x.ndim not in (3, 4, 5) or padded[0] < 2:
+        raise MXNetError(f"Pad: mode {mode!r} pads the axes past the first "
+                         f"two of a 3-D to 5-D input; got pad_width "
+                         f"{tuple(pad_width)} for a {x.ndim}-D input")
+    return F.pad(x, flat[:2 * (x.ndim - 2)], mode=_PAD_MODES[mode])

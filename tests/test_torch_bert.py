@@ -231,8 +231,14 @@ def test_gelu_matches_jax():
         tops.leaky_relu(torch.from_numpy(x), act_type="gelu").numpy(),
         nd.LeakyReLU(nd.array(x), act_type="gelu").asnumpy(), rtol=1e-5,
         atol=1e-5)
-    with pytest.raises(MXNetError, match="not ported"):
-        tops.leaky_relu(torch.from_numpy(x), act_type="elu")
+    # the other modes are ported now (tests/test_torch_gluon_layers.py);
+    # an unknown one raises in both packages
+    np.testing.assert_allclose(
+        tops.leaky_relu(torch.from_numpy(x), act_type="elu").numpy(),
+        nd.LeakyReLU(nd.array(x), act_type="elu").asnumpy(), rtol=1e-5,
+        atol=1e-5)
+    with pytest.raises(MXNetError, match="unknown act_type"):
+        tops.leaky_relu(torch.from_numpy(x), act_type="swish")
 
 
 @pytest.mark.parametrize("causal", [False, True])

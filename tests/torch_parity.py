@@ -98,3 +98,152 @@ def bert_outputs(jnet, tnet, ids, token_types=None, masked_positions=None):
 
 def _as_list(out):
     return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def carry_block(jblock, tblock, inputs, seed=0, scale=None):
+    """The same seeded parameters in both blocks: the port's ``tblock``
+    infers its shapes on the numpy ``inputs`` with seeded Xavier weights
+    on the CPU; gamma and running variance take values in [0.5, 1.5),
+    beta and running mean normals times 0.1, PReLU's alpha values in [0,
+    0.5), and with ``scale`` every other parameter normals times
+    ``scale`` (else Xavier's stay). The arrays load into the JAX
+    ``jblock`` through ``load_dict`` (no JAX initializer, forward or
+    per-array conversion runs: the JAX package compiles each op and each
+    conversion once per shape) and into ``tblock`` through
+    ``load_jax_params``. Returns the arrays."""
+    tblock.initialize(tmx.init.Xavier(), ctx=tmx.cpu(),
+                      generator=tmx.random.generator(seed))
+    with torch.no_grad():
+        tblock(*[torch.from_numpy(a) for a in inputs])
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for name, t in sorted(tblock.collect_params().items()):
+        if name.endswith(("gamma", "running_var")):
+            value = rng.rand(*t.shape) + 0.5
+        elif name.endswith(("beta", "running_mean")):
+            value = rng.randn(*t.shape) * 0.1
+        elif name.endswith("alpha"):
+            value = rng.rand(*t.shape) * 0.5
+        elif scale is not None:
+            value = rng.randn(*t.shape) * scale
+        else:
+            value = t.detach().numpy()
+        arrays[name] = value.astype(np.float32)
+    import jax
+    jblock.load_dict({k: jmx.nd.NDArray(jax.device_put(v),
+                                        _skip_device_put=True)
+                      for k, v in arrays.items()}, ctx=jmx.cpu())
+    load_jax_params(tblock, arrays, ctx=tmx.cpu())
+    return arrays
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _jax_recorded(jblock, inputs, idx, seed):
+    """The JAX block's training-mode forward and its VJP from seeded head
+    gradients as one jitted program over ``functional_apply`` (one XLA
+    compile instead of one per op and per op's VJP). Returns (outputs,
+    heads, updated auxiliary arrays, parameter gradients, input
+    gradients) and the (trainable, aux) parameters."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu.gluon.block import functional_apply
+    from mxnet_tpu import autograd as jag
+    trainable, aux = jblock._param_split()
+    tr = [p.data()._data for p in trainable]
+    ax = [p.data()._data for p in aux]
+    xs = [None if a is None else jnp.asarray(a) for a in inputs]
+
+    def fwd(tr, dxs):
+        full = list(xs)
+        for i, d in zip(idx, dxs):
+            full[i] = d
+        if tr or ax:
+            outs, _, aux_new = functional_apply(
+                jblock, jax.random.key(0), tr, ax, full, training=True)
+            return outs, aux_new
+        with jag.pause(train_mode=True):     # a loss: inputs may be None
+            outs = jblock(*[None if d is None else jmx.nd.NDArray(
+                d, ctx=jmx.cpu(), _skip_device_put=True) for d in full])
+        return [o._data for o in _outputs(outs)], []
+
+    def run(tr, dxs, heads):
+        outs, vjp_fn, aux_new = jax.vjp(fwd, tr, dxs, has_aux=True)
+        g_tr, g_dx = vjp_fn(heads)
+        return outs, aux_new, g_tr, g_dx
+
+    dxs = [xs[i] for i in idx]
+    shapes = jax.eval_shape(lambda t, d: fwd(t, d)[0], tr, dxs)
+    rng = np.random.RandomState(seed)
+    heads = [rng.randn(*o.shape).astype(np.float32) for o in shapes]
+    return (heads, *jax.jit(run)(tr, dxs, [jnp.asarray(h) for h in heads])
+            ), trainable, aux
+
+
+def recorded_pair(jblock, tblock, inputs, seed=1, grad_inputs=None):
+    """Both blocks in training mode on the numpy ``inputs`` (those whose
+    index is in ``grad_inputs``, default all, get gradients), then
+    backward from seeded head gradients: the JAX block through
+    :func:`_jax_recorded`, the port's under ``autograd.record()``.
+    Returns two dicts (port, JAX) of numpy arrays: each output
+    ``out{i}``, each input gradient ``dx{i}``, each parameter's gradient
+    ``grad:{name}`` and each parameter and running statistic after the
+    pass ``{name}``."""
+    idx = list(range(len(inputs)) if grad_inputs is None else grad_inputs)
+    (heads, jouts, aux_new, g_tr, g_dx), trainable, aux = _jax_recorded(
+        jblock, inputs, idx, seed)
+    txs = [None if a is None else torch.from_numpy(a.copy())
+           for a in inputs]
+    for i in idx:
+        txs[i].requires_grad_()
+    with tmx.autograd.record():
+        touts = _outputs(tblock(*txs))
+    torch.autograd.backward(touts, [torch.from_numpy(h) for h in heads])
+    got = {f"out{i}": o.detach().numpy() for i, o in enumerate(touts)}
+    want = {f"out{i}": np.asarray(o) for i, o in enumerate(jouts)}
+    for k, i in enumerate(idx):
+        got[f"dx{i}"] = txs[i].grad.numpy()
+        want[f"dx{i}"] = np.asarray(g_dx[k])
+    names = {id(p): n for n, p in jblock._structural_names().items()}
+    tparams = tblock.collect_params()
+    for p, g in zip(trainable, g_tr):
+        name = names[id(p)]
+        got[name] = tparams[name].detach().numpy()
+        want[name] = p.data().asnumpy()
+        got[f"grad:{name}"] = tparams[name].grad.numpy()
+        want[f"grad:{name}"] = np.asarray(g)
+    for p, a in zip(aux, aux_new):
+        name = names[id(p)]
+        got[name] = tparams[name].detach().numpy()
+        want[name] = np.asarray(a)
+    return got, want
+
+
+def assert_close_of_max(got, want, rtol):
+    """Every array of ``want`` (a dict) matched by ``got``'s within
+    ``rtol`` of its max |value| (an all-zero array exactly)."""
+    assert sorted(got) == sorted(want)
+    for key in want:
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        assert g.shape == w.shape, key
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        np.testing.assert_allclose(g, w, rtol=0, atol=rtol * scale,
+                                   err_msg=key)
+
+
+def jitted_logits(jnet, tnet, x):
+    """Predict-mode outputs of both networks on the numpy batch ``x``, the
+    JAX network's forward as one jitted program over
+    ``functional_apply`` (one XLA compile instead of one per op)."""
+    import jax
+    from mxnet_tpu.gluon.block import functional_apply
+    trainable, aux = jnet._param_split()
+    run = jax.jit(lambda t, a, x: functional_apply(
+        jnet, jax.random.key(0), t, a, [x], training=False)[0][0])
+    want = np.asarray(run([p.data()._data for p in trainable],
+                          [p.data()._data for p in aux], x))
+    with torch.inference_mode():
+        got = tnet(torch.from_numpy(x)).numpy()
+    return got, want
