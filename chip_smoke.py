@@ -499,6 +499,30 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                max pool windows and every convolution's, BatchNorm's and
                K2's output replayed; 3 eager bf16 steps against 3 fp32
                ones on the same dropout bits (5%).
+28. nd      — mx.nd on the card. (a) every registered operator name (300)
+               through its mx.nd wrapper on cuda:0 against the same call
+               on the CPU, with the inputs and per-op tolerances of
+               tools/nd_op_cases.py (the CPU tests' table: exact, 1e-6 of
+               max |value|, 1e-5 relative, 1e-4 for the inverse and the
+               triangular solve), TF32 off; the samplers by their
+               moments on the card. The whole phase runs with cuDNN
+               deterministic. (b) at full width,
+               each output bit-equal to the port's ops call on the same
+               inputs and its kernel's launches counted:
+               nd.contrib.flash_attention at batch 4, 12 heads, S 4096,
+               D 64, fp32 and bf16, forward (K3 1) and backward under
+               record() (K3-bwd 1 + 1); nd.contrib.matmul_epilogue on
+               (1024, 3072) gelu with dropout 0.1 in training, the same
+               seeded bits (K2 1); nd.BatchNorm(act_type="relu") and
+               nd.contrib.conv_epilogue at (8, 64, 112, 112) (K1 1 each).
+               (c) full-width ResNet-50 v1 hybridized, called with an
+               nd.array batch of 8: NDArray logits bit-equal to the
+               tensor call, 48 K1 per forward. (d) examples/train_dcgan.py
+               (200 steps) and train_vae.py (400 steps) at their defaults
+               with the port's mx, hybridized (CUDA graphs): the gates of
+               tests/test_examples.py (L1 < 0.12 and both losses > 0.05;
+               rec < 0.05, 0.5 < KL < 100, prior L1 < 0.1) and ms per
+               step.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
@@ -508,7 +532,8 @@ step; phase 19 per burst; phase 20 per burst, in a worker from its
 stats frames; phase 21 over the decode streams and the BERT burst
 beside them; phase 22 per burst and per mode; phase 23 over the fleet
 burst; phase 24 over the good deploy's traffic; phase 26 per model's
-burst; phase 27 per network before its graphed steps). A graph's replay
+burst; phase 27 per network before its graphed steps; phase 28 per mx.nd
+call). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -6802,7 +6827,7 @@ def ly_examples(torch, mx, ctx):
     turns a gradient near eps's size into a step that two devices'
     rounding of g moves by a share of lr)."""
     import numpy as np
-    nn, F = mx.gluon.nn, mx.ops.namespace
+    nn, F = mx.gluon.nn, mx.nd
     rng = np.random.RandomState(SEED + 27)
     batch, nz = 32, 16
 
@@ -7275,6 +7300,413 @@ def phase_train_zoo(torch, mx, card, ctx):
     return out
 
 
+# -- phase 28: nd ------------------------------------------------------------
+ND_SEQ = 4096                        # (b): BERT-base's long-context rung
+ND_FFN = (1024, 3072)                # (b): BERT-base's ffn_1 output rows
+ND_STAGE = (8, 64, 112, 112)         # (b): ResNet-50's first stage, batch 8
+ND_DCGAN_STEPS = 200                 # examples/train_dcgan.py's default
+ND_VAE_STEPS = 400                   # examples/train_vae.py's default
+ND_EX_BATCH = 32                     # both examples' default batch
+
+
+def nd_ops_card_vs_cpu(torch, mx, ctx):
+    """(a) Every registered operator through its ``mx.nd`` wrapper on
+    ``ctx`` against the same call on the CPU, the inputs and tolerances
+    of tools/nd_op_cases.py (the CPU tests' table), TF32 off; the
+    samplers by their moments on the card (the thresholds of
+    tests/test_random_samplers.py)."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import registry
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import nd_op_cases as cases
+    nd = mx.nd
+    worst, n_ops = {}, 0
+    training = {"BatchNorm", "_contrib_BatchNormWithReLU"}
+    for name in registry.list_ops():
+        p = registry.get(name).name
+        if p in cases.RANDOM:
+            continue
+        make, params, tol = cases.spec(p)
+        inputs = make(cases.rng_for(p))
+        outs = []
+        for dev in (ctx, mx.cpu()):
+            arrays = [nd.array(a, ctx=dev) for a in inputs]
+            scope = mx.autograd.train_mode() if p in training \
+                else contextlib.nullcontext()
+            with scope:
+                out = cases.nd_fn(nd, name)(*arrays, **params)
+            out = out if isinstance(out, list) else [out]
+            if dev is ctx and any(o.ctx != ctx for o in out):
+                fail(f"nd: {name} left {ctx}")
+            outs.append([o.asnumpy() if o.dtype != torch.bfloat16 else
+                         ("bfloat16", o.asnumpy()) for o in out])
+        for g, w in zip(*outs):
+            if isinstance(g, tuple):
+                g, w = g[1], w[1]
+            try:
+                cases.check(g, w, tol, name)
+            except AssertionError as e:
+                fail(f"nd: {name} on the card vs the CPU, tolerance "
+                     f"{tol}: {str(e)[:400]}")
+            if g.size and g.dtype.kind == "f":
+                scale = max(float(np.nanmax(np.abs(w))), 1e-30)
+                err = float(np.nanmax(np.abs(g.astype(np.float64) - w)))
+                key = str(tol)
+                worst[key] = max(worst.get(key, 0.0), err / scale)
+        n_ops += 1
+    moments = {}
+    mx.random.seed(SEED)
+    for name in sorted(cases.SAMPLER_MOMENTS):
+        x = cases.draw_sampler(nd, name, ctx)
+        if x.ctx != ctx:
+            fail(f"nd: sampler {name} drew on {x.ctx}")
+        ok, mean, var = cases.moments_ok(name, x.asnumpy())
+        if not ok:
+            fail(f"nd: sampler {name} on the card: mean {mean}, var {var} "
+                 f"outside its thresholds")
+        moments[name] = (mean, var)
+    alpha = nd.array(np.float32([[1, 2, 3]]), ctx=ctx)
+    d = nd.random.sample_dirichlet(alpha, shape=(500,)).asnumpy()
+    if d.shape != (1, 500, 3) or not np.allclose(d.sum(-1), 1, atol=1e-5):
+        fail("nd: sample_dirichlet on the card")
+    perm = nd.random.shuffle(nd.arange(64, ctx=ctx)).asnumpy()
+    if sorted(perm.tolist()) != list(range(64)):
+        fail("nd: shuffle on the card is not a permutation")
+    log(f"nd (a): {n_ops} operator names on {ctx} vs the CPU, every one "
+        f"within its tolerance; worst share of max |value| per class "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+        + f"; {len(moments)} samplers' moments on the card within their "
+        "thresholds, dirichlet and shuffle supported")
+    return {"ops": n_ops, "worst": worst, "moments": moments}
+
+
+def _nd_counted(torch, mx, fn):
+    """(fn(), launch counts of the kernels during it)."""
+    _sync(torch)
+    mx.kernels.reset_launch_counts()
+    out = fn()
+    _sync(torch)
+    return out, {k: v for k, v in mx.kernels.launch_counts().items() if v}
+
+
+def nd_kernels_full_width(torch, mx, ctx):
+    """(b) The kernel-bearing operators through ``mx.nd`` at full width,
+    each output bit-equal to the port's ``ops`` call on the same inputs,
+    with its kernel's launches: flash_attention at BERT-base S 4096 (fp32
+    and bf16, forward and the backward under record()),
+    matmul_epilogue on ffn_1's output with dropout 0.1 (training, the
+    same seeded bits), BatchNorm(act_type="relu") and conv_epilogue at
+    ResNet-50's first stage."""
+    nd, ops = mx.nd, mx.ops
+    dev = ctx.torch_device
+    gen = mx.random.generator(SEED + 28, dev)
+    launches = {}
+
+    def equal(what, a, b):
+        a = a.handle if isinstance(a, nd.NDArray) else a
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"nd (b): {what} through mx.nd differs from the ops call")
+
+    def want(what, got, counts):
+        if got != counts:
+            fail(f"nd (b): {what} launched {got}, want {counts}")
+        launches[what] = got
+
+    b, h, s, d = LONG_BATCH, LONG_HEADS, ND_SEQ, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen)
+                   .to(dtype) for _ in range(3))
+        head = torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
+        got, c = _nd_counted(torch, mx, lambda: nd.contrib.flash_attention(
+            nd.NDArray(q), nd.NDArray(k), nd.NDArray(v)))
+        want(f"flash_attention {name}", c, {"flash_attention": 1})
+        equal(f"flash_attention {name}", got,
+              ops.contrib.flash_attention(q, k, v))
+        arrays = [nd.NDArray(t.clone()) for t in (q, k, v)]
+        for a in arrays:
+            a.attach_grad()
+
+        def nd_backward():
+            with mx.autograd.record():
+                out = nd.contrib.flash_attention(*arrays)
+            out.backward(nd.NDArray(head))
+        _, c = _nd_counted(torch, mx, nd_backward)
+        want(f"flash_attention {name} forward+backward", c,
+             {"flash_attention": 1, "flash_attention_bwd_dkv": 1,
+              "flash_attention_bwd_dq": 1})
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.autograd.backward(ops.contrib.flash_attention(*leaves), head)
+        for a, t, g in zip(arrays, leaves, "qkv"):
+            equal(f"flash_attention {name} d{g}", a.grad, t.grad)
+        del q, k, v, head, arrays, leaves
+    y = torch.randn(*ND_FFN, device=dev, generator=gen)
+    bias = torch.randn(ND_FFN[1], device=dev, generator=gen)
+
+    def k2_nd():
+        mx.random.seed(SEED + 29)
+        with mx.autograd.train_mode():
+            return nd.contrib.matmul_epilogue(nd.NDArray(y), nd.NDArray(bias),
+                                              act_type="gelu", p=0.1)
+    got, c = _nd_counted(torch, mx, k2_nd)
+    want("matmul_epilogue", c, {"matmul_epilogue": 1})
+    mx.random.seed(SEED + 29)
+    ref = ops.contrib.matmul_epilogue(y, bias, act_type="gelu", p=0.1,
+                                      training=True)
+    equal("matmul_epilogue (dropout 0.1, the same seeded bits)", got, ref)
+    kept = float((ref != 0).float().mean())
+    x = torch.randn(*ND_STAGE, device=dev, generator=gen)
+    res = torch.randn(*ND_STAGE, device=dev, generator=gen)
+    c_ = ND_STAGE[1]
+    gamma, beta = (torch.rand(c_, device=dev, generator=gen) + 0.5,
+                   torch.randn(c_, device=dev, generator=gen))
+    mean, var = (torch.randn(c_, device=dev, generator=gen) * 0.1,
+                 torch.rand(c_, device=dev, generator=gen) + 0.5)
+    got, c = _nd_counted(torch, mx, lambda: nd.BatchNorm(
+        *[nd.NDArray(t) for t in (x, gamma, beta, mean, var)],
+        fix_gamma=False, act_type="relu"))
+    want("BatchNorm(act_type=relu)", c, {"conv_epilogue": 1})
+    equal("BatchNorm(act_type=relu)", got[0], ops.nn.batch_norm(
+        x, gamma, beta, mean, var, fix_gamma=False, act_type="relu")[0])
+    got, c = _nd_counted(torch, mx, lambda: nd.contrib.conv_epilogue(
+        nd.NDArray(x), nd.NDArray(res), act_type="relu"))
+    want("conv_epilogue", c, {"conv_epilogue": 1})
+    equal("conv_epilogue", got, ops.contrib.conv_epilogue(x, res))
+    log(f"nd (b): flash_attention at batch {b}, {h} heads, S {s}, D {d} "
+        f"(fp32, bf16; forward, and backward under record()), "
+        f"matmul_epilogue on {ND_FFN} gelu with dropout 0.1 (kept "
+        f"{kept:.4f}), BatchNorm(act_type=relu) and conv_epilogue at "
+        f"{ND_STAGE}: every output bit-equal to the ops call; launches "
+        + "; ".join(f"{k}: {v}" for k, v in launches.items()))
+    return launches
+
+
+def nd_serve_resnet(torch, mx, ctx):
+    """(c) Full-width ResNet-50 v1 hybridized, called with an nd.array
+    batch of 8: an NDArray of logits bit-equal to the tensor call (the
+    same captured graph), 48 K1 launches per forward."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=mx.random.generator(SEED))
+    net.hybridize()
+    x = np.random.RandomState(SEED + 28).randn(BATCH, 3, 224, 224).astype(
+        np.float32)
+    tensor_out = net(torch.from_numpy(x).to(ctx.torch_device))   # captures
+    got, c = _nd_counted(torch, mx, lambda: net(mx.nd.array(x, ctx=ctx)))
+    if not isinstance(got, mx.nd.NDArray) or got.shape != (BATCH, 1000):
+        fail(f"nd (c): the hybridized ResNet-50 returned {type(got)}")
+    if not torch.equal(got.handle, tensor_out):
+        fail("nd (c): the NDArray call's logits differ from the tensor "
+             "call's")
+    if c != {"conv_epilogue": 48}:
+        fail(f"nd (c): {c} launches per forward, want 48 conv_epilogue")
+    log(f"nd (c): hybridized ResNet-50 v1 on an nd.array batch of {BATCH}: "
+        f"logits bit-equal to the tensor call, launches {c}")
+    return c
+
+
+def real_batch(rng, n, size=16):
+    """examples/train_dcgan.py's data: soft blobs at random positions in
+    [-1, 1) (that file imports the JAX package, so it is copied here)."""
+    import numpy as np
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    cx = rng.uniform(4, size - 4, (n, 1, 1))
+    cy = rng.uniform(4, size - 4, (n, 1, 1))
+    r2 = (xx[None] - cx) ** 2 + (yy[None] - cy) ** 2
+    img = np.exp(-r2 / 8.0) * 2.0 - 1.0
+    return img[:, None].astype(np.float32)
+
+
+def nd_example_blocks(mx):
+    """The blocks of examples/train_dcgan.py and train_vae.py with the
+    port's gluon (the VAE's ``hybrid_forward(F, ...)`` as ``forward``
+    with ``F = mx.nd``)."""
+    nn, F = mx.gluon.nn, mx.nd
+
+    def generator(ngf=16):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(ngf * 2 * 4 * 4, use_bias=False),
+                nn.HybridLambda(lambda F, x: F.reshape(x, (-1, 32, 4, 4))),
+                nn.Conv2DTranspose(ngf, 4, strides=2, padding=1,
+                                   use_bias=False),
+                nn.Activation("relu"),
+                nn.Conv2DTranspose(1, 4, strides=2, padding=1,
+                                   use_bias=False),
+                nn.Activation("tanh"))
+        return net
+
+    def discriminator(ndf=16):
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(ndf, 4, strides=2, padding=1), nn.LeakyReLU(0.2),
+                nn.Conv2D(ndf * 2, 4, strides=2, padding=1),
+                nn.LeakyReLU(0.2), nn.Dense(1))
+        return net
+
+    class VAE(mx.gluon.HybridBlock):
+        def __init__(self, nz=8, nf=16):
+            super().__init__()
+            self._nz = nz
+            self.enc = nn.HybridSequential()
+            self.enc.add(nn.Conv2D(nf, 4, strides=2, padding=1),
+                         nn.Activation("relu"),
+                         nn.Conv2D(nf * 2, 4, strides=2, padding=1),
+                         nn.Activation("relu"), nn.Dense(2 * nz))
+            self.dec = nn.HybridSequential()
+            self.dec.add(nn.Dense(nf * 2 * 4 * 4, activation="relu"),
+                         nn.HybridLambda(
+                             lambda F, x: F.reshape(x, (-1, nf * 2, 4, 4))),
+                         nn.Conv2DTranspose(nf, 4, strides=2, padding=1),
+                         nn.Activation("relu"),
+                         nn.Conv2DTranspose(1, 4, strides=2, padding=1),
+                         nn.Activation("tanh"))
+
+        def forward(self, x, eps):
+            h = self.enc(x)
+            mu = F.slice_axis(h, axis=1, begin=0, end=self._nz)
+            logvar = F.slice_axis(h, axis=1, begin=self._nz,
+                                  end=2 * self._nz)
+            z = mu + F.exp(0.5 * logvar) * eps
+            return self.dec(z), mu, logvar
+
+    return generator, discriminator, VAE
+
+
+def nd_dcgan(torch, mx, steps=ND_DCGAN_STEPS, batch=ND_EX_BATCH, nz=16,
+             lr=2e-3):
+    """examples/train_dcgan.py's main() with the port's mx, on the
+    current context: its gate (pixel-mean-map L1 < 0.12, both losses
+    > 0.05, tests/test_examples.py) and its ms per step."""
+    import numpy as np
+    autograd, gluon = mx.autograd, mx.gluon
+    generator, discriminator, _ = nd_example_blocks(mx)
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    gen, dis = generator(), discriminator()
+    gen.initialize(mx.init.Normal(0.05))
+    dis.initialize(mx.init.Normal(0.05))
+    gen.hybridize()
+    dis.hybridize()
+    gt = gluon.Trainer(gen.collect_params(), "adam",
+                       {"learning_rate": lr, "beta1": 0.5})
+    dt = gluon.Trainer(dis.collect_params(), "adam",
+                       {"learning_rate": lr, "beta1": 0.5})
+    bce = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    ones = mx.nd.ones((batch,))
+    zeros = mx.nd.zeros((batch,))
+    last = {}
+
+    def step():
+        real = mx.nd.array(real_batch(rng, batch))
+        z = mx.nd.array(rng.randn(batch, nz).astype(np.float32))
+        fake = gen(z).detach()
+        with autograd.record():
+            d_loss = (bce(dis(real).reshape(-1), ones)
+                      + bce(dis(fake).reshape(-1), zeros)).mean()
+        d_loss.backward()
+        dt.step(batch)
+        with autograd.record():
+            g_loss = bce(dis(gen(z)).reshape(-1), ones).mean()
+        g_loss.backward()
+        gt.step(batch)
+        last.update(g=float(g_loss.asscalar()), d=float(d_loss.asscalar()))
+
+    ms, prof = nd_timed_steps(torch, step, steps, "DCGAN step (D and G)")
+    z = mx.nd.array(rng.randn(256, nz).astype(np.float32))
+    fake_mean = gen(z).asnumpy().mean(axis=0)[0]
+    real_mean = real_batch(rng, 256).mean(axis=0)[0]
+    err = float(np.abs(fake_mean - real_mean).mean())
+    return {"mean_map_l1": err, "d_loss": last["d"], "g_loss": last["g"],
+            "ms_per_step": ms, "profile": prof,
+            "captures": gen._graphs.captures + dis._graphs.captures}
+
+
+def nd_timed_steps(torch, step, steps, what):
+    """Run ``steps`` calls of ``step`` (each ends in a host read of its
+    losses), the last one profiled: (median ms of the others, the
+    profile of the last; the first calls capture the graphs)."""
+    times = []
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = _median(times)
+    return ms, sh_profile(torch, step, ms, what)
+
+
+def nd_vae(torch, mx, steps=ND_VAE_STEPS, batch=ND_EX_BATCH, nz=8, lr=2e-3,
+           kl_weight=5e-3):
+    """examples/train_vae.py's main() with the port's mx, on the current
+    context: its gate (rec < 0.05, 0.5 < KL < 100, prior-sample L1 <
+    0.1, tests/test_examples.py) and its ms per step."""
+    import numpy as np
+    autograd, gluon = mx.autograd, mx.gluon
+    _, _, VAE = nd_example_blocks(mx)
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    net = VAE(nz=nz)
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": lr})
+    last = {}
+
+    def step():
+        x = mx.nd.array(real_batch(rng, batch))
+        eps = mx.nd.array(rng.randn(batch, nz).astype(np.float32))
+        with autograd.record():
+            xh, mu, logvar = net(x, eps)
+            rec_l = ((xh - x) ** 2).mean()
+            kl_l = (-0.5 * (1 + logvar - mu * mu -
+                            mx.nd.exp(logvar))).sum(axis=1).mean()
+            loss = rec_l + kl_weight * kl_l
+        loss.backward()
+        trainer.step(batch)
+        last.update(rec=float(rec_l.asscalar()), kl=float(kl_l.asscalar()))
+
+    ms, prof = nd_timed_steps(torch, step, steps, "VAE step")
+    z = mx.nd.array(rng.randn(256, nz).astype(np.float32))
+    gen = net.dec(z).asnumpy().mean(axis=0)[0]
+    real_mean = real_batch(rng, 256).mean(axis=0)[0]
+    l1 = float(np.abs(gen - real_mean).mean())
+    return {"rec": last["rec"], "kl": last["kl"], "prior_l1": l1,
+            "ms_per_step": ms, "profile": prof}
+
+
+def phase_nd(torch, mx, card, ctx):
+    """Phase 28: mx.nd on the card, (a)-(d), cuDNN deterministic (the
+    examples' runs repeat bit for bit on one card and software)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops = nd_ops_card_vs_cpu(torch, mx, ctx)
+        kern = nd_kernels_full_width(torch, mx, ctx)
+        resnet = nd_serve_resnet(torch, mx, ctx)
+        with ctx:
+            dcgan = nd_dcgan(torch, mx)
+            vae = nd_vae(torch, mx)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    if not (dcgan["mean_map_l1"] < 0.12 and dcgan["d_loss"] > 0.05
+            and dcgan["g_loss"] > 0.05):
+        fail(f"nd (d): train_dcgan's gate missed: {dcgan}")
+    if not (vae["rec"] < 0.05 and 0.5 < vae["kl"] < 100
+            and vae["prior_l1"] < 0.1):
+        fail(f"nd (d): train_vae's gate missed: {vae}")
+    log(f"nd (d): examples/train_dcgan.py ({ND_DCGAN_STEPS} steps, batch "
+        f"{ND_EX_BATCH}, hybridized): pixel-mean-map L1 "
+        f"{dcgan['mean_map_l1']:.4f} (< 0.12), d_loss {dcgan['d_loss']:.3f},"
+        f" g_loss {dcgan['g_loss']:.3f} (> 0.05), median "
+        f"{dcgan['ms_per_step']:.3f} ms per step (D and G), "
+        f"{dcgan['captures']} captures; examples/train_vae.py "
+        f"({ND_VAE_STEPS} steps): rec {vae['rec']:.4f} (< 0.05), kl "
+        f"{vae['kl']:.2f} (0.5-100), prior-sample L1 {vae['prior_l1']:.4f} "
+        f"(< 0.1), median {vae['ms_per_step']:.3f} ms per step; {card}")
+    return {"ops": ops, "kernels": kern, "resnet": resnet, "dcgan": dcgan,
+            "vae": vae}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
         fail(f"no mxnet_tpu_torch package beside {__file__}: run from the "
@@ -7334,6 +7766,7 @@ def main():
     run("layers", lambda: phase_layers(torch, mx, card, mx.gpu(0)))
     run("serve-zoo", lambda: phase_serve_zoo(torch, mx, card, mx.gpu(0)))
     run("train-zoo", lambda: phase_train_zoo(torch, mx, card, mx.gpu(0)))
+    run("nd", lambda: phase_nd(torch, mx, card, mx.gpu(0)))
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
@@ -7348,6 +7781,20 @@ def main():
     pl, dc = out["serve-pool"], out["serve-decode"]
     tr, fl, dp = out["trace"], out["serve-fleet"], out["serve-deploy"]
     sz, tz = out["serve-zoo"], out["train-zoo"]
+    ndk = out["nd"]
+
+    def nd_launches(kernel):
+        """The kernel's launches through mx.nd in phase 28: per call of
+        (b), and per forward of (c)'s hybridized ResNet-50 on an
+        nd.array."""
+        calls = {what: c[kernel] for what, c in ndk["kernels"].items()
+                 if kernel in c}
+        if kernel in ndk["resnet"]:
+            calls["hybridized ResNet-50 v1, nd.array batch 8, per "
+                  "forward"] = ndk["resnet"][kernel]
+        return {"nd_launches": calls,
+                "nd_per": "phase 28: one mx.nd call of each (b) case at "
+                          "full width, bit-equal to the ops call"}
 
     def remat(kernel):
         """The kernel's launches per graphed step of (c) under each remat
@@ -7491,7 +7938,8 @@ def main():
         "train_remat_per": "the capturing graphed step of (a), ResNet-50 "
                            f"v1 at batch {SH_RN_BATCH}, bf16, under None "
                            "and remat=\"dots\" (its 2 eager warm-up passes "
-                           "and the capture's replay)"}, {
+                           "and the capture's replay)",
+        **nd_launches("conv_epilogue")}, {
         "name": "matmul_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/matmul_epilogue.cu",
         "replaces": "mxnet_tpu/pallas/kernels.py:285",
@@ -7574,7 +8022,8 @@ def main():
                           "replays on both); worker: the subprocess mlp "
                           "replicas' burst A, 1 per batch forward, read "
                           "from their stats frames; decode: the BERT "
-                          "burst beside 64 TinyLM streams"}, {
+                          "burst beside 64 TinyLM streams",
+        **nd_launches("matmul_epilogue")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "
@@ -7596,7 +8045,7 @@ def main():
         **graphed_train(train, "flash_attention"),
         **k3_half_rows(),
         **sharded("flash_attention", ("c",)),
-        **remat("flash_attention")}, {
+        **remat("flash_attention"), **nd_launches("flash_attention")}, {
         "name": "flash_attention_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1121 (_flash_attention_bwd_dkv) via "
@@ -7611,7 +8060,8 @@ def main():
         **graphed_train(train, "flash_attention_bwd_dkv"),
         **half_rows("dkv"),
         **sharded("flash_attention_bwd_dkv", ("c",)),
-        **remat("flash_attention_bwd_dkv")}, {
+        **remat("flash_attention_bwd_dkv"),
+        **nd_launches("flash_attention_bwd_dkv")}, {
         "name": "flash_attention_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1456 (_flash_attention_bwd_dq) via "
@@ -7626,7 +8076,8 @@ def main():
         **graphed_train(train, "flash_attention_bwd_dq"),
         **half_rows("dq"),
         **sharded("flash_attention_bwd_dq", ("c",)),
-        **remat("flash_attention_bwd_dq")}]}
+        **remat("flash_attention_bwd_dq"),
+        **nd_launches("flash_attention_bwd_dq")}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

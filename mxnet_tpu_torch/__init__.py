@@ -2,7 +2,8 @@
 
 The MXNet 1.x surface of the JAX package, re-built on PyTorch for NVIDIA
 Hopper cards: Gluon blocks are ``torch.nn.Module`` objects, operators are
-plain functions on tensors, and every kernel the JAX package wrote in
+plain functions on tensors registered under their MXNet names (``mx.nd``
+wraps them for NDArrays and tensors), and every kernel the JAX package wrote in
 Pallas for the TPU is a kernel written by hand in CUDA C++ (``kernels/``).
 Entry points run on ``cuda:0`` unless the caller asks for the CPU
 (``ctx=mx.cpu()``); without a card they raise rather than carry on.
@@ -12,10 +13,10 @@ This package imports ``torch`` and numpy, never ``jax`` and nothing of
 """
 from __future__ import annotations
 
-from . import (autograd, contrib, convert, diagnostics, gluon, guardrails,
-               initializer, kernels, lr_scheduler, metric, metric_det,
-               ndarray, observability, ops, optimizer, parallel, random,
-               resilience, serving)
+from . import (autograd, contrib, convert, diagnostics, engine, gluon,
+               guardrails, initializer, kernels, lr_scheduler, metric,
+               metric_det, ndarray, observability, ops, optimizer, parallel,
+               random, resilience, serving)
 from . import callback
 from . import elastic           # after parallel, whose files it reads
 from .base import MXNetError
@@ -29,7 +30,8 @@ metric.VOC07MApMetric = metric_det.VOC07MApMetric
 
 __all__ = ["Context", "MXNetError", "autograd", "callback", "contrib",
            "convert", "cpu", "current_context", "diagnostics", "elastic",
-           "gluon", "gpu", "guardrails", "init", "initializer", "kernels",
+           "engine", "gluon", "gpu", "guardrails", "init", "initializer",
+           "kernels",
            "lr_scheduler", "metric", "metric_det", "nd", "ndarray",
            "observability", "ops", "optimizer", "parallel", "random",
            "resilience", "serving"]

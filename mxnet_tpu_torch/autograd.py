@@ -152,19 +152,28 @@ def _leaves(heads):
     return out
 
 
-def backward(heads, head_grads=None, retain_graph=False):
-    """Gradients of ``heads`` (a tensor or a list) into the ``.grad`` of
-    every leaf they were computed from (ref: autograd.backward). A head
+def _tensor(x):
+    """An NDArray head (or head gradient) as its tensor."""
+    return getattr(x, "_data", x)
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` (a tensor or an NDArray, or a list) into
+    the ``.grad`` of every leaf they were computed from (ref:
+    autograd.backward). A head
     without a head gradient gets ones of its shape. ``grad_req`` (an
     attribute of the leaf, ``"write"`` unless set) decides whether the
-    leaf's gradient is replaced or added to."""
-    if isinstance(heads, torch.Tensor):
+    leaf's gradient is replaced or added to. ``train_mode`` is accepted
+    (ref: autograd.backward); the recorded ops already ran in their
+    mode."""
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
-        if isinstance(head_grads, torch.Tensor):
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
             head_grads = [head_grads]
-    heads = list(heads)
+    heads = [_tensor(h) for h in heads]
     head_grads = [None] * len(heads) if head_grads is None \
-        else list(head_grads)
+        else [None if g is None else _tensor(g) for g in head_grads]
     pairs = [(h, torch.ones_like(h) if g is None else g)
              for h, g in zip(heads, head_grads) if h.requires_grad]
     if not pairs:

@@ -12,8 +12,10 @@ in fp32), and fp16 keeps the reference's :class:`DynamicLossScaler`
 the gradients with one fused reduction and one host read per step in
 fp16, and not at all in bf16.
 
-The per-op cast policy of ``init`` with op lists needs the op registry,
-which the port does not have yet: ``init`` with op lists raises.
+The per-op cast policy of ``init`` with op lists (a cast hook on the op
+registry's dispatch, ``_dispatch.set_amp_cast_hook``, with the
+reference's fp16/bf16 op lists) is not ported yet: ``init`` with op
+lists raises.
 """
 from __future__ import annotations
 
@@ -31,16 +33,18 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
          conditional_fp32_ops=None, fp32_ops=None):
     """ref: amp.init — enable mixed precision process-wide at
     ``target_dtype`` ("bfloat16" or "float16"). Op lists (a per-op cast
-    policy) raise: they need the op registry, ROADMAP Queue 1 item 6."""
+    policy) raise: the policy over the registry's dispatch is ROADMAP
+    Queue 1 item 6's rest."""
     name = dtype_name(target_dtype)
     if name not in ("float16", "bfloat16"):
         raise MXNetError("AMP target_dtype must be float16 or bfloat16 "
                          "(bfloat16 recommended)")
     if target_precision_ops or conditional_fp32_ops or fp32_ops:
-        raise MXNetError("amp.init with op lists (a per-op cast policy) "
-                         "needs the op registry, which is not ported yet "
-                         "(ROADMAP Queue 1 item 6); call amp.init("
-                         f"{name!r}) for the cast at the step boundary")
+        raise MXNetError("amp.init with op lists (a per-op cast policy "
+                         "over the op registry's dispatch) is not ported "
+                         "yet (ROADMAP Queue 1 item 6's rest); call "
+                         f"amp.init({name!r}) for the cast at the step "
+                         "boundary")
     _state.update(initialized=True, dtype=name)
 
 

@@ -94,7 +94,7 @@ def read_global_entries(fname):
             raise MXNetError(
                 f"reshard: per-shard checkpoint incomplete: {path} "
                 f"missing (meta says {n_files} shard files)")
-        loaded = nd.load(path)
+        loaded = nd._load_tensors(path)
         if not isinstance(loaded, dict):
             continue             # an empty shard container loads as a list
         for key, arr in loaded.items():

@@ -55,12 +55,57 @@ class ParameterDict(OrderedDict):
             setattr(t, name, value)
 
 
+def _has_ndarray(values):
+    for v in values:
+        if isinstance(v, nd.NDArray) or (isinstance(v, (tuple, list))
+                                         and _has_ndarray(v)):
+            return True
+    return False
+
+
+def _unwrap(v):
+    """NDArrays (also inside tuples and lists) as their tensors."""
+    if isinstance(v, nd.NDArray):
+        return v._data
+    if isinstance(v, (tuple, list)):
+        return type(v)(_unwrap(x) for x in v)
+    return v
+
+
+def _wrap(v):
+    """Tensors (also inside tuples and lists) as NDArrays."""
+    if isinstance(v, torch.Tensor):
+        return nd.NDArray(v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_wrap(x) for x in v)
+    return v
+
+
 class Block(nn.Module):
-    """Base class of all layers and models (ref: gluon/block.py Block)."""
+    """Base class of all layers and models (ref: gluon/block.py Block).
+
+    Called with NDArrays (``mx.nd``), a block unwraps them (also inside
+    tuples and lists) to their tensors, runs with recording as
+    ``autograd.is_recording()`` says, and wraps its tensor outputs as
+    NDArrays; called with tensors it runs and returns tensors as ever.
+    NDArrays that ``forward`` returns (an ``mx.nd`` sampler's) come back
+    as tensors to a tensor caller and to a graph capture."""
 
     def __init__(self):
         super().__init__()
         self.training = False          # Gluon's default: predict mode
+
+    def __call__(self, *args, **kwargs):
+        if _has_ndarray(args) or _has_ndarray(kwargs.values()):
+            args = _unwrap(args)
+            kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+            with torch.set_grad_enabled(_autograd.is_recording()):
+                return _wrap(self._call(*args, **kwargs))
+        out = self._call(*args, **kwargs)
+        return out if isinstance(out, torch.Tensor) else _unwrap(out)
+
+    def _call(self, *args, **kwargs):
+        return super().__call__(*args, **kwargs)
 
     @property
     def training(self):
@@ -177,7 +222,7 @@ class Block(nn.Module):
                         ignore_extra=False):
         """Load a ``.params`` file of either package (``nd.load``) through
         :meth:`load_dict`."""
-        loaded = nd.load(filename)
+        loaded = nd._load_tensors(filename)
         if not isinstance(loaded, dict):
             raise MXNetError(f"{filename} is not a parameter dict file")
         return self.load_dict(loaded, ctx=ctx, allow_missing=allow_missing,
@@ -239,11 +284,11 @@ class HybridBlock(Block):
             child.hybridize(active, static_alloc=static_alloc,
                             static_shape=static_shape)
 
-    def __call__(self, *args, **kwargs):
+    def _call(self, *args, **kwargs):
         """ref: HybridBlock.__call__ — the cached program when hybridized
         and no outer program is being captured on this thread, else the
         eager forward."""
         graphs = self.__dict__.get("_graphs")
         if graphs is None or in_capture():
-            return super().__call__(*args, **kwargs)
+            return nn.Module.__call__(self, *args, **kwargs)
         return graphs.call(self, args, kwargs)

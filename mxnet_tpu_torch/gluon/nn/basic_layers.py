@@ -14,7 +14,6 @@ from ... import autograd as _autograd
 from ... import initializer as _initializer
 from ...base import MXNetError
 from ...ops import contrib as _contrib
-from ...ops import namespace as _F
 from ...ops import nn as _nn
 from ...ops import tensor as _tensor
 from ..block import Block, HybridBlock
@@ -323,18 +322,23 @@ class Embedding(DeferredParams, HybridBlock):
         return f"{self._input_dim} -> {self._output_dim}"
 
 
+def _nd():
+    from ... import ndarray
+    return ndarray
+
+
 def _namespace_function(name):
-    if name not in _F.__all__:
-        raise MXNetError(f"{name!r} is not in the port's operator namespace "
-                         "yet: NDArray and the operator registry are ROADMAP "
-                         "Queue 1 item 6")
-    return getattr(_F, name)
+    """The function ``name`` of ``mx.nd``; a name the port has not ported
+    yet raises naming its ROADMAP item."""
+    try:
+        return getattr(_nd(), name)
+    except AttributeError:
+        raise MXNetError(f"{name!r} is not an operator of mx.nd") from None
 
 
 class Lambda(Block):
     """Wrap a function as a Block (ref: nn.Lambda). A string names a
-    function of the operator namespace :mod:`ops.namespace` (the JAX
-    package looks it up in ``mx.nd``)."""
+    function of ``mx.nd``, as in the JAX package."""
 
     def __init__(self, function, prefix=None):
         super().__init__()
@@ -353,9 +357,9 @@ class Lambda(Block):
 
 
 class HybridLambda(HybridBlock):
-    """ref: nn.HybridLambda — ``function(F, x, *args)``, where ``F`` is
-    the operator namespace :mod:`ops.namespace` (the JAX package passes
-    ``mx.nd`` or ``mx.sym``); a string names a function of it."""
+    """ref: nn.HybridLambda — ``function(F, x, *args)`` with ``F`` =
+    ``mx.nd``, whose operators take the block's tensors and return
+    tensors; a string names a function of it."""
 
     def __init__(self, function, prefix=None):
         super().__init__()
@@ -368,7 +372,7 @@ class HybridLambda(HybridBlock):
             self._name = getattr(function, "__name__", "lambda")
 
     def forward(self, x, *args):
-        return self._func(_F, x, *args)
+        return self._func(_nd(), x, *args)
 
     def extra_repr(self):
         return self._name

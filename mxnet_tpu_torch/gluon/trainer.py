@@ -241,7 +241,7 @@ class Trainer:
     def _load_params_file(self, fname):
         """Every tensor of the dict from ``fname``, each checked before
         any is copied in place."""
-        loaded = nd.load(fname)
+        loaded = nd._load_tensors(fname)
         if not isinstance(loaded, dict):
             raise MXNetError(f"{fname} is not a parameter dict file")
         pairs = []

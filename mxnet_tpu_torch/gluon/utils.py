@@ -58,13 +58,14 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True,
     makes no host read: the factor ``min(1, max_norm / (norm + 1e-8))``,
     1 for a non-finite norm, scales every array on the device, and the
     norm comes back as a 0-d fp32 tensor. Sparse arrays raise: row-sparse
-    storage is ROADMAP Queue 1 item 6."""
+    storage (``ndarray/sparse.py``) is ROADMAP Queue 1 item 6's rest."""
     if not arrays:
         raise MXNetError("clip_global_norm: empty array list")
     arrays = list(arrays)
     if any(a.layout != torch.strided for a in arrays):
         raise MXNetError("clip_global_norm: sparse (row_sparse) arrays are "
-                         "not ported yet: ROADMAP Queue 1 item 6")
+                         "not ported yet: ROADMAP Queue 1 item 6's rest "
+                         "(ndarray/sparse.py)")
     if global_norm is not None:
         norm_dev = torch.as_tensor(global_norm, device=arrays[0].device) \
             .detach().float()

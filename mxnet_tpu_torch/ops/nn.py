@@ -4,7 +4,11 @@ Plain functions on tensors with the JAX package's op names, arguments
 and NCHW/OIHW layouts. Convolution, pooling and the matrix product go to
 PyTorch, as the JAX package leaves them to XLA; the BatchNorm + activation
 epilogue goes to the hand-written conv-epilogue kernel. BatchNorm and
-Dropout have both their predict and their training branch.
+Dropout have both their predict and their training branch. The loss
+heads ``SoftmaxOutput``, the three regression outputs and ``MakeLoss``
+keep MXNet's own backward, which ignores the head gradient
+(``torch.autograd.Function``s). The 28 names of the JAX package's
+``ops/nn.py`` but ``RNN`` (ROADMAP Queue 1 item 7) are registered.
 """
 from __future__ import annotations
 
@@ -14,13 +18,15 @@ import torch
 import torch.nn.functional as F
 
 from .. import random as _random
-from ..base import MXNetError
+from ..base import MXNetError, jax_dtype
 from ..kernels import fused_conv_epilogue, keep_threshold
 
 __all__ = ["activation", "batch_norm", "convolution", "ctc_loss",
            "deconvolution", "dropout", "embedding", "fully_connected",
-           "group_norm", "instance_norm", "layer_norm", "leaky_relu",
-           "pooling"]
+           "group_norm", "instance_norm", "l2_normalization", "layer_norm",
+           "leaky_relu", "make_loss", "pooling", "rms_norm", "smooth_l1",
+           "softmax", "softmax_activation", "softmax_output", "softmin",
+           "upsampling"]
 
 
 def _pair(v, n):
@@ -118,7 +124,8 @@ def _sum_pool(x, kernel, stride):
 
 def pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
             pad=None, pooling_convention="valid", count_include_pad=True):
-    """ref: Pooling — max/avg pooling and global pooling. Padding is
+    """ref: Pooling — max, avg, sum and lp (p = 2) pooling and global
+    pooling (max, else the mean, as the JAX op). Padding is
     explicit (-inf for max, 0 for avg), with the extra right padding of
     the ``full`` (ceil) convention, exactly as the JAX op pads."""
     nd = x.ndim - 2
@@ -126,9 +133,7 @@ def pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
         axes = tuple(range(2, x.ndim))
         if pool_type == "max":
             return torch.amax(x, dim=axes, keepdim=True)
-        if pool_type == "avg":
-            return torch.mean(x, dim=axes, keepdim=True)
-        raise MXNetError(f"Pooling: unknown global pool_type {pool_type!r}")
+        return torch.mean(x, dim=axes, keepdim=True)
     if nd not in _MAX_POOL:
         raise MXNetError(f"Pooling: unsupported input ndim {x.ndim}")
     kernel = _pair(kernel, nd)
@@ -145,9 +150,15 @@ def pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
     if pool_type == "max":
         xp = F.pad(x, pads, value=-math.inf) if any(pads) else x
         return _MAX_POOL[nd](xp, kernel, stride)
-    if pool_type != "avg":
+    if pool_type == "lp":                    # p = 2, as the JAX op
+        xp = F.pad(x, pads) if any(pads) else x
+        return torch.sqrt(_sum_pool(torch.square(torch.abs(xp)), kernel,
+                                    stride))
+    if pool_type not in ("avg", "sum"):
         raise MXNetError(f"Pooling: unknown pool_type {pool_type!r}")
     summed = _sum_pool(F.pad(x, pads) if any(pads) else x, kernel, stride)
+    if pool_type == "sum":
+        return summed
     if count_include_pad:
         return summed / float(math.prod(kernel))
     ones = torch.ones_like(x)
@@ -408,3 +419,353 @@ def ctc_loss(data, labels, data_lengths=None, label_lengths=None,
     ext = torch.full((N, 2 * L + 1), C - 1, dtype=torch.int64, device=dev)
     ext[:, 1::2] = labels.clamp(0, C - 1)
     return _ctc_alpha(logp, ext, t_mask, 2 * label_len + 1)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the JAX package's nn names and the registry entries.
+# ---------------------------------------------------------------------------
+def softmax(x, axis=-1, temperature=None, length=None, dtype=None):
+    """ref: softmax — over ``axis``, ``x / temperature`` first when given;
+    ``length`` is accepted and not read, as in the JAX op."""
+    if temperature:
+        x = x / temperature
+    out = torch.softmax(x, dim=axis)
+    return out.to(jax_dtype(dtype)) if dtype else out
+
+
+def softmin(x, axis=-1):
+    """ref: softmin — softmax of ``-x``."""
+    return torch.softmax(-x, dim=axis)
+
+
+def softmax_activation(x, mode="instance"):
+    """ref: SoftmaxActivation — over the channels (``channel``) or over all
+    of a sample's values (``instance``)."""
+    if mode == "channel":
+        return torch.softmax(x, dim=1)
+    flat = x.reshape(x.shape[0], math.prod(x.shape[1:]))
+    return torch.softmax(flat, dim=-1).reshape(x.shape)
+
+
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    """ref: L2Normalization — ``x / sqrt(sum(x^2) + eps)`` per sample
+    (``instance``), per position over the channels (``channel``) or per
+    channel over the spatial axes (``spatial``)."""
+    if mode == "instance":
+        norm = torch.sqrt(torch.sum(torch.square(x.reshape(x.shape[0], -1)),
+                                    dim=1) + eps)
+        return x / norm.reshape((-1,) + (1,) * (x.ndim - 1))
+    if mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, x.ndim))
+    else:
+        raise MXNetError(f"L2Normalization: unknown mode {mode!r}")
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=axes, keepdim=True)
+                          + eps)
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """ref: RMSNorm — ``x * rsqrt(mean(x^2) + eps) * gamma``."""
+    ms = torch.mean(torch.square(x), dim=axis, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * gamma
+
+
+def upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """ref: UpSampling — nearest only (bilinear is
+    ``contrib.BilinearResize2D``), each pixel repeated ``scale`` times
+    along H and W."""
+    if sample_type != "nearest":
+        raise MXNetError("UpSampling: only nearest supported; use "
+                         "contrib.BilinearResize2D for bilinear")
+    x = args[0]
+    return torch.repeat_interleave(torch.repeat_interleave(x, scale, dim=2),
+                                   scale, dim=3)
+
+
+def smooth_l1(x, scalar=1.0):
+    """ref: smooth_l1 — ``0.5 (s x)^2`` where ``|x| < 1/s^2``, else ``|x| -
+    0.5/s^2``."""
+    s2 = scalar * scalar
+    return torch.where(torch.abs(x) < 1.0 / s2, 0.5 * s2 * torch.square(x),
+                       torch.abs(x) - 0.5 / s2)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax over the last axis; backward ``(out - onehot(label)) *
+    grad_scale`` (masked where ``label == ignore_label`` with
+    ``use_ignore``), the head gradient ignored: a terminal loss op (JAX
+    ``_softmax_output_core``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore):
+        out = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(out, label)
+        ctx.args = (grad_scale, ignore_label, use_ignore)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore = ctx.args
+        from .tensor import one_hot
+        grad = (out - one_hot(label, out.shape[-1]).to(out.dtype)) \
+            * grad_scale
+        if use_ignore:
+            grad = grad * (label != ignore_label).to(out.dtype).unsqueeze(-1)
+        return grad, torch.zeros_like(label), None, None, None
+
+
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False,
+                   preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0):
+    """ref: SoftmaxOutput — softmax forward, cross-entropy backward. As
+    the JAX op: ``multi_output`` takes the softmax over axis 1 at each
+    position; a >2-D input otherwise flattens its trailing axes unless
+    ``preserve_shape``; ``normalization``, ``out_grad`` and
+    ``smooth_alpha`` are accepted and not read."""
+    orig_shape = data.shape
+    if multi_output and data.ndim > 2:
+        d2 = torch.movedim(data, 1, -1)
+        out = _SoftmaxOutput.apply(d2.reshape(-1, d2.shape[-1]),
+                                   label.reshape(-1).to(data.dtype),
+                                   grad_scale, ignore_label, use_ignore)
+        return torch.movedim(out.reshape(d2.shape), -1, 1)
+    if data.ndim > 2 and not preserve_shape:
+        data = data.reshape(data.shape[0], -1)
+    return _SoftmaxOutput.apply(data, label.to(data.dtype), grad_scale,
+                                ignore_label, use_ignore).reshape(orig_shape)
+
+
+class _Regression(torch.autograd.Function):
+    """``link(data)`` forward; backward ``grad_fn(out, label) * grad_scale
+    / n`` (n = out's axis 1, 1 for 1-D), the head gradient ignored (JAX
+    ``_regression_core``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.args = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.args
+        diff = out - label.reshape(out.shape)
+        if kind == "mae":
+            diff = torch.sign(diff)
+        n = out.shape[1] if out.ndim > 1 else 1
+        return diff * grad_scale / n, torch.zeros_like(label), None, None
+
+
+def _regression(kind):
+    def fn(data, label, grad_scale=1.0):
+        return _Regression.apply(data, label.to(data.dtype), grad_scale,
+                                 kind)
+    fn.__doc__ = (f"ref: {kind} regression output (regression_output.cc)")
+    return fn
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; backward ``grad_scale`` everywhere, the head
+    gradient ignored (JAX ``_make_loss``)."""
+
+    @staticmethod
+    def forward(ctx, x, grad_scale):
+        ctx.grad_scale = grad_scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.grad_scale), None
+
+
+def make_loss(x, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """ref: MakeLoss — marks ``x`` as a loss (``valid_thresh`` and
+    ``normalization`` are accepted and not read, as in the JAX op)."""
+    return _MakeLoss.apply(x, grad_scale)
+
+
+def _register_all():
+    from .registry import OpParam, register
+    from .tensor import log_softmax
+
+    register("FullyConnected", num_inputs=-1,
+             params=[OpParam("num_hidden", int, None, required=True),
+                     OpParam("no_bias", bool, False),
+                     OpParam("flatten", bool, True)])(
+        lambda x, weight, *bias, **p: fully_connected(
+            x, weight, bias[0] if bias else None, **p))
+    conv = [OpParam("kernel", tuple, None, required=True),
+            OpParam("stride", tuple, None), OpParam("dilate", tuple, None),
+            OpParam("pad", tuple, None),
+            OpParam("num_filter", int, None, required=True),
+            OpParam("num_group", int, 1)]
+    ignored = [OpParam("layout", str, None), OpParam("cudnn_tune", str, None),
+               OpParam("cudnn_off", bool, False),
+               OpParam("workspace", int, 1024)]
+
+    def drop(p, names=("layout", "cudnn_tune", "cudnn_off", "workspace")):
+        return {k: v for k, v in p.items() if k not in names}
+
+    register("Convolution", num_inputs=-1,
+             params=conv + [OpParam("no_bias", bool, False)] + ignored)(
+        lambda x, weight, *bias, **p: convolution(
+            x, weight, bias[0] if bias else None, **drop(p)))
+    register("Deconvolution", num_inputs=-1,
+             params=conv[:4] + [OpParam("adj", tuple, None)] + conv[4:] + [
+                 OpParam("no_bias", bool, True), OpParam("layout", str, None),
+                 OpParam("workspace", int, 1024),
+                 OpParam("cudnn_tune", str, None),
+                 OpParam("cudnn_off", bool, False),
+                 OpParam("target_shape", tuple, None)])(
+        lambda x, weight, *bias, **p: deconvolution(
+            x, weight, bias[0] if bias else None, **drop(p)))
+    register("Pooling",
+             params=[OpParam("kernel", tuple, ()),
+                     OpParam("pool_type", str, "max"),
+                     OpParam("global_pool", bool, False),
+                     OpParam("stride", tuple, None),
+                     OpParam("pad", tuple, None),
+                     OpParam("pooling_convention", str, "valid"),
+                     OpParam("count_include_pad", bool, True),
+                     OpParam("cudnn_off", bool, False),
+                     OpParam("layout", str, None)])(
+        lambda x, **p: pooling(x, **drop(p)))
+    register("Activation",
+             params=[OpParam("act_type", str, None, required=True)])(
+        activation)
+    register("LeakyReLU", num_inputs=-1,
+             params=[OpParam("act_type", str, "leaky"),
+                     OpParam("slope", float, 0.25),
+                     OpParam("lower_bound", float, 0.125),
+                     OpParam("upper_bound", float, 0.334)])(
+        lambda x, *gamma, **p: leaky_relu(x, gamma[0] if gamma else None,
+                                          **p))
+    register("softmax", params=[OpParam("axis", int, -1),
+                                OpParam("temperature", float, None),
+                                OpParam("length", tuple, None),
+                                OpParam("dtype", str, None)])(softmax)
+
+    def _log_softmax(x, axis=-1, temperature=None):
+        return log_softmax(x / temperature if temperature else x, axis)
+
+    register("log_softmax", params=[OpParam("axis", int, -1),
+                                    OpParam("temperature", float, None)])(
+        _log_softmax)
+    register("softmin", params=[OpParam("axis", int, -1)])(softmin)
+    register("SoftmaxActivation",
+             params=[OpParam("mode", str, "instance")])(softmax_activation)
+    bn = [OpParam("eps", float, 1e-3), OpParam("momentum", float, 0.9),
+          OpParam("fix_gamma", bool, True),
+          OpParam("use_global_stats", bool, False),
+          OpParam("output_mean_var", bool, False), OpParam("axis", int, 1),
+          OpParam("cudnn_off", bool, False)]
+
+    def _batch_norm(x, gamma, beta, mean, var, output_mean_var=False,
+                    cudnn_off=False, **p):
+        return batch_norm(x, gamma, beta, mean, var, **p)
+
+    register("BatchNorm", num_inputs=5, num_outputs=3, needs_mode=True,
+             params=bn + [OpParam("act_type", str, None,
+                                  doc="an activation fused into the "
+                                      "normalize pass: the conv-epilogue "
+                                      "kernel (K1) on a CUDA tensor")],
+             doc="Batch normalization; outputs (out, batch mean, batch "
+                 "var), as the JAX op")(_batch_norm)
+
+    def _bn_relu(x, gamma, beta, mean, var, **p):
+        out, m, v = _batch_norm(x, gamma, beta, mean, var, **p)
+        return torch.maximum(out, out.new_zeros(())), m, v
+
+    register("_contrib_BatchNormWithReLU", aliases=["BatchNormWithReLU"],
+             num_inputs=5, num_outputs=3, needs_mode=True, params=bn,
+             doc="BatchNorm, then max(., 0) (ref: batch_norm_relu.cc); no "
+                 "kernel, as in the JAX package")(_bn_relu)
+    register("LayerNorm", num_inputs=3,
+             params=[OpParam("axis", int, -1), OpParam("eps", float, 1e-5),
+                     OpParam("output_mean_var", bool, False)])(
+        lambda x, g, b, output_mean_var=False, **p: layer_norm(x, g, b, **p))
+    register("GroupNorm", num_inputs=3,
+             params=[OpParam("num_groups", int, 1),
+                     OpParam("eps", float, 1e-5)])(group_norm)
+    register("InstanceNorm", num_inputs=3,
+             params=[OpParam("eps", float, 1e-3)])(instance_norm)
+    register("L2Normalization",
+             params=[OpParam("eps", float, 1e-10),
+                     OpParam("mode", str, "instance")])(l2_normalization)
+    register("RMSNorm", num_inputs=2,
+             params=[OpParam("axis", int, -1), OpParam("eps", float, 1e-6)])(
+        rms_norm)
+    register("Dropout", needs_rng=True, needs_mode=True,
+             params=[OpParam("p", float, 0.5),
+                     OpParam("mode", str, "training"),
+                     OpParam("axes", tuple, ())])(
+        lambda x, generator=None, **p: dropout(x, generator=generator, **p))
+    register("Embedding", num_inputs=2,
+             params=[OpParam("input_dim", int, None, required=True),
+                     OpParam("output_dim", int, None, required=True),
+                     OpParam("dtype", str, "float32"),
+                     OpParam("sparse_grad", bool, False,
+                             doc="accepted; the gradient stays dense until "
+                                 "row-sparse storage is ported")])(
+        lambda idx, w, input_dim=None, output_dim=None, dtype="float32",
+        sparse_grad=False: embedding(idx, w, input_dim, output_dim))
+    register("SoftmaxOutput", num_inputs=2,
+             params=[OpParam("grad_scale", float, 1.0),
+                     OpParam("ignore_label", float, -1.0),
+                     OpParam("multi_output", bool, False),
+                     OpParam("use_ignore", bool, False),
+                     OpParam("preserve_shape", bool, False),
+                     OpParam("normalization", str, "null"),
+                     OpParam("out_grad", bool, False),
+                     OpParam("smooth_alpha", float, 0.0)])(softmax_output)
+    scale = [OpParam("grad_scale", float, 1.0)]
+    register("LinearRegressionOutput", num_inputs=2, params=scale)(
+        _regression("linear"))
+    register("MAERegressionOutput", num_inputs=2, params=scale)(
+        _regression("mae"))
+    register("LogisticRegressionOutput", num_inputs=2, params=scale)(
+        _regression("logistic"))
+    register("MakeLoss", params=scale + [
+        OpParam("valid_thresh", float, 0.0),
+        OpParam("normalization", str, "null")])(make_loss)
+    register("smooth_l1", params=[OpParam("scalar", float, 1.0)])(smooth_l1)
+    register("UpSampling", num_inputs=-1,
+             params=[OpParam("scale", int, 1, required=True),
+                     OpParam("sample_type", str, "nearest"),
+                     OpParam("num_args", int, 1),
+                     OpParam("num_filter", int, 0),
+                     OpParam("multi_input_mode", str, "concat"),
+                     OpParam("workspace", int, 512)])(upsampling)
+
+    def _ctc(data, labels, *lens, use_data_lengths=False,
+             use_label_lengths=False, blank_label="last", data_lengths=None,
+             label_lengths=None):
+        lens = list(lens)
+        if use_data_lengths and data_lengths is None:
+            data_lengths = lens.pop(0)
+        if use_label_lengths and label_lengths is None:
+            label_lengths = lens.pop(0)
+        # lengths may come as parameters holding arrays (the reference's
+        # calling convention)
+        dl, ll = (None if v is None else
+                  torch.as_tensor(getattr(v, "_data", v), device=data.device)
+                  for v in (data_lengths, label_lengths))
+        return ctc_loss(data, labels, dl, ll, use_data_lengths=dl is not None,
+                        use_label_lengths=ll is not None,
+                        blank_label=blank_label)
+
+    register("CTCLoss", num_inputs=-1, aliases=["ctc_loss", "_contrib_CTCLoss"],
+             params=[OpParam("use_data_lengths", bool, False),
+                     OpParam("use_label_lengths", bool, False),
+                     OpParam("blank_label", str, "last"),
+                     OpParam("data_lengths", None, None),
+                     OpParam("label_lengths", None, None)])(_ctc)
+
+
+_register_all()

@@ -310,3 +310,65 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr, wd=0.0,
     _write((weight, mom, weight32), _mp_sgd_mom_update(
         weight, grad, mom, weight32, lr, wd, rescale_grad, clip_gradient,
         momentum))
+
+
+def _register_all():
+    """The 13 ``*_update`` names of the registry, each the out-of-place
+    form above (new weight and states returned, as the JAX ops return
+    them); ``mx.nd``'s ``out=`` writes them into the given arrays."""
+    from .registry import OpParam, register
+
+    def common():
+        return [OpParam("lr", float, None, required=True),
+                OpParam("wd", float, 0.0),
+                OpParam("rescale_grad", float, 1.0),
+                OpParam("clip_gradient", float, -1.0)]
+
+    mom = [OpParam("momentum", float, 0.0)]
+    adam = [OpParam("beta1", float, 0.9), OpParam("beta2", float, 0.999),
+            OpParam("epsilon", float, 1e-8)]
+    lazy = [OpParam("lazy_update", bool, True)]
+
+    def no_lazy(fn):
+        def op(*arrays, lazy_update=True, **p):
+            return fn(*arrays, **p)
+        return op
+
+    table = (
+        ("sgd_update", 2, 1, common(), _sgd_update),
+        ("sgd_mom_update", 3, 2, common() + mom + lazy,
+         no_lazy(_sgd_mom_update)),
+        ("nag_mom_update", 3, 2, common() + mom, _nag_mom_update),
+        ("adam_update", 4, 3, common() + adam + lazy, no_lazy(_adam_update)),
+        ("adamw_update", 4, 3, common() + adam + [OpParam("eta", float, 1.0)],
+         _adamw_update),
+        ("lamb_update_phase1", 4, 3,
+         [OpParam("beta1", float, 0.9), OpParam("beta2", float, 0.999),
+          OpParam("epsilon", float, 1e-6), OpParam("t", int, 1),
+          OpParam("bias_correction", bool, True), OpParam("wd", float, 0.0),
+          OpParam("rescale_grad", float, 1.0),
+          OpParam("clip_gradient", float, -1.0)], _lamb_phase1),
+        ("lamb_update_phase2", 4, 1,
+         [OpParam("lr", float, None, required=True),
+          OpParam("lower_bound", float, -1.0),
+          OpParam("upper_bound", float, -1.0)], _lamb_phase2),
+        ("rmsprop_update", 3, 2, common() + [OpParam("gamma1", float, 0.95),
+                                             OpParam("epsilon", float, 1e-8)],
+         _rmsprop_update),
+        ("ftrl_update", 4, 3, common() + [OpParam("lamda1", float, 0.01),
+                                          OpParam("beta", float, 1.0)],
+         _ftrl_update),
+        ("adagrad_update", 3, 2, common() + [OpParam("epsilon", float, 1e-7)],
+         _adagrad_update),
+        ("signsgd_update", 2, 1, common(), _signsgd_update),
+        ("mp_sgd_update", 3, 2, common(), _mp_sgd_update),
+        ("mp_sgd_mom_update", 4, 3, common() + mom, _mp_sgd_mom_update),
+    )
+    for name, n_in, n_out, params, fn in table:
+        register(name, num_inputs=n_in, num_outputs=n_out, params=params,
+                 differentiable=False,
+                 doc=f"{name} (ref: src/operator/optimizer_op.cc); returns "
+                     "the new weight (and states)")(fn)
+
+
+_register_all()

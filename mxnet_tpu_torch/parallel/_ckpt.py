@@ -84,7 +84,7 @@ def write_entries(fname, entries, meta):
 
 
 def read_meta(fname):
-    loaded = nd.load(fname)
+    loaded = nd._load_tensors(fname)
     if not isinstance(loaded, dict) or "__meta__" not in loaded:
         raise MXNetError(
             f"{fname}: not a sharded-trainer checkpoint (no __meta__ "
@@ -108,7 +108,7 @@ def read_pieces(fname, n_files, needed):
             raise MXNetError(
                 f"per-shard checkpoint incomplete: {path} missing "
                 f"(meta says {n_files} shard files)")
-        loaded = nd.load(path)
+        loaded = nd._load_tensors(path)
         if not isinstance(loaded, dict):
             continue             # an empty shard container loads as a list
         for key, arr in loaded.items():

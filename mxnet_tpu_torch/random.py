@@ -18,6 +18,12 @@ forward on the card and one on the CPU can use the same masks;
 lets a CUDA-graph capture see which generators a forward
 draws from and which tensors it draws into (see
 ``gluon/cached_graph.py``).
+
+The samplers (``uniform``, ``normal``, ``randn``, ``gamma``, ...) are
+``mx.nd.random``'s: each draws from the device's generator
+(:func:`sampler_generator`), which :func:`draws` notes like a dropout
+draw, so a CUDA-graph capture registers it and ``seed`` reproduces the
+values. They cannot equal the JAX package's (threefry against Philox).
 """
 from __future__ import annotations
 
@@ -26,8 +32,11 @@ import threading
 
 import torch
 
-__all__ = ["bits", "bits_tape", "device_generator", "draws", "generator",
-           "kept_bits", "seed"]
+__all__ = ["bernoulli", "bits", "bits_tape", "device_generator", "draws",
+           "exponential", "gamma", "generalized_negative_binomial",
+           "generator", "kept_bits", "multinomial", "negative_binomial",
+           "normal", "poisson", "randint", "randn", "sampler_generator",
+           "seed", "shuffle", "uniform"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -79,6 +88,17 @@ def bits(shape, device, generator=None) -> torch.Tensor:
     if kept is not None:
         kept.append(out)
     return out
+
+
+def sampler_generator(device) -> torch.Generator:
+    """The generator an ``mx.nd`` sampler draws from on ``device``: the
+    device's generator, noted in an active :func:`draws` scope (its state
+    kept before the first draw) as :func:`bits` notes it."""
+    g = device_generator(device)
+    seen = getattr(_tape, "draws", None)
+    if seen is not None and seen.keep_states and g not in seen.states:
+        seen.states[g] = g.get_state()
+    return g
 
 
 def _draw(shape, device, generator):
@@ -174,3 +194,61 @@ def draws(keep_states=True):
         yield seen
     finally:
         _tape.active, _tape.draws = prev
+
+
+def _nd_random():
+    from .ndarray import random as nd_random
+    return nd_random
+
+
+def uniform(*args, **kwargs):
+    """ref: mx.random.uniform — ``mx.nd.random.uniform``."""
+    return _nd_random().uniform(*args, **kwargs)
+
+
+def normal(*args, **kwargs):
+    """ref: mx.random.normal — ``mx.nd.random.normal``."""
+    return _nd_random().normal(*args, **kwargs)
+
+
+def randn(*shape, loc=0.0, scale=1.0, **kwargs):
+    """ref: mx.random.randn(*shape) — positional arguments are the
+    shape."""
+    return _nd_random().normal(loc=loc, scale=scale, shape=shape or (1,),
+                               **kwargs)
+
+
+def gamma(*args, **kwargs):
+    return _nd_random().gamma(*args, **kwargs)
+
+
+def exponential(*args, **kwargs):
+    return _nd_random().exponential(*args, **kwargs)
+
+
+def poisson(*args, **kwargs):
+    return _nd_random().poisson(*args, **kwargs)
+
+
+def negative_binomial(*args, **kwargs):
+    return _nd_random().negative_binomial(*args, **kwargs)
+
+
+def generalized_negative_binomial(*args, **kwargs):
+    return _nd_random().generalized_negative_binomial(*args, **kwargs)
+
+
+def randint(*args, **kwargs):
+    return _nd_random().randint(*args, **kwargs)
+
+
+def multinomial(*args, **kwargs):
+    return _nd_random().multinomial(*args, **kwargs)
+
+
+def shuffle(*args, **kwargs):
+    return _nd_random().shuffle(*args, **kwargs)
+
+
+def bernoulli(*args, **kwargs):
+    return _nd_random().bernoulli(*args, **kwargs)

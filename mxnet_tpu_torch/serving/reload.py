@@ -97,7 +97,7 @@ class ParamStore:
             try:
                 manifest = _commit.validate_step(self.root, step)
                 fname = self._pick_file(step, manifest)
-                loaded = nd.load(
+                loaded = nd._load_tensors(
                     os.path.join(_commit.step_dir(self.root, step), fname))
                 if not isinstance(loaded, dict):
                     raise MXNetError(f"{fname} is not a parameter dict")
@@ -162,7 +162,7 @@ class ParamStore:
         step = int(step)
         manifest = _commit.validate_step(self.root, step)   # ValueError on CRC
         fname = self._pick_file(step, manifest)
-        loaded = nd.load(
+        loaded = nd._load_tensors(
             os.path.join(_commit.step_dir(self.root, step), fname))
         if not isinstance(loaded, dict):
             raise MXNetError(f"{fname} is not a parameter dict")

@@ -32,11 +32,12 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import contrib as tcontrib
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.guardrails import fused
-from mxnet_tpu_torch.ops import namespace as tF
 from mxnet_tpu_torch.ops import nn as tops
 from mxnet_tpu_torch.ops import tensor as ttensor
 
 from torch_parity import assert_close_of_max, carry_block, recorded_pair
+
+tF = tmx.nd
 
 TOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,10 +155,17 @@ def test_moe_ffn_raises_naming_item_9():
 
 
 def test_namespace_names_item_6_for_a_missing_operator():
-    with pytest.raises(MXNetError, match="Queue 1 item 6"):
-        tnn.Lambda("batch_dot")
-    with pytest.raises(MXNetError, match="Queue 1 item 6"):
-        tnn.HybridLambda(lambda F, x: F.batch_dot(x, x))(torch.ones(2, 2))
+    """The Lambdas resolve names in mx.nd: batch_dot works (item 6 ported
+    it), a deferred operator raises naming its ROADMAP item."""
+    x = torch.arange(8, dtype=torch.float32).reshape(2, 2, 2)
+    want = torch.matmul(x, x)
+    assert torch.equal(tnn.Lambda("batch_dot")(x, x), want)
+    assert torch.equal(
+        tnn.HybridLambda(lambda F, x: F.batch_dot(x, x))(x), want)
+    with pytest.raises(MXNetError, match="Queue 1 item 10"):
+        tnn.Lambda("box_nms")
+    with pytest.raises(MXNetError, match="Queue 1 item 10"):
+        tnn.HybridLambda(lambda F, x: F.contrib.box_nms(x))(x)
     assert tnn.Lambda("relu")(torch.tensor([-1.0, 2.0])).tolist() == [0, 2]
 
 

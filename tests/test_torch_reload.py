@@ -95,10 +95,11 @@ def _values(loaded):
     return out
 
 
-def _scenario(store_cls, nd_mod, root, monkeypatch):
+def _scenario(store_cls, nd_mod, root, monkeypatch, reader="load"):
     """One sequence of store calls; what each returned and the store's
-    bookkeeping after it."""
-    real = nd_mod.load
+    bookkeeping after it. ``reader`` is the function of ``nd_mod`` the
+    store reads files with (the port's reads tensors)."""
+    real = getattr(nd_mod, reader)
     step_4 = tcommit.step_dir(root, 4) + os.sep
 
     def gone_for_step_4(fname):
@@ -106,7 +107,7 @@ def _scenario(store_cls, nd_mod, root, monkeypatch):
             raise FileNotFoundError(fname)        # a trainer's GC won
         return real(fname)
 
-    monkeypatch.setattr(nd_mod, "load", gone_for_step_4)
+    monkeypatch.setattr(nd_mod, reader, gone_for_step_4)
     store = store_cls(root, max_bad_steps=1)
     trace = []
 
@@ -128,7 +129,7 @@ def _scenario(store_cls, nd_mod, root, monkeypatch):
     note("poll", store.poll())          # 5 and 4 skipped again: 3
     with pytest.raises(ValueError):
         store.load_step(5)
-    monkeypatch.setattr(nd_mod, "load", real)
+    monkeypatch.setattr(nd_mod, reader, real)
     return trace
 
 
@@ -154,7 +155,8 @@ def test_param_store_picks_the_same_steps_as_jax(writer, tmp_path,
     else:
         _port_root(root, [1, 2, 3, 4, 5])
     _flip_byte(root, 5, tcommit)
-    got = _scenario(TStore, tmx.ndarray, root, monkeypatch)
+    got = _scenario(TStore, tmx.ndarray, root, monkeypatch,
+                    reader="_load_tensors")
     want = _scenario(JStore, jmx.ndarray, root, monkeypatch)
     _same(got, want)
     assert [t[1] for t in got] == [3, None, None, 1, 2, None, 3]

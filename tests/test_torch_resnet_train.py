@@ -28,7 +28,7 @@ from mxnet_tpu_torch.kernels import conv_epilogue as ce
 from mxnet_tpu_torch.ops import contrib as tcontrib
 from mxnet_tpu_torch.ops import nn as tops
 
-from torch_parity import narrow_pair
+from torch_parity import jax_recorded_loss, narrow_pair
 
 ACTS = ("identity", "relu", "gelu", "tanh", "sigmoid")
 
@@ -367,9 +367,8 @@ def test_narrow_resnet_trains_as_the_jax_package(monkeypatch):
     kernels.reset_launch_counts()
     losses = []
     for step in range(3):
-        with jag.record():
-            jl = jloss(jnet(jx), jy)
-        jl.backward()
+        # the JAX package's record() -> loss -> backward, one jitted program
+        jl = jax_recorded_loss(jnet, jloss, jx._data, jy._data)
         with tag.record():
             tl = tloss(tnet(tx), ty)
         tag.backward(tl)

@@ -34,6 +34,7 @@ examples/pretrain_bert.py's wrapper keeps them), three steps each.
   ``GuardConfig(ckpt_root=)`` and the checkpoint family work.
 """
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -162,7 +163,11 @@ def test_fp32_steps_match_jax(model):
     """Three fp32 steps: the loss within 1e-5 relative; every weight,
     optimizer state and BatchNorm statistic within 1e-4 of max |value|
     after each step (the ResNet restarted from the JAX state each step)."""
-    jtr, ttr, batch = _trainers(model)
+    fresh, ttr, batch = _trainers(model)
+    jtr = _fp32_jax(model)
+    for tr in (fresh, jtr):
+        tr.prepare(*batch[:-1])
+    _restart(jtr, fresh)
     for step in range(3):
         jl = float(jtr.step(*batch).asnumpy())
         tl = ttr.step(*batch)
@@ -184,8 +189,8 @@ def _update(state, start):
 
 
 def _restart(dst, src):
-    """Put the JAX trainer ``src``'s weights, statistics and optimizer
-    state into the JAX trainer ``dst``, as fp32 copies."""
+    """Put the JAX trainer ``src``'s weights, statistics, optimizer state
+    and update count into the JAX trainer ``dst``, as fp32 copies."""
     import jax.numpy as jnp
     names = src._block._structural_names()
     for k, p in dst._block._structural_names().items():
@@ -193,6 +198,15 @@ def _restart(dst, src):
                                      dtype=jnp.float32, copy=True))
     dst._states = [tuple(jnp.array(s, dtype=jnp.float32, copy=True)
                          for s in st) for st in src._states]
+    dst._num_update = dst._optimizer.num_update = src._num_update
+
+
+@functools.lru_cache(maxsize=None)
+def _fp32_jax(model):
+    """One JAX fp32 trainer of ``model`` per module, restarted from
+    another trainer's state (:func:`_restart`) before each use: its step
+    program compiles once, not once per test."""
+    return _trainers(model)[0]
 
 
 @pytest.mark.parametrize("master", [None, "bfloat16"])
@@ -221,7 +235,7 @@ def test_bf16_steps_match_jax(model, master):
     flag changes nothing: the two bf16 updates part by 0.63-0.72 of the
     witness's distance in norm either way (``tools/bf16_witness.py``)."""
     jtr, ttr, batch = _trainers(model, "bfloat16", master)
-    witness = _trainers(model)[0]
+    witness = _fp32_jax(model)
     for tr in (jtr, ttr, witness):
         tr.prepare(*batch[:-1])
     for step in range(3):

@@ -36,6 +36,8 @@ from mxnet_tpu_torch.ops import nn as tops
 from mxnet_tpu_torch.ops import optimizer_op as topt
 from mxnet_tpu_torch.ops import tensor as ttensor
 
+from torch_parity import jax_recorded_loss
+
 
 def _np(a):
     if isinstance(a, torch.Tensor):
@@ -394,9 +396,8 @@ def test_bert_mlm_trains_as_the_jax_package(monkeypatch):
                                  {"learning_rate": 1e-3})
     kernels.reset_launch_counts()
     for step in range(3):
-        with jag.record():
-            jl = jloss(jnet(jx)[1], jy)
-        jl.backward()
+        # the JAX package's record() -> loss -> backward, one jitted program
+        jl = jax_recorded_loss(jnet, jloss, jx._data, jy._data, output=1)
         with tag.record():
             mlm = tnet(tx)[1]
             tl = tloss(mlm, ty)

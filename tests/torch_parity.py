@@ -247,3 +247,46 @@ def jitted_logits(jnet, tnet, x):
     with torch.inference_mode():
         got = tnet(torch.from_numpy(x)).numpy()
     return got, want
+
+
+_LOSS_PROGRAMS = {}
+
+
+def jax_recorded_loss(jnet, jloss, x, label, output=0):
+    """The JAX package's eager ``with autograd.record(): l =
+    jloss(jnet(x)[output], label)`` then ``l.backward()``, as one jitted
+    program over ``functional_apply`` (op by op the JAX side compiles
+    each op and each op's VJP, minutes for a ResNet): the per-sample
+    loss, the BatchNorm statistics and every trainable parameter's
+    gradient from a head gradient of ones, written where the eager pass
+    writes them (the statistics into the auxiliary parameters, the
+    gradients into the parameters' gradient buffers, which
+    ``Trainer.step`` reads). ``x`` and ``label`` are jnp arrays. Returns
+    the per-sample loss as numpy; the program is built at the net's
+    first call and reused."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu.gluon.block import functional_apply
+    trainable, aux = jnet._param_split()
+    key = (id(jnet), id(jloss), output)
+    prog = _LOSS_PROGRAMS.get(key)
+    if prog is None:
+        def run(tr, ax, xs, ys):
+            def f(tr):
+                outs, _, aux_new = functional_apply(
+                    jnet, jax.random.key(0), tr, ax, [xs], training=True)
+                wrap = [jmx.nd.NDArray(a, ctx=jmx.cpu(),
+                                       _skip_device_put=True)
+                        for a in (outs[output], ys)]
+                return jloss(*wrap)._data, aux_new
+            loss, vjp, aux_new = jax.vjp(f, tr, has_aux=True)
+            (grads,) = vjp(jnp.ones_like(loss))
+            return loss, aux_new, grads
+        prog = _LOSS_PROGRAMS[key] = jax.jit(run)
+    loss, aux_new, grads = prog([p.data()._data for p in trainable],
+                                [p.data()._data for p in aux], x, label)
+    for p, a in zip(aux, aux_new):
+        p._data[0]._rebind(a)
+    for p, g in zip(trainable, grads):
+        p._grad[0]._rebind(g)
+    return np.asarray(loss)
