@@ -523,6 +523,35 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                tests/test_examples.py (L1 < 0.12 and both losses > 0.05;
                rec < 0.05, 0.5 < KL < 100, prior L1 < 0.1) and ms per
                step.
+29. item 6   — the rest of mx.nd, cuDNN deterministic. (k) K2 at BERT's
+               ffn_1 shape (16384, 3072) and K1 at a ResNet-50 BatchNorm
+               shape (128, 64, 112, 112) with the vectors at another dtype
+               than y's ((bf16, fp32), (fp16, fp32), (fp32, bf16)): each
+               bit-equal to its plain version, timed against its bytes
+               bound. (a1) the BERT-base MLM of phase 11 (batch 4, S 4096,
+               eager Adam lr 1e-4) 3 steps under amp.init("bfloat16",
+               target_precision_ops=["FullyConnected", "Convolution"])
+               with amp.init_trainer and amp.scale_loss, then 3 steps in
+               fp32 from the same state with the same dropout bits: every
+               Dense output bf16, the loss and the weights fp32, per step
+               K2 24 (bf16 y, fp32 bias), K3 12 and K3-bwd 12 + 12 (bf16);
+               each step's loss within 2e-2 of fp32's and the weights'
+               change within 0.5 (rel L2 over all weights). (a2) the same
+               for ResNet-50 v1 at batch 128 with SGD (K1 48 per step,
+               BatchNorm's scale and offset in y's dtype as the JAX op
+               casts them). (b) a hybridized foreach (an Elman cell,
+               Dense(768, tanh), T 32, batch 64; K2 32 per forward)
+               trained 3 Adam steps as CUDA graphs and eagerly, bit-equal,
+               both within 1e-4 of max |value| of the CPU; a greedy decode
+               through while_loop (max_iterations 8, EOS at step 5) and a
+               cond, captured, equal to eager. (c) Embedding(500000, 64,
+               sparse_grad=True) -> Dense(256, relu) -> Dense(64), L2,
+               Adam, 20 steps of 8192 ids: untouched rows bit-unchanged,
+               touched rows within 1e-5 of the CPU run (the card's relu
+               decisions replayed), ms per step against sparse_grad=False.
+               (d) every case of tools/np_cases.py (mx.np, linalg, fft,
+               mx.npx) on the card against the CPU; a CustomOp forward and
+               backward on card tensors; Custom refused inside a capture.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
@@ -5923,9 +5952,11 @@ def tr_pod(torch, mx, card, ctx, untraced):
     crossing = sorted(routed & {sp["trace_id"] for w in workers.values()
                                 for sp in w.spans
                                 if sp["name"] == "serving_request"})
+    # whole dumps only, as the aggregator reads them: the SIGKILL may land
+    # mid-flush and leave the writer's `<dump>.tmp.<pid>.<n>` staging file
     dumps = {}
     for name in sorted(os.listdir(run_dir)):
-        if name.startswith("flight-replica-w1"):
+        if name.startswith("flight-replica-w1") and name.endswith(".json"):
             doc_f = flight.read_flight(os.path.join(run_dir, name))
             dumps[doc_f["pid"]] = (name, doc_f)
     if killed_pid not in dumps:
@@ -7324,7 +7355,7 @@ def nd_ops_card_vs_cpu(torch, mx, ctx):
     training = {"BatchNorm", "_contrib_BatchNormWithReLU"}
     for name in registry.list_ops():
         p = registry.get(name).name
-        if p in cases.RANDOM:
+        if p in cases.RANDOM or p == "Custom":    # Custom: phase 29 (d)
             continue
         make, params, tol = cases.spec(p)
         inputs = make(cases.rng_for(p))
@@ -7707,6 +7738,745 @@ def phase_nd(torch, mx, card, ctx):
             "vae": vae}
 
 
+# -- phase 29: item 6's rest --------------------------------------------------
+AM_FFN1 = (LONG_BATCH * LONG_SEQ, 3072)      # BERT-base ffn_1 at S 4096
+AM_BN = (128, 64, 112, 112)                  # ResNet-50 v1 bn1, batch 128
+AM_MIXED = (("bfloat16", "float32"), ("float16", "float32"),
+            ("float32", "bfloat16"))         # (y, the vectors)
+
+
+def am_mixed_kernels(torch, ce, me):
+    """Phase 29 (k): K2 at BERT's ffn_1 shape and K1 at a ResNet-50
+    BatchNorm shape with the vectors at a dtype other than y's, each
+    bit-equal to its plain version, timed against its bytes bound."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rows = []
+    for ydt, vdt in AM_MIXED:
+        yt, vt = getattr(torch, ydt), getattr(torch, vdt)
+        ysz = torch.tensor([], dtype=yt).element_size()
+        vsz = torch.tensor([], dtype=vt).element_size()
+        for kern in ("K2", "K1"):
+            shape = AM_FFN1 if kern == "K2" else AM_BN
+            c = shape[-1] if kern == "K2" else shape[1]
+            n = math.prod(shape)
+            nbytes = 2 * n * ysz + (1 if kern == "K2" else 2) * c * vsz
+            n_copies = max(1, min(8, math.ceil(160e6 / nbytes)))
+            ys = [(torch.randn(*shape, generator=gen, device=dev) * 2)
+                  .to(yt) for _ in range(n_copies)]
+            bias = (torch.randn(c, generator=gen, device=dev) * 0.5).to(vt)
+            scale = (torch.rand(c, generator=gen, device=dev) + 0.5).to(vt)
+            if kern == "K2":
+                def run(i, plain=False):
+                    f = me.matmul_epilogue_plain if plain else \
+                        me.matmul_epilogue_2d
+                    return f(ys[i], bias.reshape(1, c), None,
+                             act_type="gelu")
+                lib = lambda i: torch.add(ys[i], bias)
+            else:
+                def run(i, plain=False):
+                    f = ce.fused_conv_epilogue_plain if plain else \
+                        ce.fused_conv_epilogue
+                    return f(ys[i], scale, bias, None, channel_axis=1,
+                             act_type="relu")
+                lib = None
+            with torch.inference_mode():
+                got, want = run(0), run(0, plain=True)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                if got.dtype != yt or not torch.equal(got, want):
+                    fail(f"phase 29 (k): {kern} {shape} y {ydt}, vectors "
+                         f"{vdt}: not bit-equal to its plain version "
+                         f"(max err {err}, dtype {got.dtype})")
+                k_ms = graph_ms(torch, run, n_copies)
+                p_ms = graph_ms(torch, lambda i: run(i, plain=True),
+                                n_copies)
+                l_ms = graph_ms(torch, lib, n_copies) if lib else None
+            bnd = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append({"kernel": kern, "shape": shape, "y": ydt,
+                         "vectors": vdt, "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": bnd, "library_ms": l_ms,
+                         "max_abs_err": err})
+            log(f"  {kern} {str(shape):22s} y {ydt:8s} vectors {vdt:8s} "
+                f"bit-equal kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
+                f"bound_ms={bnd:.6f} (bytes) share {bnd / k_ms:.3f}"
+                + (f" torch.add_ms={l_ms:.6f}" if l_ms else ""))
+    return rows
+
+
+AM_LIST = ["FullyConnected", "Convolution"]  # MXNet 1.x's BF16_FUNCS
+AM_STEPS = 3
+AM_LOSS_RTOL = 2e-2          # bf16 list vs fp32, each step's mean loss
+AM_DELTA_RTOL = 0.5          # |dW_bf16 - dW_fp32| / |dW_fp32|, all weights
+AM_BERT_PER_STEP = {"matmul_epilogue": 24, "flash_attention": 12,
+                    "flash_attention_bwd_dkv": 12,
+                    "flash_attention_bwd_dq": 12}
+AM_RESNET_PER_STEP = {"conv_epilogue": 48}
+
+
+@contextlib.contextmanager
+def am_dtype_tap():
+    """Within the scope, every launch of K1, K2, K3 and K3-bwd records
+    (kernel, y's dtype, the vectors' dtypes) in the yielded list."""
+    from mxnet_tpu_torch.kernels import conv_epilogue as ce
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import matmul_epilogue as me
+    seen = []
+    old = (ce._launch, me._launch, fa._launch, fa._launch_bwd_kernel)
+
+    def k1(y, scale, bias, res, *a):
+        seen.append(("conv_epilogue", y.dtype,
+                     None if scale is None else scale.dtype))
+        return old[0](y, scale, bias, res, *a)
+
+    def k2(y, bias, *a):
+        seen.append(("matmul_epilogue", y.dtype, bias.dtype))
+        return old[1](y, bias, *a)
+
+    def k3(q, *a):
+        seen.append(("flash_attention", q.dtype, None))
+        return old[2](q, *a)
+
+    def k3b(which, q, *a):
+        seen.append((f"flash_attention_bwd_{which}", q.dtype, None))
+        return old[3](which, q, *a)
+
+    ce._launch, me._launch, fa._launch, fa._launch_bwd_kernel = \
+        k1, k2, k3, k3b
+    try:
+        yield seen
+    finally:
+        ce._launch, me._launch, fa._launch, fa._launch_bwd_kernel = old
+
+
+def am_train(torch, mx, net, loss_fn, make_trainer, batch, listed, steps,
+             per_step, what):
+    """``steps`` eager Trainer steps from the net's current state, under
+    amp.init("bfloat16", target_precision_ops=AM_LIST) with
+    amp.init_trainer / amp.scale_loss (``listed``) or in fp32; returns
+    (losses, step ms, launches, the kernels' dtypes, the weights)."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.contrib import amp
+    x, y = batch
+    trainer = make_trainer()
+    if listed:
+        amp.init("bfloat16", target_precision_ops=AM_LIST)
+        amp.init_trainer(trainer)
+    dense_dtypes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o: dense_dtypes.append(o.dtype))
+        for m in net.modules() if isinstance(m, mx.gluon.nn.Dense)]
+    losses, times = [], []
+    mx.random.seed(SEED)
+    try:
+        _sync(torch)
+        kernels.reset_launch_counts()
+        with am_dtype_tap() as seen:
+            for i in range(steps):
+                t0 = time.perf_counter()
+                with mx.autograd.record():
+                    out = net(x)
+                    out = out[1] if isinstance(out, tuple) else out
+                    loss = loss_fn(out, y)
+                if listed and i == 0:
+                    if loss.dtype != torch.float32 or \
+                            out.dtype != torch.bfloat16:
+                        fail(f"phase 29 {what}: loss {loss.dtype}, output "
+                             f"{out.dtype} under the op list (want "
+                             "float32, bfloat16)")
+                    if set(dense_dtypes) != {torch.bfloat16}:
+                        fail(f"phase 29 {what}: Dense outputs "
+                             f"{set(dense_dtypes)} under the op list")
+                if listed:
+                    with amp.scale_loss(loss, trainer) as scaled:
+                        mx.autograd.backward(scaled)
+                else:
+                    mx.autograd.backward(loss)
+                trainer.step(x.shape[0])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss.detach().mean()))
+                del out, loss
+        launches = kernels.launch_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+        amp.reset()
+    for kernel, n in per_step.items():
+        if launches[kernel] != n * steps:
+            fail(f"phase 29 {what}: {kernel} launched {launches[kernel]} "
+                 f"times in {steps} steps (want {n} per step)")
+    if any(n and k not in per_step for k, n in launches.items()):
+        fail(f"phase 29 {what}: launches {launches} beyond {per_step}")
+    weights = {k: v.detach().clone()
+               for k, v in net.collect_params().items()}
+    if any(w.dtype != torch.float32 for w in weights.values()):
+        fail(f"phase 29 {what}: a parameter left float32")
+    del trainer
+    return losses, times, launches, seen, weights
+
+
+def am_compare(torch, what, init, listed, plain, card):
+    """Hold the op-list run against the fp32 run from the same state: each
+    step's loss within AM_LOSS_RTOL, the weights' change within
+    AM_DELTA_RTOL (L2 over every weight); returns the figures."""
+    l_b, l_f = listed[0], plain[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_b, l_f))
+    num = den = 0.0
+    worst = (0.0, None)
+    for k, w0 in init.items():
+        if not w0.is_floating_point():
+            continue
+        db = listed[4][k].double() - w0.double()
+        df = plain[4][k].double() - w0.double()
+        n, d = float((db - df).norm()) ** 2, float(df.norm()) ** 2
+        num, den = num + n, den + d
+        if d > 0 and (n / d) ** 0.5 > worst[0]:
+            worst = ((n / d) ** 0.5, k)
+    delta_rel = (num / den) ** 0.5 if den else 0.0
+    log(f"  {what}: losses bf16 list {[round(v, 6) for v in l_b]} vs fp32 "
+        f"{[round(v, 6) for v in l_f]}: worst rel {loss_rel:.3e} (gate "
+        f"{AM_LOSS_RTOL:g}); weight change rel L2 {delta_rel:.4f} (gate "
+        f"{AM_DELTA_RTOL:g}), worst tensor {worst[1]} {worst[0]:.4f}; "
+        f"step ms bf16 list {[round(t, 3) for t in listed[1]]}, fp32 "
+        f"{[round(t, 3) for t in plain[1]]}; {card}")
+    if not loss_rel <= AM_LOSS_RTOL or not delta_rel <= AM_DELTA_RTOL:
+        fail(f"phase 29 {what}: the op-list run left the fp32 run "
+             f"(loss rel {loss_rel}, weight change rel {delta_rel})")
+    return {"loss_rel": loss_rel, "delta_rel": delta_rel,
+            "ms_listed": _median(listed[1][1:]),
+            "ms_fp32": _median(plain[1][1:]), "losses": l_b}
+
+
+def am_kernel_dtypes(what, seen, want):
+    """Every launch of the op-list run at the dtypes ``want`` gives
+    ({kernel: (y dtype, vector dtype)})."""
+    got = {}
+    for kernel, ydt, vdt in seen:
+        got.setdefault(kernel, set()).add((ydt, vdt))
+    for kernel, pairs in got.items():
+        if not pairs <= want.get(kernel, set()):
+            fail(f"phase 29 {what}: {kernel} launched at {pairs}, want "
+                 f"{want.get(kernel)}")
+    log(f"  {what}: launch dtypes (y, vectors) "
+        + "; ".join(f"{k} {sorted(str(p) for p in v)}"
+                    for k, v in sorted(got.items())))
+
+
+def am_bert(torch, mx, card, ctx):
+    """(a1) BERT-base MLM, batch 4, S 4096, Adam, under the op list and in
+    fp32 from the same state."""
+    import numpy as np
+    net = seeded_mlm(torch, mx, ctx)
+    ids = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (LONG_BATCH, LONG_SEQ)).astype(np.int32)
+    tokens = torch.from_numpy(ids).to(ctx.torch_device)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    init = {k: v.detach().clone() for k, v in net.collect_params().items()}
+
+    def trainer():
+        return mx.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": TRAIN_LR})
+
+    runs = {}
+    for listed in (True, False):
+        with torch.no_grad():
+            for k, v in net.collect_params().items():
+                v.copy_(init[k])
+        runs[listed] = am_train(torch, mx, net, loss_fn, trainer,
+                                (tokens, tokens), listed, AM_STEPS,
+                                AM_BERT_PER_STEP, "(a1) BERT-base")
+    bf16, f32 = torch.bfloat16, torch.float32
+    am_kernel_dtypes("(a1) BERT-base", runs[True][3], {
+        "matmul_epilogue": {(bf16, f32)},
+        "flash_attention": {(bf16, None)},
+        "flash_attention_bwd_dkv": {(bf16, None)},
+        "flash_attention_bwd_dq": {(bf16, None)}})
+    out = am_compare(torch, "(a1) BERT-base MLM, batch 4, S 4096, Adam",
+                     init, runs[True], runs[False], card)
+    out["launches"] = runs[True][2]
+    del net, init, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def am_resnet(torch, mx, card, ctx):
+    """(a2) ResNet-50 v1, batch 128, SGD, under the op list and in fp32
+    from the same state (cuDNN deterministic)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    dev = ctx.torch_device
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=mx.random.generator(SEED))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(RN_BATCH, 3, RN_SIZE, RN_SIZE)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, (RN_BATCH,))
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        net(x[:1])
+    init = {k: v.detach().clone() for k, v in net.collect_params().items()}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def trainer():
+        return mx.gluon.Trainer(net.collect_params(), "sgd", dict(RN_SGD))
+
+    runs = {}
+    for listed in (True, False):
+        with torch.no_grad():
+            for k, v in net.collect_params().items():
+                v.copy_(init[k])
+        runs[listed] = am_train(torch, mx, net, loss_fn, trainer, (x, y),
+                                listed, AM_STEPS, AM_RESNET_PER_STEP,
+                                "(a2) ResNet-50")
+    # BatchNorm folds its statistics, gamma and beta in fp32 and casts the
+    # scale and offset to x's dtype before the epilogue, as the JAX op
+    # does (mxnet_tpu/ops/nn.py:358-373): bf16 vectors beside a bf16 y
+    bf16 = torch.bfloat16
+    am_kernel_dtypes("(a2) ResNet-50", runs[True][3], {
+        "conv_epilogue": {(bf16, bf16), (bf16, None)}})
+    with_vectors = sum(1 for k, ydt, vdt in runs[True][3] if vdt is not None)
+    if with_vectors != 32 * AM_STEPS:
+        fail(f"phase 29 (a2): {with_vectors} K1 launches with vectors in "
+             f"{AM_STEPS} steps, want 32 per step (the BatchNorm+relu "
+             "pairs)")
+    out = am_compare(torch, f"(a2) ResNet-50 v1, batch {RN_BATCH}, SGD",
+                     init, runs[True], runs[False], card)
+    out["launches"] = runs[True][2]
+    del net, init, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+CF_T, CF_B, CF_U = 32, 64, 768      # (b): steps, batch, Elman width
+CF_STEPS = 3
+CF_RTOL = 1e-4                      # card vs CPU, of max |value|
+SP_VOCAB, SP_DIM, SP_IDS, SP_STEPS = 500000, 64, 8192, 20
+SP_ATOL = 1e-5                      # touched rows, card vs CPU
+
+
+def cf_elman(mx):
+    """(b)'s block: foreach over time of an Elman cell, one
+    Dense(768, tanh) on [x_t, h] (K2: bias + tanh) per step."""
+    import torch
+
+    class ElmanScan(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.cell = mx.gluon.nn.Dense(CF_U, activation="tanh",
+                                          flatten=False, in_units=2 * CF_U)
+
+        def forward(self, x):
+            h0 = torch.zeros(x.shape[1], CF_U, dtype=x.dtype,
+                             device=x.device)
+
+            def step(xt, h):
+                h = self.cell(torch.cat([xt, h], dim=-1))
+                return h, h
+            outs, h = mx.nd.contrib.foreach(step, x, h0)
+            return outs, h
+    return ElmanScan()
+
+
+def cf_train(torch, mx, net, x, y, steps):
+    """``steps`` eager-Trainer Adam steps of an L2 loss on the scan's
+    outputs; returns (losses, the weights, the gradients of the last)."""
+    seq_loss = mx.gluon.loss.L2Loss(batch_axis=1)      # (T, B, U) -> (B,)
+    last_loss = mx.gluon.loss.L2Loss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+    losses = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            outs, h = net(x)
+            loss = seq_loss(outs, y) + last_loss(h, y[-1])
+        mx.autograd.backward(loss)
+        grads = {k: v.grad.detach().cpu().clone()
+                 for k, v in net.collect_params().items()}
+        trainer.step(x.shape[1])
+        losses.append(loss.detach().cpu())
+    return losses, {k: v.detach().cpu().clone()
+                    for k, v in net.collect_params().items()}, grads
+
+
+def cf_beam(mx, trans, L=8, eos=0):
+    """(b)'s while_loop: the greedy decode of tests/test_control_flow.py
+    (an argmax chain with an EOS exit) on tensors."""
+    import torch
+    v = trans.shape[0]
+
+    def cond(step, toks, fin):
+        return (step < L) & (fin.sum() < 1)
+
+    def body(step, toks, fin):
+        cur = toks[step.long()]
+        nxt = trans[cur.long()].reshape(1, v).argmax(-1)
+        col = torch.nn.functional.one_hot(step.long() + 1, L + 1)
+        toks = (toks.reshape(1, L + 1) * (1 - col)
+                + nxt.reshape(1, 1) * col).reshape(L + 1).int()
+        fin = torch.maximum(fin, (nxt == eos).float())
+        return [], [step + 1, toks, fin]
+
+    dev = trans.device
+    _, (steps, toks, fin) = mx.nd.contrib.while_loop(
+        cond, body, [torch.zeros(1, device=dev),
+                     torch.full((L + 1,), 2, dtype=torch.int32, device=dev),
+                     torch.zeros(1, device=dev)], max_iterations=L)
+    return steps, toks
+
+
+def phase29_control_flow(torch, mx, card, ctx):
+    """(b) foreach trained hybridized (graph) and eager on the card, both
+    held against the CPU; while_loop and cond captured against eager."""
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    dev = ctx.torch_device
+    rng = np.random.RandomState(SEED)
+    x_np = (rng.randn(CF_T, CF_B, CF_U) * 0.5).astype(np.float32)
+    y_np = (rng.randn(CF_T, CF_B, CF_U) * 0.5).astype(np.float32)
+    base = cf_elman(mx)
+    base.initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                    generator=mx.random.generator(SEED))
+    with torch.no_grad():
+        base(torch.from_numpy(x_np[:, :1]))
+    state = {k: v.detach().numpy().copy()
+             for k, v in base.collect_params().items()}
+    runs = {}
+    for mode in ("graph", "eager", "cpu"):
+        net = cf_elman(mx)
+        on = mx.cpu() if mode == "cpu" else ctx
+        net.load_dict(state, ctx=on)
+        if mode == "graph":
+            net.hybridize()
+        d = on.torch_device
+        x, y = torch.from_numpy(x_np).to(d), torch.from_numpy(y_np).to(d)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[mode] = cf_train(torch, mx, net, x, y, CF_STEPS)
+        _sync(torch)
+        runs[mode] += ((time.perf_counter() - t0) * 1e3 / CF_STEPS,
+                       kernels.launch_counts()["matmul_epilogue"])
+        del net
+    if runs["eager"][4] != CF_T * CF_STEPS:
+        fail(f"phase 29 (b): K2 launched {runs['eager'][4]} times in "
+             f"{CF_STEPS} eager steps, want {CF_T} per forward")
+    if runs["graph"][4] < CF_T * CF_STEPS:
+        fail(f"phase 29 (b): K2 launched {runs['graph'][4]} times in the "
+             f"graphed steps, want at least {CF_T} per step")
+    g, e, c = runs["graph"], runs["eager"], runs["cpu"]
+    for what in (0, 1, 2):
+        a, b = (g[what], e[what]) if what else (dict(enumerate(g[0])),
+                                                dict(enumerate(e[0])))
+        if not all(torch.equal(a[k], b[k]) for k in b):
+            fail(f"phase 29 (b): the graphed foreach training differs from "
+                 f"the eager one ({('losses', 'weights', 'grads')[what]})")
+    worst = 0.0
+    for what in (1, 2):
+        for k, want in c[what].items():
+            scale = float(want.abs().max()) or 1.0
+            worst = max(worst, float((e[what][k] - want).abs().max())
+                        / scale)
+    for a, b in zip(e[0], c[0]):
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    if worst > CF_RTOL:
+        fail(f"phase 29 (b): card vs CPU {worst:.3e} of max (tolerance "
+             f"{CF_RTOL})")
+    # while_loop and cond inside a capture against eager: a transition
+    # table whose greedy chain 2 -> 3 -> 4 -> 5 -> 1 -> 0 reaches EOS (0)
+    # at step 5 of 8, so the last 3 steps run masked
+    trans_np = rng.rand(6, 6).astype(np.float32)
+    for a, b in ((2, 3), (3, 4), (4, 5), (5, 1), (1, 0), (0, 0)):
+        trans_np[a, b] = 2.0
+
+    class Beam(mx.gluon.HybridBlock):
+        def forward(self, trans):
+            return cf_beam(mx, trans)
+
+    class Select(mx.gluon.HybridBlock):
+        def forward(self, a, b):
+            return mx.nd.contrib.cond((a.sum() > b.sum()).reshape(()),
+                                      lambda: a * 2, lambda: b * 3)
+
+    trans = torch.from_numpy(trans_np).to(dev)
+    beam = Beam()
+    eager_b = beam(trans)
+    beam.hybridize()
+    graph_b = [beam(trans) for _ in range(2)][-1]
+    sel = Select()
+    pairs = [(torch.tensor([2.0], device=dev), torch.tensor([5.0],
+                                                          device=dev)),
+             (torch.tensor([9.0], device=dev), torch.tensor([5.0],
+                                                          device=dev))]
+    eager_s = [sel(a, b) for a, b in pairs]
+    sel.hybridize()
+    graph_s = [sel(a, b) for a, b in pairs]
+    if not (all(torch.equal(a, b) for a, b in zip(eager_b, graph_b))
+            and all(torch.equal(a, b) for a, b in zip(eager_s, graph_s))):
+        fail("phase 29 (b): a captured while_loop or cond differs from "
+             "eager")
+    if dev.type == "cuda" and not len(beam._graphs):
+        fail("phase 29 (b): the hybridized decode captured no program")
+    log(f"  (b) foreach: Elman Dense({CF_U}, tanh) over T {CF_T}, batch "
+        f"{CF_B}, {CF_STEPS} Adam steps: graphed bit-equal to eager "
+        f"(losses, weights, gradients), card vs CPU {worst:.3e} of max "
+        f"(gate {CF_RTOL:g}); K2 {e[4]} eager launches ({CF_T} per "
+        f"forward), {g[4]} graphed (the capture's warm-ups included); ms "
+        f"per step (the first captures) graphed {g[3]:.3f}, eager "
+        f"{e[3]:.3f}; while_loop beam decode ({int(graph_b[0].item())} "
+        f"steps of 8, masked past the exit) and cond captured: equal to "
+        f"eager; {card}")
+    if int(graph_b[0].item()) != 5:
+        fail(f"phase 29 (b): the decode ran {int(graph_b[0].item())} steps, "
+             "want 5")
+    return {"worst": worst, "k2": e[4], "graph_ms": g[3],
+            "eager_ms": e[3]}
+
+
+def sp_net(mx, ctx, sparse, state=None):
+    """(c)'s model: Embedding(500000, 64) -> Dense(256, relu) (K2) ->
+    Dense(64), seeded Xavier weights (or ``state``)."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Embedding(SP_VOCAB, SP_DIM, sparse_grad=sparse),
+            nn.Dense(256, activation="relu", flatten=False, in_units=SP_DIM),
+            nn.Dense(64, flatten=False, in_units=256))
+    if state is None:
+        net.initialize(mx.init.Xavier(), ctx=ctx,
+                       generator=mx.random.generator(SEED))
+    else:
+        net.load_dict(state, ctx=ctx)
+    return net
+
+
+def sp_train(torch, mx, net, ids, targets):
+    """SP_STEPS Adam steps of an L2 loss; returns the step ms."""
+    loss_fn = mx.gluon.loss.L2Loss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+    times = []
+    for i in range(len(ids)):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(ids[i]), targets[i])
+        mx.autograd.backward(loss)
+        trainer.step(ids[i].shape[0])
+        _sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+class StepReluTape:
+    """The relu decisions of K2's epilogue, one site per training step:
+    recorded where the card's backward recomputes them (the plain VJP)
+    and replayed on the CPU in the forward and the backward of each step
+    in turn, as ReluTape does within one ResNet step. A relu input within
+    rounding of 0 takes opposite signs on the card and the CPU, which
+    moves a row's gradient; replaying the signs keeps every decision equal
+    and every value computed apart."""
+
+    def __init__(self, torch):
+        self.torch, self.masks, self.replay = torch, [], False
+        self.differ = self.total = 0
+
+    def __enter__(self):
+        from mxnet_tpu_torch.kernels import matmul_epilogue as me
+        torch, tape = self.torch, self
+        self._saved = me.act_fn
+        fwd, bwd = iter(self.masks), iter(self.masks)
+
+        def act(what, act_type):
+            if act_type != "relu":
+                return tape._saved(what, act_type)
+
+            def relu(p):
+                if tape.replay:
+                    mask = next(bwd if torch.is_grad_enabled() else fwd) \
+                        .to(p.device)
+                    tape.differ += int((mask != (p > 0)).sum())
+                    tape.total += p.numel()
+                else:
+                    mask = p > 0
+                    if torch.is_grad_enabled():
+                        tape.masks.append(mask.cpu())
+                return torch.where(mask, p, torch.zeros((), dtype=p.dtype,
+                                                        device=p.device))
+            return relu
+
+        me.act_fn = act
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.kernels import matmul_epilogue as me
+        me.act_fn = self._saved
+
+
+def phase29_sparse(torch, mx, card, ctx):
+    """(c) Embedding(500000, 64, sparse_grad=True) trained 20 Adam steps of
+    8192 ids on the card: untouched rows bit-unchanged, touched rows equal
+    to the same run on the CPU (the card's relu decisions replayed:
+    StepReluTape); ms per step against sparse_grad=False."""
+    import numpy as np
+    from mxnet_tpu_torch import kernels
+    dev = ctx.torch_device
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, SP_VOCAB, (SP_STEPS, SP_IDS)).astype(np.int32)
+    tg_np = rng.randn(SP_STEPS, SP_IDS, 64).astype(np.float32)
+    net = sp_net(mx, ctx, True)
+    state = {k: v.detach().cpu().numpy().copy()
+             for k, v in net.collect_params().items()}
+    table0 = net[0].weight.detach().clone()
+    ids = [torch.from_numpy(a).to(dev) for a in ids_np]
+    tgs = [torch.from_numpy(a).to(dev) for a in tg_np]
+    kernels.reset_launch_counts()
+    tape = StepReluTape(torch)
+    with tape:
+        sparse_ms = sp_train(torch, mx, net, ids, tgs)
+    k2 = kernels.launch_counts()["matmul_epilogue"]
+    if k2 != SP_STEPS:
+        fail(f"phase 29 (c): K2 launched {k2} times in {SP_STEPS} steps "
+             "(want 1 per step)")
+    table = net[0].weight.detach()
+    touched = torch.zeros(SP_VOCAB, dtype=torch.bool, device=dev)
+    touched[torch.from_numpy(ids_np.reshape(-1).astype(np.int64))
+            .to(dev)] = True
+    if not torch.equal(table[~touched], table0[~touched]):
+        fail("phase 29 (c): a row no batch touched changed")
+    cpu = sp_net(mx, mx.cpu(), True, state)
+    tape.replay = True
+    with tape:
+        sp_train(torch, mx, cpu, [torch.from_numpy(a) for a in ids_np],
+                 [torch.from_numpy(a) for a in tg_np])
+    rows = touched.nonzero().reshape(-1)
+    err = float((table[rows].cpu() - cpu[0].weight.detach()[rows.cpu()])
+                .abs().max())
+    if err > SP_ATOL:
+        fail(f"phase 29 (c): touched rows card vs CPU {err:.3e} (gate "
+             f"{SP_ATOL:g})")
+    del net, cpu
+    dense = sp_net(mx, ctx, False, state)
+    dense_ms = sp_train(torch, mx, dense, ids, tgs)
+    del dense
+    torch.cuda.empty_cache()
+    s_ms, d_ms = _median(sparse_ms[1:]), _median(dense_ms[1:])
+    log(f"  (c) Embedding({SP_VOCAB}, {SP_DIM}, sparse_grad=True) -> "
+        f"Dense(256, relu) -> Dense(64), L2, Adam, {SP_STEPS} steps of "
+        f"{SP_IDS} ids: {int(touched.sum())} rows touched, the other "
+        f"{SP_VOCAB - int(touched.sum())} bit-unchanged; touched rows vs "
+        f"the CPU run {err:.3e} (gate {SP_ATOL:g}; the card's relu "
+        f"decisions replayed on the CPU, {tape.differ} of {tape.total} "
+        f"would have differed); K2 {k2}; median ms per "
+        f"step sparse {s_ms:.3f}, dense {d_ms:.3f} (dense / sparse "
+        f"{d_ms / s_ms:.3f}); {card}")
+    return {"sparse_ms": s_ms, "dense_ms": d_ms, "err": err, "k2": k2,
+            "relu_differ": tape.differ}
+
+
+def phase29_np(torch, mx, card, ctx):
+    """(d) every mx.np / mx.npx case of tools/np_cases.py on the card
+    against the CPU; a CustomOp's forward and backward on card tensors;
+    Custom refused inside a capture."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import np_cases as cases
+
+    def call(ns, name, args, kw, on):
+        fn = ns
+        for part in name.split("."):
+            fn = getattr(fn, part)
+        with on:
+            return fn(*cases.args_of(args, lambda a: mx.np.array(a, ctx=on)),
+                      **kw)
+
+    def host(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(host(e) for e in x)
+        return x.asnumpy() if hasattr(x, "asnumpy") else x
+
+    n = 0
+    for table, ns in ((cases.CASES, mx.np), (cases.NPX_CASES, mx.npx)):
+        for name, (make, tol) in sorted(table.items()):
+            args, kw = make(cases.rng_for(name))
+            got = call(ns, name, args, kw, ctx)
+            for x in (got if isinstance(got, tuple) else (got,)):
+                if hasattr(x, "ctx") and x.ctx != ctx:
+                    fail(f"phase 29 (d): {name} left {ctx}")
+            want = call(ns, name, args, kw, mx.cpu())
+            try:
+                cases.check(host(got), host(want), tol, name)
+            except AssertionError as e:
+                fail(f"phase 29 (d): {name} on the card vs the CPU, "
+                     f"tolerance {tol}: {str(e)[:400]}")
+            n += 1
+
+    @mx.operator.register("chip_scaled_square")
+    class Prop(mx.operator.CustomOpProp):
+        def create_operator(self, c, shapes, dtypes):
+            class Op(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], 3.0 * in_data[0] ** 2)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0],
+                                6.0 * in_data[0] * out_grad[0])
+            return Op()
+
+    x = mx.nd.array(np.float32([[1, -2, 3], [0.5, 0, -1]]), ctx=ctx)
+    x.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.Custom(x, op_type="chip_scaled_square")
+        loss = mx.nd.tanh(y).sum()
+    loss.backward()
+    xn = x.asnumpy()
+    if y.ctx != ctx or not np.allclose(y.asnumpy(), 3 * xn ** 2) or \
+            not np.allclose(x.grad.asnumpy(), (1 - np.tanh(3 * xn ** 2)
+                                               ** 2) * 6 * xn, atol=1e-6):
+        fail("phase 29 (d): the CustomOp's forward or backward on the card")
+    graph = torch.cuda.CUDAGraph()
+    refused = None
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        try:
+            with torch.cuda.graph(graph):
+                mx.nd.Custom(x._data, op_type="chip_scaled_square")
+        except mx.MXNetError as e:
+            refused = str(e)
+    torch.cuda.synchronize()
+    if not refused or "chip_scaled_square" not in refused:
+        fail("phase 29 (d): Custom inside a capture did not raise naming "
+             "the op")
+    log(f"  (d) {n} mx.np / mx.npx cases on the card vs the CPU within "
+        f"tools/np_cases.py's tolerances; CustomOp forward and backward "
+        f"on card tensors; Custom inside a capture raises: {refused[:60]}")
+    return {"cases": n}
+
+
+def phase_item6(torch, mx, card, ctx, ce, me):
+    """Phase 29: item 6's rest on the card — the K1/K2 mixed-dtype repair
+    (k), training under amp.init's bf16 list (a1, a2), control flow (b),
+    sparse (c), mx.np and CustomOp (d). TF32 off; cuDNN deterministic
+    (the graphed-vs-eager and list-vs-fp32 comparisons)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for key, fn in (("k", lambda: am_mixed_kernels(torch, ce, me)),
+                        ("a1", lambda: am_bert(torch, mx, card, ctx)),
+                        ("a2", lambda: am_resnet(torch, mx, card, ctx)),
+                        ("b", lambda: phase29_control_flow(torch, mx, card,
+                                                           ctx)),
+                        ("c", lambda: phase29_sparse(torch, mx, card, ctx)),
+                        ("d", lambda: phase29_np(torch, mx, card, ctx))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            log(f"phase 29 ({key}): {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = old
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
         fail(f"no mxnet_tpu_torch package beside {__file__}: run from the "
@@ -7767,6 +8537,7 @@ def main():
     run("serve-zoo", lambda: phase_serve_zoo(torch, mx, card, mx.gpu(0)))
     run("train-zoo", lambda: phase_train_zoo(torch, mx, card, mx.gpu(0)))
     run("nd", lambda: phase_nd(torch, mx, card, mx.gpu(0)))
+    run("item 6", lambda: phase_item6(torch, mx, card, mx.gpu(0), ce, me))
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
@@ -7782,6 +8553,32 @@ def main():
     tr, fl, dp = out["trace"], out["serve-fleet"], out["serve-deploy"]
     sz, tz = out["serve-zoo"], out["train-zoo"]
     ndk = out["nd"]
+    it6 = out["item 6"]
+
+    def item6(kernel):
+        """The kernel in phase 29: launches under amp.init's bf16 list in
+        (a1) BERT-base and (a2) ResNet-50 over AM_STEPS steps, in (b)'s
+        eager foreach and (c)'s sparse model; K1/K2's times with vectors
+        at another dtype than y's (k)."""
+        runs = {"a1_bert_bf16_list": it6["a1"]["launches"][kernel],
+                "a2_resnet_bf16_list": it6["a2"]["launches"][kernel]}
+        if kernel == "matmul_epilogue":
+            runs["b_foreach_eager"] = it6["b"]["k2"]
+            runs["c_sparse"] = it6["c"]["k2"]
+        row = {"item6_launches": runs,
+               "item6_per": f"phase 29: {AM_STEPS} eager Trainer steps of "
+                            "(a1) and (a2) under amp.init('bfloat16', "
+                            "target_precision_ops=['FullyConnected', "
+                            f"'Convolution']); (b) {CF_STEPS} eager steps; "
+                            f"(c) {SP_STEPS} steps"}
+        mixed = [r for r in it6["k"]
+                 if r["kernel"] == {"conv_epilogue": "K1",
+                                    "matmul_epilogue": "K2"}.get(kernel)]
+        if mixed:
+            row["mixed_dtype"] = [
+                {k: (list(v) if isinstance(v, tuple) else v)
+                 for k, v in r.items()} for r in mixed]
+        return row
 
     def nd_launches(kernel):
         """The kernel's launches through mx.nd in phase 28: per call of
@@ -7939,7 +8736,8 @@ def main():
                            f"v1 at batch {SH_RN_BATCH}, bf16, under None "
                            "and remat=\"dots\" (its 2 eager warm-up passes "
                            "and the capture's replay)",
-        **nd_launches("conv_epilogue")}, {
+        **nd_launches("conv_epilogue"),
+        **item6("conv_epilogue")}, {
         "name": "matmul_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/matmul_epilogue.cu",
         "replaces": "mxnet_tpu/pallas/kernels.py:285",
@@ -8023,7 +8821,8 @@ def main():
                           "replicas' burst A, 1 per batch forward, read "
                           "from their stats frames; decode: the BERT "
                           "burst beside 64 TinyLM streams",
-        **nd_launches("matmul_epilogue")}, {
+        **nd_launches("matmul_epilogue"),
+        **item6("matmul_epilogue")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "
@@ -8045,7 +8844,8 @@ def main():
         **graphed_train(train, "flash_attention"),
         **k3_half_rows(),
         **sharded("flash_attention", ("c",)),
-        **remat("flash_attention"), **nd_launches("flash_attention")}, {
+        **remat("flash_attention"), **nd_launches("flash_attention"),
+        **item6("flash_attention")}, {
         "name": "flash_attention_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1121 (_flash_attention_bwd_dkv) via "
@@ -8061,7 +8861,8 @@ def main():
         **half_rows("dkv"),
         **sharded("flash_attention_bwd_dkv", ("c",)),
         **remat("flash_attention_bwd_dkv"),
-        **nd_launches("flash_attention_bwd_dkv")}, {
+        **nd_launches("flash_attention_bwd_dkv"),
+        **item6("flash_attention_bwd_dkv")}, {
         "name": "flash_attention_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1456 (_flash_attention_bwd_dq) via "
@@ -8077,7 +8878,8 @@ def main():
         **half_rows("dq"),
         **sharded("flash_attention_bwd_dq", ("c",)),
         **remat("flash_attention_bwd_dq"),
-        **nd_launches("flash_attention_bwd_dq")}]}
+        **nd_launches("flash_attention_bwd_dq"),
+        **item6("flash_attention_bwd_dq")}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

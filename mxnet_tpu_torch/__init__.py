@@ -19,20 +19,27 @@ from . import (autograd, contrib, convert, diagnostics, engine, gluon,
                random, resilience, serving)
 from . import callback
 from . import elastic           # after parallel, whose files it reads
+from . import operator          # registers Custom
+from . import (attribute, library, name, numpy_extension, runtime,
+               test_utils, util)
+from . import numpy as np
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 init = initializer
 nd = ndarray
+npx = numpy_extension
 # detection mAP lives beside the classification metrics, one registry
 metric.VOCMApMetric = metric_det.VOCMApMetric
 metric.VOC07MApMetric = metric_det.VOC07MApMetric
 
-__all__ = ["Context", "MXNetError", "autograd", "callback", "contrib",
-           "convert", "cpu", "current_context", "diagnostics", "elastic",
-           "engine", "gluon", "gpu", "guardrails", "init", "initializer",
-           "kernels",
-           "lr_scheduler", "metric", "metric_det", "nd", "ndarray",
-           "observability", "ops", "optimizer", "parallel", "random",
-           "resilience", "serving"]
+__all__ = ["AttrScope", "Context", "MXNetError", "attribute", "autograd",
+           "callback", "contrib", "convert", "cpu", "current_context",
+           "diagnostics", "elastic", "engine", "gluon", "gpu", "guardrails",
+           "init", "initializer", "kernels", "library", "lr_scheduler",
+           "metric", "metric_det", "name", "nd", "ndarray", "np", "npx",
+           "numpy_extension", "observability", "operator", "ops",
+           "optimizer", "parallel", "random", "resilience", "runtime",
+           "serving", "test_utils", "util"]
 __version__ = "0.1.0"

@@ -36,8 +36,8 @@ from .base import MXNetError
 from .context import Context, current_context, resolve_device
 from .ops.registry import get as get_op
 
-__all__ = ["amp_epoch", "as_device", "invoke", "set_amp_cast_hook",
-           "to_tensor"]
+__all__ = ["amp_cast", "amp_epoch", "as_device", "invoke",
+           "set_amp_cast_hook", "to_tensor"]
 
 # Per-op AMP cast policy (ref: the amp_cast pairs of python/mxnet/contrib/
 # amp/lists/symbol_fp16.py): installed by contrib.amp.init with op lists,
@@ -55,6 +55,17 @@ def set_amp_cast_hook(fn):
 def amp_epoch():
     """Monotonic counter of AMP-policy changes."""
     return _amp_epoch
+
+
+def amp_cast(op_name, *tensors, **params):
+    """The per-op AMP policy's inputs for one call of ``op_name`` (a
+    registry name) made outside the registry's dispatch: a Gluon block's
+    op call, where the JAX package's ``F.<op>`` dispatches. Returns the
+    tensors as a list, unchanged when no policy is set (None entries,
+    an absent bias, pass through)."""
+    if _amp_cast_hook is None:
+        return list(tensors)
+    return _amp_cast_hook(op_name, list(tensors), params)
 
 
 def as_device(ctx) -> torch.device:

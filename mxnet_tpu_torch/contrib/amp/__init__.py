@@ -12,45 +12,113 @@ in fp32), and fp16 keeps the reference's :class:`DynamicLossScaler`
 the gradients with one fused reduction and one host read per step in
 fp16, and not at all in bf16.
 
-The per-op cast policy of ``init`` with op lists (a cast hook on the op
-registry's dispatch, ``_dispatch.set_amp_cast_hook``, with the
-reference's fp16/bf16 op lists) is not ported yet: ``init`` with op
-lists raises.
+With op lists, ``init`` also installs a per-op cast policy
+(:class:`_OpCastPolicy`, the reference's amp_cast graph pass): a listed
+op's floating inputs are cast to the listed precision before it runs.
+The hook sits on the registry's dispatch (``_dispatch.invoke``) and on
+every op call of a Gluon block (``_dispatch.amp_cast``), the calls the
+JAX package dispatches through its registry; an op's own internal calls
+are not cast. A policy change bumps ``_dispatch.amp_epoch()``, which the
+captured programs of ``hybridize()`` and ``ShardedTrainer`` key on.
 """
 from __future__ import annotations
 
 import torch
 
-from ...base import MXNetError, dtype_name
+from ... import _dispatch
+from ...base import MXNetError, as_torch_dtype, dtype_name
+from ...ops.registry import get as get_op
 
 __all__ = ["DynamicLossScaler", "amp_dtype", "convert_hybrid_block", "init",
            "init_trainer", "reset", "scale_loss", "unscale"]
 
-_state = {"initialized": False, "dtype": None}
+_state = {"initialized": False, "dtype": None, "lists": None}
+
+# Ops kept in fp32 whenever a per-op policy is active: the core of the
+# reference's FP32_FUNCS (reductions, losses, norms, the exp/log family;
+# ref: amp/lists/symbol_fp16.py), the JAX package's list.
+_DEFAULT_FP32_OPS = (
+    "softmax", "log_softmax", "SoftmaxOutput", "SoftmaxActivation",
+    "norm", "mean", "sum", "exp", "log", "log2", "log10", "expm1",
+    "log1p", "erf", "erfinv", "logsumexp", "smooth_l1", "MakeLoss",
+    "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput",
+)
+
+
+class _OpCastPolicy:
+    """The reference's amp_cast graph pass at dispatch (ref:
+    python/mxnet/contrib/amp/amp.py, lists/symbol_fp16.py): the floating
+    inputs of a listed op are cast on the way in. The fp32 list (with
+    :data:`_DEFAULT_FP32_OPS`) wins over a conditional entry, which wins
+    over the target list; other ops keep their inputs."""
+
+    def __init__(self, target_dtype, target_precision_ops,
+                 conditional_fp32_ops, fp32_ops):
+        self._target = as_torch_dtype(target_dtype)
+        self._target_ops = frozenset(target_precision_ops or ())
+        self._fp32_ops = frozenset(fp32_ops or ()) | \
+            frozenset(_DEFAULT_FP32_OPS)
+        cond = {}
+        for op_name, param, values in (conditional_fp32_ops or ()):
+            vals = values if isinstance(values, (list, tuple, set)) \
+                else [values]
+            cond.setdefault(op_name, []).append((param, set(vals)))
+        self._conditional = cond
+
+    @staticmethod
+    def _cast_all(tensors, dtype):
+        return [t.to(dtype) if isinstance(t, torch.Tensor)
+                and t.is_floating_point() and t.dtype != dtype else t
+                for t in tensors]
+
+    def __call__(self, op_name, tensors, params):
+        if op_name in self._fp32_ops:
+            return self._cast_all(tensors, torch.float32)
+        for param, vals in self._conditional.get(op_name, ()):
+            value = params.get(param)
+            if str(value) in vals or value in vals:
+                return self._cast_all(tensors, torch.float32)
+        if op_name in self._target_ops:
+            return self._cast_all(tensors, self._target)
+        return tensors
 
 
 def init(target_dtype="bfloat16", target_precision_ops=None,
          conditional_fp32_ops=None, fp32_ops=None):
     """ref: amp.init — enable mixed precision process-wide at
-    ``target_dtype`` ("bfloat16" or "float16"). Op lists (a per-op cast
-    policy) raise: the policy over the registry's dispatch is ROADMAP
-    Queue 1 item 6's rest."""
+    ``target_dtype`` ("bfloat16" or "float16").
+
+    Without op lists, AMP is the one cast at the step boundary (read by
+    ``ShardedTrainer``). With any of ``target_precision_ops`` /
+    ``conditional_fp32_ops`` (``(op, param, [values])`` triples) /
+    ``fp32_ops``, a per-op cast policy engages at dispatch; every listed
+    name must be a registered operator. A re-``init`` without lists drops
+    a policy installed before."""
     name = dtype_name(target_dtype)
     if name not in ("float16", "bfloat16"):
         raise MXNetError("AMP target_dtype must be float16 or bfloat16 "
                          "(bfloat16 recommended)")
-    if target_precision_ops or conditional_fp32_ops or fp32_ops:
-        raise MXNetError("amp.init with op lists (a per-op cast policy "
-                         "over the op registry's dispatch) is not ported "
-                         "yet (ROADMAP Queue 1 item 6's rest); call "
-                         f"amp.init({name!r}) for the cast at the step "
-                         "boundary")
     _state.update(initialized=True, dtype=name)
+    if target_precision_ops or conditional_fp32_ops or fp32_ops:
+        for op_name in [*(target_precision_ops or ()),
+                        *(c[0] for c in conditional_fp32_ops or ()),
+                        *(fp32_ops or ())]:
+            get_op(op_name)       # an unknown name raises here
+        policy = _OpCastPolicy(name, target_precision_ops,
+                               conditional_fp32_ops, fp32_ops)
+        _state["lists"] = policy
+        _dispatch.set_amp_cast_hook(policy)
+    else:
+        _state["lists"] = None
+        _dispatch.set_amp_cast_hook(None)
 
 
 def reset():
-    """Disable AMP (a test helper; the reference has no uninit)."""
-    _state.update(initialized=False, dtype=None)
+    """Disable AMP and drop the per-op policy (a test helper; the
+    reference has no uninit)."""
+    _state.update(initialized=False, dtype=None, lists=None)
+    _dispatch.set_amp_cast_hook(None)
 
 
 def amp_dtype():

@@ -55,13 +55,14 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 from torch.nn.parameter import is_lazy
 
+from .. import _dispatch
 from .. import autograd as _autograd
 from .. import kernels as _kernels
 from .. import random as _random
 from ..base import MXNetError
 
 __all__ = ["CudaGraphs", "GraphCache", "Program", "WARMUP_ITERS", "capture",
-           "in_capture", "structure_changed"]
+           "in_capture", "in_program", "structure_changed"]
 
 WARMUP_ITERS = 2          # eager passes on a side stream before a capture
 
@@ -82,6 +83,23 @@ def in_capture() -> bool:
     warm-up or capture): hybridized blocks then run their eager forward
     inside it (ref: ``_rng.in_trace()``)."""
     return getattr(_local, "depth", 0) > 0
+
+
+def in_program() -> bool:
+    """True while a hybridized block's forward runs on this thread as its
+    program: captured on the card, or eagerly where the backend takes no
+    program (the CPU). Control flow then takes the path the JAX package
+    traces (``ops.control_flow``): no host read of a device value."""
+    return in_capture() or getattr(_local, "program", 0) > 0
+
+
+@contextlib.contextmanager
+def _in_program():
+    _local.program = getattr(_local, "program", 0) + 1
+    try:
+        yield
+    finally:
+        _local.program -= 1
 
 
 @contextlib.contextmanager
@@ -484,6 +502,10 @@ class GraphCache:
             prog.retire()
 
     def call(self, block, args, kwargs):
+        with _in_program():
+            return self._call(block, args, kwargs)
+
+    def _call(self, block, args, kwargs):
         tensors = _tensors(args, kwargs)
         devices = {t.device for t in tensors}
         if len(devices) != 1 or not self.backend.accepts(next(iter(devices))):
@@ -498,8 +520,10 @@ class GraphCache:
         params = [p for p in block.parameters() if p.requires_grad]
         recording = _autograd.is_recording() and torch.is_grad_enabled() \
             and (bool(params) or any(t.requires_grad for t in tensors))
+        # the per-op AMP policy's epoch: a program captured under another
+        # policy casts (or not) where this one does not
         key = (bool(block.training), recording, _signature(args, kwargs),
-               device)
+               device, _dispatch.amp_epoch())
         prog = self._program(key, block, args, kwargs, recording, device)
         if not recording:
             prog.load(tensors)

@@ -4,12 +4,16 @@ Each loss is a Block whose ``forward(pred, label, sample_weight=None)``
 returns one loss per sample: the mean over every axis but
 ``batch_axis``. Train with ``mx.autograd.backward(L)`` on that vector
 (MXNet's per-sample convention; ``Trainer.step(batch_size)`` divides by
-the batch)."""
+the batch). The reductions, ``log_softmax``, ``logsumexp`` and ``log``
+pass their inputs through ``amp_cast`` under their registry names, where
+the JAX losses call ``F.<op>``: the per-op AMP policy's fp32 list keeps
+a loss in fp32."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .._dispatch import amp_cast
 from ..base import MXNetError
 from ..ops import nn as _nn
 from ..ops import tensor as _tensor
@@ -47,7 +51,10 @@ class Loss(HybridBlock):
 
     def _mean_over_nonbatch(self, loss):
         axes = [a for a in range(loss.ndim) if a != self._batch_axis]
-        return torch.mean(loss, dim=axes) if axes else loss
+        if not axes:
+            return loss
+        loss, = amp_cast("mean", loss)
+        return torch.mean(loss, dim=axes)
 
 
 class L2Loss(Loss):
@@ -103,12 +110,14 @@ class SigmoidBinaryCrossEntropyLoss(Loss):
                     _softrelu_neg_abs(pred) + torch.relu(-pred))
         else:
             eps = 1e-12
+            p_in, = amp_cast("log", pred + eps)
+            q_in, = amp_cast("log", 1. - pred + eps)
             if pos_weight is None:
-                loss = -(torch.log(pred + eps) * label
-                         + torch.log(1. - pred + eps) * (1. - label))
+                loss = -(torch.log(p_in) * label
+                         + torch.log(q_in) * (1. - label))
             else:
-                loss = -(torch.log(pred + eps) * label * pos_weight
-                         + torch.log(1. - pred + eps) * (1. - label))
+                loss = -(torch.log(p_in) * label * pos_weight
+                         + torch.log(q_in) * (1. - label))
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_over_nonbatch(loss)
 
@@ -148,27 +157,32 @@ class SoftmaxCrossEntropyLoss(Loss):
     def forward(self, pred, label, sample_weight=None):
         axis = self._axis
         if self._sparse_label and not self._from_logits:
-            lse = _tensor.logsumexp(pred, axis=axis, keepdims=True)
-            target = _tensor.pick(pred, label, axis=axis,
+            lse = _tensor.logsumexp(*amp_cast("logsumexp", pred), axis=axis,
+                                    keepdims=True)
+            target = _tensor.pick(*amp_cast("pick", pred, label), axis=axis,
                                   keepdims=True).float()
             if self._smoothing:
                 eps = self._smoothing
                 target = target * (1.0 - eps) + torch.mean(
-                    pred.float(), dim=axis, keepdim=True) * eps
+                    *amp_cast("mean", pred.float()), dim=axis,
+                    keepdim=True) * eps
             loss = _apply_weighting(lse - target, self._weight,
                                     sample_weight)
             return self._mean_over_nonbatch(loss)
         if not self._from_logits:
-            pred = _tensor.log_softmax(pred, axis=axis)
+            pred = _tensor.log_softmax(*amp_cast("log_softmax", pred),
+                                       axis=axis)
         if self._sparse_label:
-            loss = -_tensor.pick(pred, label, axis=axis, keepdims=True)
+            loss = -_tensor.pick(*amp_cast("pick", pred, label), axis=axis,
+                                 keepdims=True)
             if self._smoothing:
                 eps = self._smoothing
                 loss = loss * (1.0 - eps) - torch.mean(
-                    pred, dim=axis, keepdim=True) * eps
+                    *amp_cast("mean", pred), dim=axis, keepdim=True) * eps
         else:
             label = _reshape_like(label, pred)
-            loss = -torch.sum(pred * label, dim=axis, keepdim=True)
+            loss = -torch.sum(*amp_cast("sum", pred * label), dim=axis,
+                              keepdim=True)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_over_nonbatch(loss)
 
@@ -187,8 +201,9 @@ class KLDivLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = _tensor.log_softmax(pred, axis=self._axis)
-        loss = label * (torch.log(label + 1e-12) - pred)
+            pred = _tensor.log_softmax(*amp_cast("log_softmax", pred),
+                                       axis=self._axis)
+        loss = label * (torch.log(*amp_cast("log", label + 1e-12)) - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_over_nonbatch(loss)
 
@@ -270,8 +285,9 @@ class TripletLoss(Loss):
         positive = _reshape_like(positive, pred)
         negative = _reshape_like(negative, pred)
         axes = tuple(range(1, pred.ndim))
-        loss = torch.sum(torch.square(positive - pred)
-                         - torch.square(negative - pred), dim=axes)
+        loss = torch.sum(*amp_cast("sum", torch.square(positive - pred)
+                                   - torch.square(negative - pred)),
+                         dim=axes)
         loss = torch.relu(loss + self._margin)
         return _apply_weighting(loss, self._weight, sample_weight)
 
@@ -311,9 +327,10 @@ class CosineEmbeddingLoss(Loss):
     def forward(self, input1, input2, label, sample_weight=None):
         input1 = _reshape_like(input1, input2)
         def norm(x):
+            x, = amp_cast("norm", x)
             return torch.sqrt(torch.sum(torch.square(x), dim=-1))
 
-        cos = torch.sum(input1 * input2, dim=-1) / (
+        cos = torch.sum(*amp_cast("sum", input1 * input2), dim=-1) / (
             norm(input1) * norm(input2) + 1e-12)
         label = label.reshape((-1,))
         loss = torch.where(label == 1, 1.0 - cos,

@@ -23,6 +23,7 @@ kernels.
 """
 from __future__ import annotations
 
+from ..._dispatch import amp_cast
 from ...base import MXNetError
 from ...ops import contrib as _contrib
 from ...ops import tensor as _tensor
@@ -61,8 +62,9 @@ class MultiHeadAttention(HybridBlock):
 
     def forward(self, x):
         # x: (B, S, C); attention straight off the fused QKV
+        qkv, = amp_cast("_contrib_fused_self_attention", self.qkv(x))
         out = _contrib.fused_self_attention(
-            self.qkv(x), heads=self._num_heads, causal=self._causal,
+            qkv, heads=self._num_heads, causal=self._causal,
             block_size=self._block)
         out = self.proj(out)
         if self.dropout is not None:

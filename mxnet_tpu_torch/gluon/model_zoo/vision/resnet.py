@@ -12,6 +12,7 @@ kernel.
 """
 from __future__ import annotations
 
+from ...._dispatch import amp_cast
 from ....base import MXNetError
 from ....ops import contrib
 from ....ops import nn as _ops_nn
@@ -59,7 +60,8 @@ class BasicBlockV1(HybridBlock):
         x = self.body(x)
         if self.downsample is not None:
             residual = self.downsample(residual)
-        return contrib.conv_epilogue(x, residual)
+        return contrib.conv_epilogue(
+            *amp_cast("_contrib_conv_epilogue", x, residual))
 
 
 class BottleneckV1(HybridBlock):
@@ -85,7 +87,8 @@ class BottleneckV1(HybridBlock):
         x = self.body(x)
         if self.downsample is not None:
             residual = self.downsample(residual)
-        return contrib.conv_epilogue(x, residual)
+        return contrib.conv_epilogue(
+            *amp_cast("_contrib_conv_epilogue", x, residual))
 
 
 class BasicBlockV2(HybridBlock):
@@ -104,11 +107,13 @@ class BasicBlockV2(HybridBlock):
 
     def forward(self, x):
         residual = x
-        x = _ops_nn.activation(self.bn1(x), act_type="relu")
+        x = _ops_nn.activation(
+            *amp_cast("Activation", self.bn1(x)), act_type="relu")
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = _ops_nn.activation(self.bn2(x), act_type="relu")
+        x = _ops_nn.activation(
+            *amp_cast("Activation", self.bn2(x)), act_type="relu")
         return self.conv2(x) + residual
 
 
@@ -132,13 +137,16 @@ class BottleneckV2(HybridBlock):
 
     def forward(self, x):
         residual = x
-        x = _ops_nn.activation(self.bn1(x), act_type="relu")
+        x = _ops_nn.activation(
+            *amp_cast("Activation", self.bn1(x)), act_type="relu")
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = _ops_nn.activation(self.bn2(x), act_type="relu")
+        x = _ops_nn.activation(
+            *amp_cast("Activation", self.bn2(x)), act_type="relu")
         x = self.conv2(x)
-        x = _ops_nn.activation(self.bn3(x), act_type="relu")
+        x = _ops_nn.activation(
+            *amp_cast("Activation", self.bn3(x)), act_type="relu")
         return self.conv3(x) + residual
 
 

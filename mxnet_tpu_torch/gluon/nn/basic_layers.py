@@ -3,6 +3,9 @@
 
 Each layer is a thin Block over one operator function of
 :mod:`mxnet_tpu_torch.ops`; parameter names match the JAX package's.
+Each op call passes its inputs through ``amp_cast`` under the op's
+registry name, as the JAX layer's ``F.<op>`` call goes through the
+registry's dispatch (the per-op policy of ``amp.init`` with op lists).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 
 from ... import autograd as _autograd
 from ... import initializer as _initializer
+from ..._dispatch import amp_cast
 from ...base import MXNetError
 from ...ops import contrib as _contrib
 from ...ops import nn as _nn
@@ -92,20 +96,27 @@ class Dense(DeferredParams, HybridBlock):
     def forward(self, x):
         bias = self.bias if self._use_bias else None
         if self._fuse:
-            out = _nn.fully_connected(x, self.weight, num_hidden=self._units,
+            x, w = amp_cast("FullyConnected", x, self.weight)
+            out = _nn.fully_connected(x, w, num_hidden=self._units,
                                       no_bias=True, flatten=self._flatten)
+            act_type = self._activation or "identity"
+            out, bias = amp_cast("_contrib_matmul_epilogue", out, bias,
+                                 act_type=act_type)
             return _contrib.matmul_epilogue(
-                out, bias, act_type=self._activation or "identity",
-                p=self._epilogue_dropout, training=self.training)
-        out = _nn.fully_connected(x, self.weight, bias,
-                                  num_hidden=self._units,
+                out, bias, act_type=act_type, p=self._epilogue_dropout,
+                training=self.training)
+        x, w, bias = amp_cast("FullyConnected", x, self.weight, bias)
+        out = _nn.fully_connected(x, w, bias, num_hidden=self._units,
                                   no_bias=bias is None,
                                   flatten=self._flatten)
         if self._activation == "gelu":
+            out, = amp_cast("LeakyReLU", out, act_type="gelu")
             out = _nn.leaky_relu(out, act_type="gelu")
         elif self._activation is not None:
+            out, = amp_cast("Activation", out, act_type=self._activation)
             out = _nn.activation(out, act_type=self._activation)
         if self._epilogue_dropout > 0:
+            out, = amp_cast("Dropout", out)
             out = _nn.dropout(out, p=self._epilogue_dropout,
                               training=self.training)
         return out
@@ -127,6 +138,7 @@ class Dropout(HybridBlock):
     def forward(self, x):
         if self._rate <= 0:
             return x
+        x, = amp_cast("Dropout", x)
         return _nn.dropout(x, p=self._rate, axes=self._axes,
                            training=self.training)
 
@@ -178,8 +190,11 @@ class BatchNorm(DeferredParams, HybridBlock):
 
     def forward(self, x):
         training = self.training
+        x, gamma, beta, rmean, rvar = amp_cast(
+            "BatchNorm", x, self.gamma, self.beta, self.running_mean,
+            self.running_var, act_type=self._activation)
         out, mean, var = _nn.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            x, gamma, beta, rmean, rvar,
             eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale, axis=self._axis,
             use_global_stats=self._use_global_stats,
@@ -250,8 +265,9 @@ class GroupNorm(_ChannelNorm):
         self._num_groups = num_groups
 
     def forward(self, x):
-        return _nn.group_norm(x, self.gamma, self.beta,
-                              num_groups=self._num_groups, eps=self._epsilon)
+        x, gamma, beta = amp_cast("GroupNorm", x, self.gamma, self.beta)
+        return _nn.group_norm(x, gamma, beta, num_groups=self._num_groups,
+                              eps=self._epsilon)
 
     def extra_repr(self):
         return f"num_groups={self._num_groups}, eps={self._epsilon}"
@@ -268,7 +284,8 @@ class InstanceNorm(_ChannelNorm):
                          gamma_initializer, in_channels)
 
     def forward(self, x):
-        return _nn.instance_norm(x, self.gamma, self.beta, eps=self._epsilon)
+        x, gamma, beta = amp_cast("InstanceNorm", x, self.gamma, self.beta)
+        return _nn.instance_norm(x, gamma, beta, eps=self._epsilon)
 
     def extra_repr(self):
         return f"eps={self._epsilon}"
@@ -295,7 +312,8 @@ class LayerNorm(DeferredParams, HybridBlock):
         self._set_shape("beta", (channels,))
 
     def forward(self, x):
-        return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+        x, gamma, beta = amp_cast("LayerNorm", x, self.gamma, self.beta)
+        return _nn.layer_norm(x, gamma, beta, axis=self._axis,
                               eps=self._epsilon)
 
     def extra_repr(self):
@@ -304,18 +322,28 @@ class LayerNorm(DeferredParams, HybridBlock):
 
 class Embedding(DeferredParams, HybridBlock):
     """Lookup table (ref: nn.Embedding); out-of-range ids give NaN rows,
-    as in the JAX package (see :func:`ops.nn.embedding`)."""
+    as in the JAX package (see :func:`ops.nn.embedding`). With
+    ``sparse_grad`` the weight's ``grad_stype`` is "row_sparse" and a
+    recorded eager forward gives it a gradient of the touched rows alone
+    (``ndarray.sparse.sparse_embedding``), which the Trainer applies
+    lazily; a hybridized block keeps a dense gradient."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False):
         super().__init__()
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = bool(sparse_grad)
         self._declare("weight", (input_dim, output_dim), weight_initializer,
-                      dtype)
+                      dtype, grad_stype="row_sparse" if sparse_grad
+                      else "default")
 
     def forward(self, x):
-        return _nn.embedding(x, self.weight, input_dim=self._input_dim,
+        x, w = amp_cast("Embedding", x, self.weight,
+                        sparse_grad=self._sparse_grad)
+        if self._sparse_grad:
+            return _nn._sparse_embedding(x, w)
+        return _nn.embedding(x, w, input_dim=self._input_dim,
                              output_dim=self._output_dim)
 
     def extra_repr(self):
@@ -386,6 +414,7 @@ class Activation(HybridBlock):
         self._act_type = activation
 
     def forward(self, x):
+        x, = amp_cast("Activation", x, act_type=self._act_type)
         return _nn.activation(x, act_type=self._act_type)
 
     def extra_repr(self):
@@ -396,6 +425,7 @@ class Flatten(HybridBlock):
     """ref: nn.Flatten."""
 
     def forward(self, x):
+        x, = amp_cast("Flatten", x)
         return _tensor.flatten(x)
 
 
@@ -407,6 +437,7 @@ class LeakyReLU(HybridBlock):
         self._alpha = alpha
 
     def forward(self, x):
+        x, = amp_cast("LeakyReLU", x, act_type="leaky")
         return _nn.leaky_relu(x, act_type="leaky", slope=self._alpha)
 
     def extra_repr(self):
@@ -425,7 +456,8 @@ class PReLU(DeferredParams, HybridBlock):
         self._declare("alpha", (in_channels,), alpha_initializer)
 
     def forward(self, x):
-        return _nn.leaky_relu(x, self.alpha, act_type="prelu")
+        x, alpha = amp_cast("LeakyReLU", x, self.alpha, act_type="prelu")
+        return _nn.leaky_relu(x, alpha, act_type="prelu")
 
 
 class ELU(HybridBlock):
@@ -436,6 +468,7 @@ class ELU(HybridBlock):
         self._alpha = alpha
 
     def forward(self, x):
+        x, = amp_cast("LeakyReLU", x, act_type="elu")
         return _nn.leaky_relu(x, act_type="elu", slope=self._alpha)
 
 
@@ -443,6 +476,7 @@ class SELU(HybridBlock):
     """ref: nn.SELU."""
 
     def forward(self, x):
+        x, = amp_cast("LeakyReLU", x, act_type="selu")
         return _nn.leaky_relu(x, act_type="selu")
 
 
@@ -450,6 +484,7 @@ class GELU(HybridBlock):
     """ref: nn.GELU — exact-erf gelu (the LeakyReLU op's gelu mode)."""
 
     def forward(self, x):
+        x, = amp_cast("LeakyReLU", x, act_type="gelu")
         return _nn.leaky_relu(x, act_type="gelu")
 
 

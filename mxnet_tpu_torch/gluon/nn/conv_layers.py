@@ -2,6 +2,7 @@
 ``mxnet_tpu/gluon/nn/conv_layers.py``). Channel-first layouts only."""
 from __future__ import annotations
 
+from ..._dispatch import amp_cast
 from ...base import MXNetError
 from ...ops import nn as _nn
 from ...ops import tensor as _tensor
@@ -69,9 +70,12 @@ class _Conv(DeferredParams, HybridBlock):
 
     def forward(self, x):
         op = _nn.deconvolution if self._transpose else _nn.convolution
-        out = op(x, self.weight, self.bias if self._use_bias else None,
-                 **self._kwargs)
+        x, w, b = amp_cast(
+            "Deconvolution" if self._transpose else "Convolution", x,
+            self.weight, self.bias if self._use_bias else None)
+        out = op(x, w, b, **self._kwargs)
         if self._activation is not None:
+            out, = amp_cast("Activation", out, act_type=self._activation)
             out = _nn.activation(out, act_type=self._activation)
         return out
 
@@ -171,6 +175,7 @@ class _Pooling(HybridBlock):
         }
 
     def forward(self, x):
+        x, = amp_cast("Pooling", x, **self._kwargs)
         return _nn.pooling(x, **self._kwargs)
 
     def extra_repr(self):
@@ -262,6 +267,7 @@ class ReflectionPad2D(HybridBlock):
         self._padding = tuple(padding)
 
     def forward(self, x):
+        x, = amp_cast("pad", x, mode="reflect")
         return _tensor.pad(x, mode="reflect", pad_width=self._padding)
 
     def extra_repr(self):

@@ -24,7 +24,7 @@ from ..base import MXNetError, as_torch_dtype
 
 __all__ = ["DeferredInitializationError", "DeferredParams", "ParamSpec"]
 
-MULTIPLIERS = ("lr_mult", "wd_mult")
+MULTIPLIERS = ("lr_mult", "wd_mult", "grad_stype")
 
 
 class DeferredInitializationError(MXNetError):
@@ -37,7 +37,10 @@ class ParamSpec:
     """What a layer declared for one parameter: ``shape`` (0 = inferred
     from the input), its own initializer (None = the global one passed to
     ``initialize``), dtype, and whether it is auxiliary state (a buffer,
-    like BatchNorm's running statistics)."""
+    like BatchNorm's running statistics). ``grad_stype`` "row_sparse"
+    marks a weight whose gradient may be a sparse COO tensor of touched
+    rows (``nn.Embedding(sparse_grad=True)``); the tensor carries it as
+    an attribute beside its multipliers."""
 
     shape: tuple
     init: object = None
@@ -46,6 +49,7 @@ class ParamSpec:
     differentiable: bool = True
     lr_mult: float = 1.0
     wd_mult: float = 1.0
+    grad_stype: str = "default"
 
     @property
     def complete(self) -> bool:
@@ -63,10 +67,14 @@ class DeferredParams(LazyModuleMixin):
         self._init_plan = None       # (initializer, generator, device)
 
     def _declare(self, name, shape, init=None, dtype="float32", aux=False,
-                 differentiable=True, lr_mult=1.0, wd_mult=1.0):
+                 differentiable=True, lr_mult=1.0, wd_mult=1.0,
+                 grad_stype="default"):
+        if grad_stype not in ("default", "row_sparse"):
+            raise MXNetError(f"grad_stype {grad_stype!r}: must be "
+                             "'default' or 'row_sparse'")
         spec = ParamSpec(tuple(int(s) for s in shape), init,
                          as_torch_dtype(dtype), aux, differentiable,
-                         lr_mult, wd_mult)
+                         lr_mult, wd_mult, grad_stype)
         self._specs[name] = spec
         self._reset_lazy(name, spec, None)
 

@@ -30,6 +30,14 @@ of the dict (weights and buffers, ``<prefix>.params``, keyed by the
 dict's names) and the states. A load copies into the live tensors in
 place. With ``GuardConfig(ckpt_root=)`` a divergence restores the
 newest valid step and backs the lr off.
+
+A weight whose gradient is a sparse COO tensor (``nn.Embedding(
+sparse_grad=True)``, ``grad_stype`` "row_sparse") is updated on its
+touched rows alone (``Optimizer.update_row_sparse``, the reference's
+lazy update), and the guard reads and clips those rows' values. The
+gradient is then marked consumed: a ``step`` without a new backward
+applies nothing to that weight, where a dense weight gets a zero
+gradient.
 """
 from __future__ import annotations
 
@@ -47,6 +55,16 @@ from ..parallel import _ckpt
 from ..resilience.atomic import atomic_write
 
 __all__ = ["Trainer"]
+
+
+def _values(grad):
+    """What the guard reads and clips of a gradient: a sparse one's stored
+    values (a view: clipping them scales the gradient)."""
+    return grad._values() if grad.is_sparse else grad
+
+
+def _consumed(grad):
+    return grad.is_sparse and getattr(grad, "_mx_consumed", False)
 
 
 class Trainer:
@@ -148,7 +166,8 @@ class Trainer:
         scaler = self._active_scaler()
         if scaler is None and self._guard_cfg is None:
             return True
-        grads = [p.grad for p in self._params if p.grad is not None]
+        grads = [_values(p.grad) for p in self._params
+                 if p.grad is not None and not _consumed(p.grad)]
         mean = None if loss is None else torch.mean(loss.float())
         finite, gnorm = fused.guard_stats(grads, mean)
         row = [finite.float(), gnorm] + ([] if mean is None else [mean])
@@ -293,6 +312,10 @@ class Trainer:
                 grad = weight.grad
                 if grad is None:
                     grad = torch.zeros_like(weight)
+                elif grad.is_sparse:
+                    if _consumed(grad):
+                        continue      # a stale sparse gradient: no rows
+                    grad._mx_consumed = True
                 self._updater(i, grad, weight)
         scaler = self._active_scaler()
         if scaler is not None:

@@ -44,6 +44,25 @@ def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
             for piece, ctx in zip(slices, ctx_list)]
 
 
+def _stored(arr):
+    """The tensor whose values an array stores: a row-sparse array's rows,
+    a sparse COO tensor's values (a view), an NDArray's tensor."""
+    from ..ndarray.sparse import RowSparseNDArray
+    if isinstance(arr, RowSparseNDArray):
+        return arr.data
+    if hasattr(arr, "_data"):
+        return arr._data
+    if arr.is_sparse:
+        if not arr.is_coalesced():
+            raise MXNetError("clip_global_norm: coalesce the sparse "
+                             "gradient first (duplicate rows)")
+        return arr._values()
+    if arr.layout != torch.strided:
+        raise MXNetError(f"clip_global_norm: layout {arr.layout} is not "
+                         "taken")
+    return arr
+
+
 def clip_global_norm(arrays, max_norm, check_isfinite=True,
                      global_norm=None):
     """Scale ``arrays`` in place so that their joint L2 norm is at most
@@ -57,15 +76,13 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True,
     not finite, and scales only when the factor is below 1. Without, it
     makes no host read: the factor ``min(1, max_norm / (norm + 1e-8))``,
     1 for a non-finite norm, scales every array on the device, and the
-    norm comes back as a 0-d fp32 tensor. Sparse arrays raise: row-sparse
-    storage (``ndarray/sparse.py``) is ROADMAP Queue 1 item 6's rest."""
+    norm comes back as a 0-d fp32 tensor. Row-sparse arrays (a
+    :class:`~..ndarray.sparse.RowSparseNDArray` or a sparse COO tensor,
+    coalesced) take part through their stored rows alone, scaled in
+    place (ref: gluon/utils.py clips row_sparse gradients)."""
     if not arrays:
         raise MXNetError("clip_global_norm: empty array list")
-    arrays = list(arrays)
-    if any(a.layout != torch.strided for a in arrays):
-        raise MXNetError("clip_global_norm: sparse (row_sparse) arrays are "
-                         "not ported yet: ROADMAP Queue 1 item 6's rest "
-                         "(ndarray/sparse.py)")
+    arrays = [_stored(a) for a in arrays]
     if global_norm is not None:
         norm_dev = torch.as_tensor(global_norm, device=arrays[0].device) \
             .detach().float()

@@ -102,7 +102,9 @@ def act_fn(what, act_type):
 def check_cuda_inputs(what, y, named):
     """Raise on anything a kernel does not take. ``named`` lists
     ``(name, tensor or None, dtype)`` beside ``y``; a dtype of None means
-    ``y``'s."""
+    any floating dtype a kernel instantiates (:data:`DTYPE_CODE`): the
+    epilogues read each operand at its own precision, as the JAX
+    reference does."""
     if y.dtype not in DTYPE_CODE:
         raise MXNetError(f"{what}: dtype {y.dtype} not supported; one of "
                          f"{list(DTYPE_CODE)}")
@@ -112,11 +114,13 @@ def check_cuda_inputs(what, y, named):
     for name, t, dtype in (("y", y, None), *named):
         if t is None:
             continue
-        want = y.dtype if dtype is None else dtype
         if t.device != y.device:
             raise MXNetError(f"{what}: {name} on {t.device}, y on "
                              f"{y.device}")
-        if t.dtype != want:
-            raise MXNetError(f"{what}: {name} is {t.dtype}, want {want}")
+        if dtype is None and t.dtype not in DTYPE_CODE:
+            raise MXNetError(f"{what}: {name} is {t.dtype}, want one of "
+                             f"{list(DTYPE_CODE)}")
+        if dtype is not None and t.dtype != dtype:
+            raise MXNetError(f"{what}: {name} is {t.dtype}, want {dtype}")
         if not t.is_contiguous():
             raise MXNetError(f"{what}: {name} is not contiguous")

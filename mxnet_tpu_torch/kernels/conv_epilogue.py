@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/pallas/kernels.py`` (``_conv_epilogue_ref``,
 ``_conv_epilogue_call`` and the N-D wrapper ``fused_conv_epilogue``).
-The math runs in fp32 and the result is cast back to ``y``'s dtype;
+The math runs in fp32 and the result is cast back to ``y``'s dtype
+(``scale``, ``bias`` and ``res`` are each read at their own dtype);
 ``act`` is one of identity, relu, exact-erf gelu, tanh, sigmoid.
 
 - :func:`conv_epilogue_plain` is the plain PyTorch version: the CPU
@@ -64,7 +65,7 @@ def _lib():
     lib = _build.load("conv_epilogue")
     fn = lib.conv_epilogue_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.conv_epilogue_error_string.argtypes = [ctypes.c_int]
     lib.conv_epilogue_error_string.restype = ctypes.c_char_p
@@ -85,7 +86,9 @@ def _launch(y, scale, bias, res, act_type, mode, c, inner):
         y.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if res is None else res.data_ptr(), out.data_ptr(),
-        n, c, inner, mode, ACT_CODE[act_type], DTYPE_CODE[y.dtype], stream)
+        n, c, inner, mode, ACT_CODE[act_type], DTYPE_CODE[y.dtype],
+        *(DTYPE_CODE[(y if t is None else t).dtype]
+          for t in (scale, bias, res)), stream)
     if err != 0:
         raise MXNetError("conv epilogue kernel launch failed: "
                          + lib.conv_epilogue_error_string(err).decode())

@@ -1,6 +1,7 @@
 // Device helpers shared by the epilogue kernels (K1 conv_epilogue.cu, K2
 // matmul_epilogue.cu): the codes the Python wrappers pass, fp32 loads and
-// stores of the three element types, and the five activations. The
+// stores of the three element types, loads of an operand whose element
+// type is a run-time code, and the five activations. The
 // flash-attention kernel (flash_attention.cu) uses the dtype codes and the
 // loads and stores.
 //
@@ -51,6 +52,22 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
+}
+
+// element i of an operand whose dtype is the run-time code dt (a bias,
+// scale or residual read at its own precision, whatever y's is). The code
+// is the same for every thread of a launch, so the switch never diverges.
+__device__ __forceinline__ float load_f32(const void* __restrict__ p,
+                                          int64_t i, int dt) {
+  if (dt == DT_BF16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  }
+  if (dt == DT_F16) return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+inline bool valid_dtype(int dt) {
+  return dt == DT_F32 || dt == DT_BF16 || dt == DT_F16;
 }
 
 template <int ACT> __device__ __forceinline__ float activate(float x) {

@@ -1,7 +1,9 @@
 // K2, the matmul epilogue: out = dropout(act(y + bias)), fp32 math, stored
-// in y's dtype. y is the (R, C) output of a matrix product; dropout keeps
-// an element where its uint8 bits >= threshold and scales it by
-// inv_keep = 1 / (1 - p), else writes 0.
+// in y's dtype. The bias is read at its own dtype (fp32, bf16 or f16, a
+// run-time code), as the JAX reference reads it: under AMP a Dense layer's
+// product is bf16 while its bias stays an fp32 parameter. y is the (R, C)
+// output of a matrix product; dropout keeps an element where its uint8
+// bits >= threshold and scales it by inv_keep = 1 / (1 - p), else writes 0.
 //
 // Replaces the Pallas TPU kernel mxnet_tpu/pallas/kernels.py
 // _matmul_epilogue_call (entered through _matmul_epilogue_pallas, the N-D
@@ -54,9 +56,9 @@ enum Mode { MODE_COL = 1, MODE_ROW = 2 };
 
 // one element: dropout(act(y + b)), rounded to T once
 template <typename T, int ACT, bool DROP>
-__device__ __forceinline__ T epilogue(T y, T b, unsigned bits,
+__device__ __forceinline__ T epilogue(T y, float b, unsigned bits,
                                       unsigned threshold, float inv_keep) {
-  float v = activate<ACT>(__fadd_rn(to_f32(y), to_f32(b)));
+  float v = activate<ACT>(__fadd_rn(to_f32(y), b));
   if (DROP) v = bits >= threshold ? __fmul_rn(v, inv_keep) : 0.0f;
   return from_f32<T>(v);
 }
@@ -70,7 +72,7 @@ template <> struct BitsVec<4> { using type = uint32_t; };
 template <typename T, int ACT, int MODE, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 matmul_epilogue_vec_kernel(const T* __restrict__ y,
-                           const T* __restrict__ bias,
+                           const void* __restrict__ bias, int bdt,
                            const uint8_t* __restrict__ bits,
                            T* __restrict__ out, int64_t rows, int64_t cv,
                            unsigned threshold, float inv_keep) {
@@ -82,10 +84,10 @@ matmul_epilogue_vec_kernel(const T* __restrict__ y,
   const int64_t step = static_cast<int64_t>(blockDim.x) * gridDim.x / cv;
   const int64_t col = start % cv;
   int64_t row = start / cv;
-  alignas(16) T bv[N];
+  float bv[N];
   if (MODE == MODE_COL && row < rows) {
-    *reinterpret_cast<uint4*>(bv) =
-        *reinterpret_cast<const uint4*>(bias + col * N);
+#pragma unroll
+    for (int e = 0; e < N; ++e) bv[e] = load_f32(bias, col * N + e, bdt);
   }
   for (; row < rows; row += step) {
     const int64_t at = (row * cv + col) * N;
@@ -96,7 +98,7 @@ matmul_epilogue_vec_kernel(const T* __restrict__ y,
     if (DROP) {
       *reinterpret_cast<B*>(kv) = *reinterpret_cast<const B*>(bits + at);
     }
-    const T br = MODE == MODE_ROW ? bias[row] : from_f32<T>(0.0f);
+    const float br = MODE == MODE_ROW ? load_f32(bias, row, bdt) : 0.0f;
 #pragma unroll
     for (int e = 0; e < N; ++e) {
       ov[e] = epilogue<T, ACT, DROP>(yv[e], MODE == MODE_COL ? bv[e] : br,
@@ -109,7 +111,8 @@ matmul_epilogue_vec_kernel(const T* __restrict__ y,
 
 template <typename T, typename I, int ACT, int MODE, bool DROP>
 __global__ void __launch_bounds__(kThreads)
-matmul_epilogue_kernel(const T* __restrict__ y, const T* __restrict__ bias,
+matmul_epilogue_kernel(const T* __restrict__ y,
+                       const void* __restrict__ bias, int bdt,
                        const uint8_t* __restrict__ bits,
                        T* __restrict__ out, I n, I c, unsigned threshold,
                        float inv_keep) {
@@ -118,7 +121,7 @@ matmul_epilogue_kernel(const T* __restrict__ y, const T* __restrict__ bias,
              static_cast<I>(threadIdx.x);
        i < n; i += stride) {
     const I b = (MODE == MODE_COL) ? (i % c) : (i / c);
-    out[i] = epilogue<T, ACT, DROP>(y[i], bias[b],
+    out[i] = epilogue<T, ACT, DROP>(y[i], load_f32(bias, b, bdt),
                                     DROP ? static_cast<unsigned>(bits[i])
                                          : 0u,
                                     threshold, inv_keep);
@@ -137,13 +140,13 @@ int64_t gcd(int64_t a, int64_t b) {
 // the vector pass over the (n / c, c / N) vectors, when every pointer and
 // C allow it; returns false (nothing launched) when they do not
 template <typename T, int ACT, int MODE>
-bool launch_vec(const void* y, const void* bias, const void* bits,
+bool launch_vec(const void* y, const void* bias, int bdt, const void* bits,
                 void* out, int64_t n, int64_t c, unsigned threshold,
                 float inv_keep, cudaStream_t stream) {
   constexpr int N = 16 / sizeof(T);
   const uintptr_t mis =
-      (reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out) |
-       (MODE == MODE_COL ? reinterpret_cast<uintptr_t>(bias) : 0)) & 15;
+      (reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out)) &
+      15;
   if (c % N != 0 || mis != 0 ||
       (reinterpret_cast<uintptr_t>(bits) & (N - 1)) != 0) {
     return false;
@@ -158,43 +161,44 @@ bool launch_vec(const void* y, const void* bias, const void* bits,
   blocks = (blocks + unit - 1) / unit * unit;
   if (blocks > 0x7fffffffLL) return false;
   const T* yp = static_cast<const T*>(y);
-  const T* bp = static_cast<const T*>(bias);
   const uint8_t* kp = static_cast<const uint8_t*>(bits);
   T* op = static_cast<T*>(out);
   const unsigned grid = static_cast<unsigned>(blocks);
   if (bits != nullptr) {
     matmul_epilogue_vec_kernel<T, ACT, MODE, true>
-        <<<grid, kThreads, 0, stream>>>(yp, bp, kp, op, rows, cv, threshold,
-                                        inv_keep);
+        <<<grid, kThreads, 0, stream>>>(yp, bias, bdt, kp, op, rows, cv,
+                                        threshold, inv_keep);
   } else {
     matmul_epilogue_vec_kernel<T, ACT, MODE, false>
-        <<<grid, kThreads, 0, stream>>>(yp, bp, kp, op, rows, cv, threshold,
-                                        inv_keep);
+        <<<grid, kThreads, 0, stream>>>(yp, bias, bdt, kp, op, rows, cv,
+                                        threshold, inv_keep);
   }
   return true;
 }
 
 template <typename T, typename I, int ACT, int MODE>
-cudaError_t launch_drop(const void* y, const void* bias, const void* bits,
-                        void* out, int64_t n, int64_t c, unsigned threshold,
-                        float inv_keep, cudaStream_t stream) {
-  if (launch_vec<T, ACT, MODE>(y, bias, bits, out, n, c, threshold,
+cudaError_t launch_drop(const void* y, const void* bias, int bdt,
+                        const void* bits, void* out, int64_t n, int64_t c,
+                        unsigned threshold, float inv_keep,
+                        cudaStream_t stream) {
+  if (launch_vec<T, ACT, MODE>(y, bias, bdt, bits, out, n, c, threshold,
                                inv_keep, stream)) {
     return cudaGetLastError();
   }
   const unsigned blocks = grid_for(n);
   const T* yp = static_cast<const T*>(y);
-  const T* bp = static_cast<const T*>(bias);
   const uint8_t* kp = static_cast<const uint8_t*>(bits);
   T* op = static_cast<T*>(out);
   if (bits != nullptr) {
     matmul_epilogue_kernel<T, I, ACT, MODE, true>
-        <<<blocks, kThreads, 0, stream>>>(yp, bp, kp, op, static_cast<I>(n),
+        <<<blocks, kThreads, 0, stream>>>(yp, bias, bdt, kp, op,
+                                          static_cast<I>(n),
                                           static_cast<I>(c), threshold,
                                           inv_keep);
   } else {
     matmul_epilogue_kernel<T, I, ACT, MODE, false>
-        <<<blocks, kThreads, 0, stream>>>(yp, bp, kp, op, static_cast<I>(n),
+        <<<blocks, kThreads, 0, stream>>>(yp, bias, bdt, kp, op,
+                                          static_cast<I>(n),
                                           static_cast<I>(c), threshold,
                                           inv_keep);
   }
@@ -202,16 +206,16 @@ cudaError_t launch_drop(const void* y, const void* bias, const void* bits,
 }
 
 template <typename T, typename I, int ACT>
-cudaError_t launch_mode(int mode, const void* y, const void* bias,
+cudaError_t launch_mode(int mode, const void* y, const void* bias, int bdt,
                         const void* bits, void* out, int64_t n, int64_t c,
                         unsigned threshold, float inv_keep,
                         cudaStream_t stream) {
   switch (mode) {
     case MODE_COL:
-      return launch_drop<T, I, ACT, MODE_COL>(y, bias, bits, out, n, c,
+      return launch_drop<T, I, ACT, MODE_COL>(y, bias, bdt, bits, out, n, c,
                                               threshold, inv_keep, stream);
     case MODE_ROW:
-      return launch_drop<T, I, ACT, MODE_ROW>(y, bias, bits, out, n, c,
+      return launch_drop<T, I, ACT, MODE_ROW>(y, bias, bdt, bits, out, n, c,
                                               threshold, inv_keep, stream);
     default:
       return cudaErrorInvalidValue;
@@ -220,25 +224,27 @@ cudaError_t launch_mode(int mode, const void* y, const void* bias,
 
 template <typename T, typename I>
 cudaError_t launch_act(int act, int mode, const void* y, const void* bias,
-                       const void* bits, void* out, int64_t n, int64_t c,
-                       unsigned threshold, float inv_keep,
+                       int bdt, const void* bits, void* out, int64_t n,
+                       int64_t c, unsigned threshold, float inv_keep,
                        cudaStream_t stream) {
   switch (act) {
     case ACT_IDENTITY:
-      return launch_mode<T, I, ACT_IDENTITY>(mode, y, bias, bits, out, n, c,
+      return launch_mode<T, I, ACT_IDENTITY>(mode, y, bias,
+                                             bdt, bits, out, n, c,
                                              threshold, inv_keep, stream);
     case ACT_RELU:
-      return launch_mode<T, I, ACT_RELU>(mode, y, bias, bits, out, n, c,
+      return launch_mode<T, I, ACT_RELU>(mode, y, bias, bdt, bits, out, n, c,
                                          threshold, inv_keep, stream);
     case ACT_GELU:
-      return launch_mode<T, I, ACT_GELU>(mode, y, bias, bits, out, n, c,
+      return launch_mode<T, I, ACT_GELU>(mode, y, bias, bdt, bits, out, n, c,
                                          threshold, inv_keep, stream);
     case ACT_TANH:
-      return launch_mode<T, I, ACT_TANH>(mode, y, bias, bits, out, n, c,
+      return launch_mode<T, I, ACT_TANH>(mode, y, bias, bdt, bits, out, n, c,
                                          threshold, inv_keep, stream);
     case ACT_SIGMOID:
-      return launch_mode<T, I, ACT_SIGMOID>(mode, y, bias, bits, out, n, c,
-                                            threshold, inv_keep, stream);
+      return launch_mode<T, I, ACT_SIGMOID>(mode, y, bias, bdt, bits, out,
+                                            n, c, threshold, inv_keep,
+                                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -246,14 +252,14 @@ cudaError_t launch_act(int act, int mode, const void* y, const void* bias,
 
 template <typename T>
 cudaError_t launch_index(int act, int mode, const void* y, const void* bias,
-                         const void* bits, void* out, int64_t n, int64_t c,
-                         unsigned threshold, float inv_keep,
+                         int bdt, const void* bits, void* out, int64_t n,
+                         int64_t c, unsigned threshold, float inv_keep,
                          cudaStream_t stream) {
   if (fits_u32(n)) {
-    return launch_act<T, uint32_t>(act, mode, y, bias, bits, out, n, c,
+    return launch_act<T, uint32_t>(act, mode, y, bias, bdt, bits, out, n, c,
                                    threshold, inv_keep, stream);
   }
-  return launch_act<T, int64_t>(act, mode, y, bias, bits, out, n, c,
+  return launch_act<T, int64_t>(act, mode, y, bias, bdt, bits, out, n, c,
                                 threshold, inv_keep, stream);
 }
 
@@ -262,9 +268,11 @@ cudaError_t launch_index(int act, int mode, const void* y, const void* bias,
 extern "C" int matmul_epilogue_launch(const void* y, const void* bias,
                                       const void* bits, void* out,
                                       long long n, long long c, int mode,
-                                      int act, int dtype, int threshold,
-                                      float inv_keep, void* stream) {
-  if (n <= 0 || c <= 0 || n % c != 0 || bias == nullptr) {
+                                      int act, int dtype, int bias_dtype,
+                                      int threshold, float inv_keep,
+                                      void* stream) {
+  if (n <= 0 || c <= 0 || n % c != 0 || bias == nullptr ||
+      !valid_dtype(bias_dtype)) {
     return cudaErrorInvalidValue;
   }
   if (threshold < 0 || threshold > 255) return cudaErrorInvalidValue;
@@ -272,13 +280,16 @@ extern "C" int matmul_epilogue_launch(const void* y, const void* bias,
   const unsigned t = static_cast<unsigned>(threshold);
   switch (dtype) {
     case DT_F32:
-      return launch_index<float>(act, mode, y, bias, bits, out, n, c, t,
+      return launch_index<float>(act, mode, y, bias,
+                                 bias_dtype, bits, out, n, c, t,
                                  inv_keep, s);
     case DT_BF16:
-      return launch_index<__nv_bfloat16>(act, mode, y, bias, bits, out, n, c,
+      return launch_index<__nv_bfloat16>(act, mode, y, bias,
+                                         bias_dtype, bits, out, n, c,
                                          t, inv_keep, s);
     case DT_F16:
-      return launch_index<__half>(act, mode, y, bias, bits, out, n, c, t,
+      return launch_index<__half>(act, mode, y, bias,
+                                  bias_dtype, bits, out, n, c, t,
                                   inv_keep, s);
     default:
       return cudaErrorInvalidValue;

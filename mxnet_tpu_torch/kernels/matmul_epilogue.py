@@ -4,8 +4,8 @@ product's output.
 Counterpart of ``mxnet_tpu/pallas/kernels.py`` (``keep_threshold``,
 ``_matmul_epilogue_ref``, ``_matmul_epilogue_call`` and the N-D wrapper
 ``fused_matmul_epilogue``). The math runs in fp32 and the result is cast
-back to ``y``'s dtype; ``act`` is one of identity, relu, exact-erf gelu,
-tanh, sigmoid. Dropout keeps an element where its uint8 ``bits`` are at
+back to ``y``'s dtype (the bias is read at its own dtype); ``act`` is one
+of identity, relu, exact-erf gelu, tanh, sigmoid. Dropout keeps an element where its uint8 ``bits`` are at
 least :func:`keep_threshold` of ``p`` and scales it by ``1 / (1 - p)``.
 
 - :func:`matmul_epilogue_plain` is the plain PyTorch version: the CPU
@@ -72,7 +72,7 @@ def _lib():
     lib = _build.load("matmul_epilogue")
     fn = lib.matmul_epilogue_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.matmul_epilogue_error_string.argtypes = [ctypes.c_int]
     lib.matmul_epilogue_error_string.restype = ctypes.c_char_p
@@ -122,7 +122,8 @@ def _launch(y, bias, bits, act_type, p, mode):
         y.data_ptr(), bias.data_ptr(),
         None if bits is None else bits.data_ptr(), out.data_ptr(),
         y.numel(), y.shape[1], mode, ACT_CODE[act_type],
-        DTYPE_CODE[y.dtype], keep_threshold(p), inv_keep, stream)
+        DTYPE_CODE[y.dtype], DTYPE_CODE[bias.dtype], keep_threshold(p),
+        inv_keep, stream)
     if err != 0:
         raise MXNetError("matmul epilogue kernel launch failed: "
                          + lib.matmul_epilogue_error_string(err).decode())

@@ -10,7 +10,10 @@ routing rules. A wrapper takes NDArrays (and returns NDArrays), tensors
 (and returns tensors: a block's ``forward`` can use ``F = mx.nd``), or
 no array (creation ops and samplers, which return NDArrays). A name of
 the JAX package that the port has not ported yet raises
-:class:`~..base.MXNetError` naming its ROADMAP item.
+:class:`~..base.MXNetError` naming its ROADMAP item. The control-flow
+operators (``contrib.foreach``, ``while_loop``, ``cond``) take Python
+callables and the sparse storage types (``nd.sparse``) are plain
+modules beside the registry, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +24,6 @@ import numpy as _np
 import torch
 
 from .. import _dispatch, ops  # noqa: F401 - ops: every op registered
-from ..base import MXNetError
 from ..ops import registry as _registry
 from .ndarray import (NDArray, _load_tensors, arange, array, concat, empty,
                       eye, full, imdecode, linspace, load, moveaxis,
@@ -30,16 +32,12 @@ from .ndarray import (NDArray, _load_tensors, arange, array, concat, empty,
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "eye", "linspace", "concat", "stack", "save", "load", "waitall",
            "random", "linalg", "contrib", "op", "_internal", "zeros_like",
-           "ones_like", "moveaxis", "onehot_encode", "dot", "split"]
+           "ones_like", "moveaxis", "onehot_encode", "dot", "split",
+           "sparse", "CSRNDArray", "RowSparseNDArray", "csr_matrix",
+           "row_sparse_array"]
 
 _ARRAYLIKE = (NDArray, torch.Tensor, _np.ndarray, list)
 _CONTRIB_TOP = ("BilinearResize2D", "AdaptiveAvgPooling2D")
-_LATER = {                     # namespace names of item 6's rest
-    "foreach": "ops/control_flow.py", "while_loop": "ops/control_flow.py",
-    "cond": "ops/control_flow.py", "sparse": "ndarray/sparse.py",
-    "CSRNDArray": "ndarray/sparse.py", "RowSparseNDArray": "ndarray/sparse.py",
-    "csr_matrix": "ndarray/sparse.py", "row_sparse_array": "ndarray/sparse.py",
-}
 
 
 def _make_wrapper(opname: str, op: _registry.Operator):
@@ -72,17 +70,14 @@ def _make_wrapper(opname: str, op: _registry.Operator):
 
 def _deferred_getattr(prefixes):
     """A module ``__getattr__``: a deferred operator name (under one of
-    ``prefixes``) or a namespace name of item 6's rest raises naming its
-    ROADMAP item; anything else is an AttributeError."""
+    ``prefixes``) raises naming its ROADMAP item; anything else is an
+    AttributeError."""
     def __getattr__(name):
         if name.startswith("__"):
             raise AttributeError(name)
         for prefix in prefixes:
             if prefix + name in _registry.DEFERRED:
                 raise _registry.deferred_error(prefix + name)
-        if name in _LATER:
-            raise MXNetError(f"nd {name!r} is not ported yet: ROADMAP Queue 1 "
-                             f"item 6's rest ({_LATER[name]})")
         raise AttributeError(f"mx.nd has no operator {name!r}")
     return __getattr__
 
@@ -141,6 +136,15 @@ def _expose():
 
 _expose()
 _registry.install_binary_helpers(_this)
+
+from . import sparse                                  # noqa: E402
+from .sparse import (CSRNDArray, RowSparseNDArray,    # noqa: E402
+                     csr_matrix, row_sparse_array)
+from ..ops import control_flow as _control_flow      # noqa: E402
+
+contrib.foreach = _control_flow.foreach
+contrib.while_loop = _control_flow.while_loop
+contrib.cond = _control_flow.cond
 
 random.shuffle = getattr(_internal, "_shuffle")
 random.multinomial = random.sample_multinomial

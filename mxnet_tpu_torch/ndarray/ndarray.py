@@ -127,9 +127,16 @@ class NDArray:
 
     @property
     def grad(self):
-        """The gradient buffer after :meth:`attach_grad` (None before)."""
+        """The gradient buffer after :meth:`attach_grad` (None before); a
+        row-sparse deposit (``Embedding(sparse_grad=True)``'s backward) as
+        a :class:`~.sparse.RowSparseNDArray` of the touched rows."""
         g = self._data.grad
-        return None if g is None else NDArray(g)
+        if g is None:
+            return None
+        if g.is_sparse:
+            from .sparse import RowSparseNDArray
+            return RowSparseNDArray._from_coo(g)
+        return NDArray(g)
 
     @property
     def T(self):
@@ -196,11 +203,15 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage types are not ported yet: "
-                             "ROADMAP Queue 1 item 6's rest "
-                             "(ndarray/sparse.py)")
-        return self
+        """ref: NDArray.tostype — "default", "csr" or "row_sparse"."""
+        from . import sparse
+        if stype == "default":
+            return self
+        if stype == "csr":
+            return sparse.csr_matrix(self)
+        if stype == "row_sparse":
+            return sparse.row_sparse_array(self)
+        raise MXNetError(f"unknown storage type {stype!r}")
 
     # -- autograd -------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
@@ -208,8 +219,9 @@ class NDArray:
         leaf (detached from any recorded graph) with a zero gradient
         buffer; ``grad_req`` "write" replaces the gradient at each
         backward, "add" adds to it, "null" records none."""
-        if stype not in (None, "default"):
-            self.tostype(stype)
+        if stype not in (None, "default", "row_sparse"):
+            raise MXNetError(f"attach_grad: stype {stype!r} must be "
+                             "'default' or 'row_sparse'")
         t = self._data.detach()
         if grad_req != "null":
             t.requires_grad_(True)

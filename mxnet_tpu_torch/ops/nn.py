@@ -350,6 +350,13 @@ def embedding(indices, weight, input_dim=None, output_dim=None):
                                   device=rows.device))
 
 
+def _sparse_embedding(indices, weight):
+    """:func:`embedding` with a row-sparse weight gradient
+    (``ndarray.sparse.sparse_embedding``)."""
+    from ..ndarray.sparse import sparse_embedding
+    return sparse_embedding(indices, weight)
+
+
 _CTC_NEG = -1e30                     # the JAX op's "log 0"
 
 
@@ -711,10 +718,12 @@ def _register_all():
                      OpParam("output_dim", int, None, required=True),
                      OpParam("dtype", str, "float32"),
                      OpParam("sparse_grad", bool, False,
-                             doc="accepted; the gradient stays dense until "
-                                 "row-sparse storage is ported")])(
+                             doc="the weight's gradient row-sparse (the "
+                                 "touched rows) where autograd records "
+                                 "it eagerly")])(
         lambda idx, w, input_dim=None, output_dim=None, dtype="float32",
-        sparse_grad=False: embedding(idx, w, input_dim, output_dim))
+        sparse_grad=False: _sparse_embedding(idx, w) if sparse_grad
+        else embedding(idx, w, input_dim, output_dim))
     register("SoftmaxOutput", num_inputs=2,
              params=[OpParam("grad_scale", float, 1.0),
                      OpParam("ignore_label", float, -1.0),

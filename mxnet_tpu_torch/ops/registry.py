@@ -56,7 +56,6 @@ DEFERRED: Dict[str, str] = {
     "_contrib_ulysses_attention": "item 9 (parallel/)",
     "_contrib_fused_cross_attention": "item 7 (the NMT transformer)",
     "RNN": "item 7 (gluon/rnn)",
-    "Custom": "item 6's rest (operator.py)",
 }
 
 
@@ -116,11 +115,15 @@ class Operator:
     aliases: List[str] = field(default_factory=list)
     needs_rng: bool = False      # dispatch passes generator=
     needs_mode: bool = False     # dispatch passes training=
+    allow_unknown_params: bool = False   # passed through as given (Custom)
 
     def coerce_params(self, kwargs: dict) -> dict:
         spec = {p.name: p for p in self.params}
         out = {}
         for key, val in kwargs.items():
+            if key not in spec and self.allow_unknown_params:
+                out[key] = val
+                continue
             if key not in spec:
                 raise MXNetError(f"op {self.name!r}: unknown parameter "
                                  f"{key!r}. Known: {sorted(spec)}")
@@ -151,7 +154,8 @@ class Operator:
 def register(name: str, *, num_inputs: int = 1, num_outputs=1,
              params: Optional[Sequence[OpParam]] = None, doc: str = "",
              differentiable: bool = True, aliases: Sequence[str] = (),
-             needs_rng: bool = False, needs_mode: bool = False):
+             needs_rng: bool = False, needs_mode: bool = False,
+             allow_unknown_params: bool = False):
     """Decorator registering ``fn`` as operator ``name`` (and its
     ``aliases``); returns ``fn``."""
     def deco(fn):
@@ -159,7 +163,8 @@ def register(name: str, *, num_inputs: int = 1, num_outputs=1,
                       num_outputs=num_outputs, params=list(params or []),
                       doc=doc or (fn.__doc__ or ""),
                       differentiable=differentiable, aliases=list(aliases),
-                      needs_rng=needs_rng, needs_mode=needs_mode)
+                      needs_rng=needs_rng, needs_mode=needs_mode,
+                      allow_unknown_params=allow_unknown_params)
         for n in (name, *op.aliases):
             if n in _REGISTRY:
                 raise MXNetError(f"duplicate op registration: {n}")

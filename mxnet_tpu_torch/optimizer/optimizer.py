@@ -174,10 +174,40 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
+    def update_row_sparse(self, index, weight, grad, state):
+        """This optimizer's own rule on the touched rows alone of a sparse
+        COO gradient (``grad.is_sparse``, coalesced; ref: the lazy
+        row_sparse paths of src/operator/optimizer_op.cc): the weight's
+        and the state's rows are gathered, :meth:`update` runs on them,
+        and they are written back. Untouched rows see no weight decay and
+        no state decay; the rows stay on the weight's device."""
+        rows = grad.indices()[0]
+        w_rows = weight.detach()[rows]
+        state_rows = _map_state(state, lambda s: s[rows])
+        self.update(index, w_rows, grad.values().to(weight.dtype),
+                    state_rows)
+        with torch.no_grad():
+            weight.index_copy_(0, rows, w_rows)
+            _zip_state(state, state_rows,
+                       lambda s, r: s.index_copy_(0, rows, r))
+
     def update_multi_precision(self, index, weight, grad, state):
         """``update``, on the fp32 master when the state holds one (see
         :meth:`create_state_multi_precision`), the weight then the
-        master cast to its dtype."""
+        master cast to its dtype. A sparse gradient takes
+        :meth:`update_row_sparse` and writes back only its rows."""
+        if grad.is_sparse:
+            grad = grad.coalesce()
+            if self.multi_precision and weight.dtype != torch.float32:
+                inner, master = state
+                self.update_row_sparse(index, master, grad.float(), inner)
+                rows = grad.indices()[0]
+                with torch.no_grad():
+                    weight.index_copy_(0, rows,
+                                       master[rows].to(weight.dtype))
+            else:
+                self.update_row_sparse(index, weight, grad, state)
+            return
         if self.multi_precision and weight.dtype != torch.float32:
             inner, master = state
             self.update(index, master, grad.float(), inner)
@@ -597,6 +627,23 @@ def _state_from_np(s):
     if isinstance(s, BF16Bits):
         return s.tensor()
     return torch.from_numpy(s.copy())
+
+
+def _map_state(s, fn):
+    """``fn`` over every tensor of a state (None, a tensor or a tuple)."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_map_state(x, fn) for x in s)
+    return fn(s)
+
+
+def _zip_state(dst, src, fn):
+    if isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _zip_state(d, s, fn)
+    elif dst is not None:
+        fn(dst, src)
 
 
 def _same_layout(a, b):

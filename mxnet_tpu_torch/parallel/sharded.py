@@ -95,6 +95,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.nn.parameter import is_lazy
 
+from .. import _dispatch
 from .. import autograd as _autograd
 from ..base import MXNetError, as_torch_dtype, dtype_name
 from ..gluon import cached_graph as _cg
@@ -398,6 +399,7 @@ class ShardedTrainer(GuardedTrainerMixin):
         self._skipped_offset = 0
         self._backend = _cg.CudaGraphs()   # captures on the card
         self._programs = {}                # (steps, signature) -> Program
+        self._amp_epoch = _dispatch.amp_epoch()
         self._eager_keys = set()           # signatures run eagerly (CPU)
         self.last_outputs = None
 
@@ -648,8 +650,14 @@ class ShardedTrainer(GuardedTrainerMixin):
         with _obs.step_phase("sharded_trainer", "data_wait"):
             xs = [self._host(b) if graphed else self._on_device(b)
                   for b in batch]
+        if self._programs and self._amp_epoch != _dispatch.amp_epoch():
+            # the per-op AMP policy changed: every program casts as the
+            # old one did
+            self._release()
+        self._amp_epoch = _dispatch.amp_epoch()
         key = (n, tuple((tuple(x.shape), x.dtype) for x in xs + [scalars]),
-               self._compute_dtype, self._scaler is not None)
+               self._compute_dtype, self._scaler is not None,
+               self._amp_epoch)
         prog = self._programs.get(key) if graphed else None
         if prog is not None and prog.stale(self._block):
             # a parameter or buffer was rebound (Block.cast, a reinit):

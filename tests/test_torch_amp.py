@@ -214,8 +214,8 @@ def test_eager_trainer_bf16_runs_no_check(amp_off, monkeypatch):
 
 
 def test_amp_state_and_refusals(amp_off):
-    """amp_dtype follows init/reset as in JAX; init with op lists raises
-    naming the op registry's ROADMAP item; a bad dtype and init_trainer
+    """amp_dtype follows init/reset as in JAX; init with an op list that
+    names no registered operator raises; a bad dtype and init_trainer
     before init raise; scale_loss needs init_trainer."""
     assert tamp.amp_dtype() is None
     tamp.init("float16")
@@ -223,8 +223,9 @@ def test_amp_state_and_refusals(amp_off):
     assert tamp.amp_dtype() == jamp.amp_dtype() == "float16"
     tamp.reset()
     assert tamp.amp_dtype() is None
-    with pytest.raises(MXNetError, match="Queue 1 item 6"):
-        tamp.init("bfloat16", fp32_ops=["softmax"])
+    with pytest.raises(MXNetError, match="not registered"):
+        tamp.init("bfloat16", fp32_ops=["not_a_real_op_name"])
+    tamp.reset()
     with pytest.raises(MXNetError, match="float16 or bfloat16"):
         tamp.init("float64")
     trainer = tmx.gluon.Trainer(

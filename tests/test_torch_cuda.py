@@ -191,7 +191,10 @@ def test_matmul_epilogue_refuses_what_it_does_not_take(cuda):
     with pytest.raises(MXNetError, match="dtype"):
         me.matmul_epilogue_2d(y.double(), b.double())
     with pytest.raises(MXNetError, match="bias"):
-        me.matmul_epilogue_2d(y, b.half())
+        me.matmul_epilogue_2d(y, b.double())
+    # a bias at another floating dtype than y's is read at its own
+    got = me.matmul_epilogue_2d(y, b.half())
+    assert torch.equal(got, me.matmul_epilogue_plain(y, b.half()))
 
 
 @pytest.mark.parametrize("act", me.EPILOGUE_ACTS)

@@ -405,7 +405,8 @@ def test_clip_global_norm_matches_jax(check, max_norm, monkeypatch):
 def test_clip_global_norm_global_norm_nonfinite_and_sparse(monkeypatch):
     """``global_norm=`` replaces the reduction; a non-finite norm warns
     and leaves the arrays (check_isfinite) or scales by 1 (without); a
-    sparse array raises naming item 6."""
+    sparse COO array takes part through its stored values, which are
+    scaled in place, and an uncoalesced one raises."""
     a = [torch.ones(4)]
     reads = _count_host_reads(monkeypatch)
     assert tmx.gluon.utils.clip_global_norm(a, 1.0, global_norm=4.0) == 4.0
@@ -421,8 +422,14 @@ def test_clip_global_norm_global_norm_nonfinite_and_sparse(monkeypatch):
                                                 check_isfinite=False)
     assert not torch.isfinite(norm) and b[0][0] == 1.0
     sparse = torch.eye(3).to_sparse()
-    with pytest.raises(MXNetError, match="Queue 1 item 6"):
-        tmx.gluon.utils.clip_global_norm([sparse], 1.0)
+    norm = tmx.gluon.utils.clip_global_norm([sparse], 1.0)
+    np.testing.assert_allclose(norm, np.sqrt(3.0), rtol=1e-6)
+    np.testing.assert_allclose(sparse.to_dense().numpy(),
+                               np.eye(3) / np.sqrt(3.0), rtol=1e-6)
+    loose = torch.sparse_coo_tensor([[0, 0]], torch.ones(2, 3), (4, 3),
+                                    check_invariants=False)
+    with pytest.raises(MXNetError, match="coalesce"):
+        tmx.gluon.utils.clip_global_norm([loose], 1.0)
 
 
 def test_check_sha1_and_download_as_jax(tmp_path):

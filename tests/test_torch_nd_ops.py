@@ -36,7 +36,8 @@ from tools.nd_op_cases import (RANDOM, check, f32, f32_maker, nd_fn,
 
 CPU = tmx.cpu()
 nd = tmx.nd
-PORTED = sorted(set(jreg.list_ops()) - set(treg.DEFERRED))
+# Custom runs a user's CustomOp: tests/test_torch_custom_op.py
+PORTED = sorted(set(jreg.list_ops()) - set(treg.DEFERRED) - {"Custom"})
 
 
 def _primary(name):
@@ -105,10 +106,10 @@ def _host(a):
 
 
 def test_port_registers_the_jax_names_less_deferred():
-    assert set(treg.list_ops()) == set(PORTED)
+    assert set(treg.list_ops()) == set(PORTED) | {"Custom"}
     assert not set(treg.list_ops()) & set(treg.DEFERRED)
     assert set(treg.DEFERRED) <= set(jreg.list_ops())
-    assert len(PORTED) == 300 and len(treg.DEFERRED) == 47
+    assert len(PORTED) == 300 and len(treg.DEFERRED) == 46
 
 
 @pytest.mark.parametrize("name", PORTED)

@@ -40,6 +40,7 @@ import math
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 
@@ -123,24 +124,34 @@ def compare_ptxas(chip_smoke, other, this):
     return same_bwd
 
 
-def k2_fn(lib_path):
+def k2_fn(lib_path, root):
+    """The launch function of one checkout's K2 library, and whether it
+    takes the bias's own dtype code (the sources since the bias is read
+    at its own precision)."""
     lib = ctypes.CDLL(lib_path)
+    src = Path(root) / "mxnet_tpu_torch" / "kernels" / "csrc" \
+        / "matmul_epilogue.cu"
+    bias_code = "int bias_dtype" in src.read_text()
     fn = lib.matmul_epilogue_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * (5 if bias_code else 4) \
+        + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return fn, bias_code
 
 
 def k2_call(torch, fn, y, bias, bits, out, mode, act, p):
     """One launch of a matmul-epilogue library, as the wrapper makes it."""
     from mxnet_tpu_torch.kernels import _common
     from mxnet_tpu_torch.kernels import matmul_epilogue as me
+    fn, bias_code = fn
     inv_keep = float(np.float32(1.0) / np.float32(1.0 - p))
+    codes = [_common.DTYPE_CODE[y.dtype]] + (
+        [_common.DTYPE_CODE[bias.dtype]] if bias_code else [])
     err = fn(y.data_ptr(), bias.data_ptr(),
              None if bits is None else bits.data_ptr(), out.data_ptr(),
              y.numel(), y.shape[1], mode, _common.ACT_CODE[act],
-             _common.DTYPE_CODE[y.dtype], me.keep_threshold(p), inv_keep,
+             *codes, me.keep_threshold(p), inv_keep,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         sys.exit(f"matmul_epilogue_launch returned {err}")
@@ -241,8 +252,9 @@ def main():
                          text=True, check=True, timeout=60).stdout.strip())
     other, this = build(os.path.abspath(args.other), ROOT)
     same_bwd = compare_ptxas(chip_smoke, other, this)
-    fns = {"other": k2_fn(other["matmul_epilogue"][0]),
-           "this": k2_fn(this["matmul_epilogue"][0])}
+    fns = {"other": k2_fn(other["matmul_epilogue"][0],
+                          os.path.abspath(args.other)),
+           "this": k2_fn(this["matmul_epilogue"][0], ROOT)}
     differ = compare_k2_bits(torch, fns["other"], fns["this"])
     rows = chip_smoke.SH_BERT["b"][0] * chip_smoke.SH_BERT["b"][1]
     bf16_calls = [((rows, 3072), "gelu", 0.0)] * 12 \
