@@ -552,6 +552,33 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                (d) every case of tools/np_cases.py (mx.np, linalg, fft,
                mx.npx) on the card against the CPU; a CustomOp forward and
                backward on card tensors; Custom refused inside a capture.
+30. symbol   — mx.sym, mx.mod and export (item 7a). (a) phase 4's
+               ResNet-50 v1 exported (HybridBlock.export, traced on meta
+               tensors) and served by Server.from_checkpoint from CUDA
+               graphs captured at start(), buckets 1-8: 32 requests from 4
+               threads, K1 48 per batch forward across replays, logits
+               within 1e-6 of max |value| of the hybridized Gluon net's on
+               the card and 1e-3 of the CPU's; images/s and p50/p99
+               beside phase 4's. (b) BERT-base (no decoder) exported,
+               imported by SymbolBlock.imports and hybridized, at batch 4,
+               S 4096: K3 12 and K2 25 launches per forward, the Gluon
+               model's; outputs within 1e-6 of max |value| of its. (c)
+               batch_dot(softmax(batch_dot(q, k^T) * 0.125), v) at q, k, v
+               (48, 4096, 64) fp32 bound with and without
+               MXNET_SUBGRAPH_BACKEND=FuseAttention: one K3 launch, within
+               1e-5 of max |out| of the unfused graph, both timed with CUDA
+               events. (d) Module.fit of (a)'s symbol + SoftmaxOutput over
+               examples/train_imagenet.py's synthetic batch at batch 64,
+               fp32, SGD lr 0.01 momentum 0.9, 2 epochs of 4 batches with
+               checkpoint_prefix and keep_last=1: one step's parameter
+               changes (lr 0.1) within 1e-3 of each tensor's max |change|
+               of gluon.Trainer's from the same state and batch (cuDNN
+               deterministic), 48 K1 per training forward, finite losses,
+               step ms, host launch calls per step, and fit(resume=True)
+               restoring every parameter bit for bit. (e)
+               examples/train_mnist.py --module as written (lenet_symbol,
+               the synthetic stand-in, batch 128, 3 epochs, lr 0.05,
+               Speedometer), then score: accuracy >= 0.99.
 
 Each serve phase sets the launch counts to 0 just before its burst and
 reads them just after, and each training phase just before its steps
@@ -562,7 +589,8 @@ stats frames; phase 21 over the decode streams and the BERT burst
 beside them; phase 22 per burst and per mode; phase 23 over the fleet
 burst; phase 24 over the good deploy's traffic; phase 26 per model's
 burst; phase 27 per network before its graphed steps; phase 28 per mx.nd
-call). A graph's replay
+call; phase 30 per burst, per forward and over Module.fit's steps after
+the capturing one). A graph's replay
 calls no kernel wrapper: each replay adds the launches its capture
 recorded (mxnet_tpu_torch/gluon/cached_graph.py,
 mxnet_tpu_torch/parallel/sharded.py), so the counts stay the kernels the
@@ -1051,10 +1079,11 @@ def graphed_vs_eager(torch, server, net, x, names):
 
 
 # -- phase 4: serve ResNet ----------------------------------------------------
-def phase_serve_resnet(torch, mx, card, ctx, size=224):
-    """Serve ResNet-50 v1 on ``ctx`` at ``size`` x ``size`` inputs."""
+def seeded_resnet50(torch, mx, ctx, size=224):
+    """Phase 4's model and requests: ResNet-50 v1 on ``ctx`` with Xavier
+    weights and seeded BatchNorm statistics, every batch bucket warmed;
+    N_REQUESTS seeded images of ``size`` x ``size``."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
-    from mxnet_tpu_torch.serving import Server, ServerConfig
     import numpy as np
 
     net = resnet50_v1()
@@ -1076,14 +1105,23 @@ def phase_serve_resnet(torch, mx, card, ctx, size=224):
               for k, v in net.collect_params().items()}
     params.update(stats)
     net.load_dict(params)
-    images = rng.randn(N_REQUESTS, 3, size, size).astype(np.float32)
+    return net, rng.randn(N_REQUESTS, 3, size, size).astype(np.float32)
 
+
+def phase_serve_resnet(torch, mx, card, ctx, size=224):
+    """Serve ResNet-50 v1 on ``ctx`` at ``size`` x ``size`` inputs."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    import numpy as np
+
+    net, images = seeded_resnet50(torch, mx, ctx, size)
     server = Server(net, ServerConfig(max_batch=8,
                                       aot_prewarm=((3, size, size),)),
                     ctx=ctx).start()
     graphs = report_prewarm(server, card)
-    results, launches, _ = serve_burst(torch, server, images,
-                                    {"conv_epilogue": 48}, card, "images")
+    results, launches, stats = serve_burst(torch, server, images,
+                                           {"conv_epilogue": 48}, card,
+                                           "images")
     graph_rel = graphed_vs_eager(torch, server, net, images[:BATCH],
                                  ("logits",))
     prof = profile_forward(torch, net, torch.randn(
@@ -1102,7 +1140,7 @@ def phase_serve_resnet(torch, mx, card, ctx, size=224):
         fail(f"CPU logits have shape {ref.shape}")
     check_against_cpu("logits", np.stack(results), ref)
     return {"launches": launches, "profile": prof, "graphs": graphs,
-            "graph_rel": graph_rel}
+            "graph_rel": graph_rel, "burst": stats}
 
 
 # -- phase 5: kernel K2 ------------------------------------------------------
@@ -8477,6 +8515,453 @@ def phase_item6(torch, mx, card, ctx, ce, me):
     return out
 
 
+# -- phase 30: symbol --------------------------------------------------------
+SY_ROOT = os.path.join(ROOT, "build", "chip_smoke_symbol")
+SY_FIT_BATCH = 64                    # (d): Module.fit's batch
+SY_FIT_BATCHES = 4                   # (d): batches per epoch
+SY_FIT_EPOCHS = 2
+SY_SGD = {"learning_rate": 0.01, "momentum": 0.9}  # (d): fit
+# (d)'s one step at phase 13's lr: a change is stored in float32 beside
+# its weight, one ulp of which is 6e-4 of a BatchNorm gamma's change at
+# lr 0.1, 6e-3 at 0.01 (measured on the H100: gradients within 7e-5)
+SY_STEP_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+SY_STEP_RTOL = 1e-3                  # (d): Module vs Trainer, of max |change|
+SY_FUSE = (48, 4096, 64)             # (c): q, k, v
+SY_FUSE_SCALE = 0.125
+SY_FUSE_RTOL = 1e-5                  # (c): fused vs unfused, of max |out|
+SY_MNIST = {"batch_size": 128, "epochs": 3, "lr": 0.05}
+SY_MNIST_ACC = 0.99
+
+
+def sy_rel(got, want):
+    """max |got - want| / max |want| of two tensors or arrays."""
+    import numpy as np
+    got, want = (np.asarray(t.detach().float().cpu()) if hasattr(t, "detach")
+                 else np.asarray(t) for t in (got, want))
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def sy_serve_resnet(torch, mx, card, ctx, phase4):
+    """(a): phase 4's ResNet-50 exported and served by
+    Server.from_checkpoint from CUDA graphs."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.serving import Server, ServerConfig
+    import numpy as np
+    dev = ctx.torch_device
+    net, images = seeded_resnet50(torch, mx, ctx)
+    net.hybridize()
+    with torch.inference_mode():         # the Gluon net's graphed logits
+        want = np.concatenate([
+            net(torch.from_numpy(images[i:i + BATCH]).to(dev)).cpu().numpy()
+            for i in range(0, N_REQUESTS, BATCH)])
+    net.hybridize(False)
+    prefix = os.path.join(SY_ROOT, "resnet50_v1")
+    t0 = time.perf_counter()
+    files = net.export(prefix, 0, input_specs=[((1, 3, 224, 224),
+                                                "float32")])
+    log(f"symbol (a): export of ResNet-50 v1 (traced on meta tensors) "
+        f"{time.perf_counter() - t0:.3f} s; {os.path.getsize(files[0])} "
+        f"bytes of JSON, {os.path.getsize(files[1])} bytes of params")
+    server = Server.from_checkpoint(prefix, 0, config=ServerConfig(
+        max_batch=BATCH, aot_prewarm=((3, 224, 224),)), ctx=ctx).start()
+    graphs = report_prewarm(server, card)
+    results, launches, stats = serve_burst(torch, server, images,
+                                           {"conv_epilogue": 48}, card,
+                                           "images", n_requests=N_REQUESTS)
+    served = np.stack(results)
+    rel = sy_rel(served, want)
+    log(f"symbol (a): exported logits vs the Gluon net's graphed logits on "
+        f"the card: relative {rel:.3e} of max |value| (tolerance "
+        f"{GRAPH_RTOL:g})")
+    if not rel <= GRAPH_RTOL:
+        fail(f"exported ResNet-50 logits differ from the Gluon net's by "
+             f"{rel} of max |value|")
+    p4 = phase4["burst"]
+    log(f"symbol (a): exported {stats['per_s']:.2f} images/s, p50 "
+        f"{stats['p50']:.3f} ms, p99 {stats['p99']:.3f} ms; phase 4's "
+        f"Gluon net {p4['per_s']:.2f} images/s, p50 {p4['p50']:.3f} ms, "
+        f"p99 {p4['p99']:.3f} ms, on {card}")
+    cpu_net = resnet50_v1()
+    cpu_net.load_dict({k: v.detach().cpu().numpy()
+                       for k, v in net.collect_params().items()},
+                      ctx=mx.cpu())
+    with torch.inference_mode():
+        ref = np.concatenate([
+            cpu_net(torch.from_numpy(images[i:i + BATCH])).numpy()
+            for i in range(0, N_REQUESTS, BATCH)])
+    check_against_cpu("exported logits", served, ref)
+    return {"launches": launches, "burst": stats, "graphs": graphs,
+            "rel_gluon": rel, "prefix": prefix}
+
+
+def sy_bert(torch, mx, card, ctx):
+    """(b): BERT-base exported, imported as a SymbolBlock and hybridized,
+    at batch LONG_BATCH, S LONG_SEQ: the Gluon model's launches and
+    outputs."""
+    from mxnet_tpu_torch import kernels
+    import numpy as np
+    dev = ctx.torch_device
+    net = seeded_bert(torch, mx, ctx, LONG_SEQ, (LONG_BATCH,),
+                      max_length=LONG_SEQ)
+    ids = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (LONG_BATCH, LONG_SEQ)).astype(np.int32)
+    x = torch.from_numpy(ids).to(dev)
+
+    def counted(block):
+        with torch.inference_mode():
+            block(x)                     # captures the graph
+            _sync(torch)
+            kernels.reset_launch_counts()
+            out = block(x)
+            _sync(torch)
+            launches = kernels.launch_counts()
+            ms = event_ms(torch, lambda: block(x), 3)
+        return out, launches, ms
+    net.hybridize()
+    want, gl_launches, gl_ms = counted(net)
+    net.hybridize(False)
+    prefix = os.path.join(SY_ROOT, "bert_12_768_12")
+    net.export(prefix, 0, input_specs=[((LONG_BATCH, LONG_SEQ), "int32")])
+    del net
+    torch.cuda.empty_cache()
+    block = mx.gluon.SymbolBlock.imports(
+        f"{prefix}-symbol.json", ["data"], f"{prefix}-0000.params", ctx=ctx)
+    block.hybridize()
+    got, sy_launches, sy_ms = counted(block)
+    for kernel, n in (("flash_attention", LONG_K3_PER_FORWARD),
+                      ("matmul_epilogue", BERT_K2_PER_FORWARD)):
+        if sy_launches[kernel] != gl_launches[kernel] or \
+                sy_launches[kernel] != n:
+            fail(f"imported BERT-base launched {kernel} "
+                 f"{sy_launches[kernel]} times per forward, the Gluon model "
+                 f"{gl_launches[kernel]} (want {n})")
+    worst = 0.0
+    for name, g, w in zip(("seq_out", "pooled", "nsp"), got, want):
+        rel = sy_rel(g, w)
+        worst = max(worst, rel)
+        if not rel <= GRAPH_RTOL:
+            fail(f"imported BERT-base {name} differs from the Gluon model's "
+                 f"by {rel} of max |value|")
+    log(f"symbol (b): BERT-base exported and imported (SymbolBlock, "
+        f"hybridized) at batch {LONG_BATCH}, S {LONG_SEQ}: flash_attention "
+        f"{sy_launches['flash_attention']}, matmul_epilogue "
+        f"{sy_launches['matmul_epilogue']} launches per forward (the Gluon "
+        f"model's: {gl_launches['flash_attention']}, "
+        f"{gl_launches['matmul_epilogue']}); outputs within {worst:.3e} of "
+        f"max |value| (tolerance {GRAPH_RTOL:g}); graphed forward "
+        f"{sy_ms:.3f} ms (the Gluon model's {gl_ms:.3f} ms, CUDA events) "
+        f"on {card}")
+    del block, got, want
+    torch.cuda.empty_cache()
+    return {"launches": sy_launches, "rel": worst, "ms": sy_ms,
+            "gluon_ms": gl_ms}
+
+
+def sy_fuse_attention(torch, mx, card, ctx):
+    """(c): batch_dot(softmax(batch_dot(q, k^T) * s), v) bound with and
+    without MXNET_SUBGRAPH_BACKEND=FuseAttention at SY_FUSE."""
+    from mxnet_tpu_torch import kernels
+    S = mx.sym
+    dev = ctx.torch_device
+    q, k, v = S.var("q"), S.var("k"), S.var("v")
+    scores = S.batch_dot(q, k, transpose_b=True) * SY_FUSE_SCALE
+    att = S.batch_dot(S.softmax(scores, axis=-1), v)
+    gen = mx.random.generator(SEED, device=dev)
+    feed = {n: mx.nd.NDArray(torch.randn(SY_FUSE, device=dev,
+                                         generator=gen)) for n in "qkv"}
+    plain = att.bind(ctx, feed, grad_req="null")
+    old = os.environ.get("MXNET_SUBGRAPH_BACKEND")
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "FuseAttention"
+    try:
+        fused = att.bind(ctx, feed, grad_req="null")
+    finally:
+        if old is None:
+            del os.environ["MXNET_SUBGRAPH_BACKEND"]
+        else:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    ops = sorted(n.op for n in fused._symbol._topo() if n.op)
+    if ops != ["_contrib_flash_attention"]:
+        fail(f"FuseAttention left {ops}")
+    fused.forward()                       # captures
+    plain.forward()
+    _sync(torch)
+    kernels.reset_launch_counts()
+    out_f = fused.forward()[0]._data.clone()
+    _sync(torch)
+    launches = kernels.launch_counts()
+    out_p = plain.forward()[0]._data
+    if launches["flash_attention"] != 1:
+        fail(f"the fused graph launched flash_attention "
+             f"{launches['flash_attention']} times (want 1)")
+    rel = sy_rel(out_f, out_p)
+    if not rel <= SY_FUSE_RTOL:
+        fail(f"fused attention differs from the unfused graph by {rel} of "
+             "max |out|")
+    fused_ms = event_ms(torch, fused.forward, 5)
+    plain_ms = event_ms(torch, plain.forward, 5)
+    log(f"symbol (c): FuseAttention at q, k, v {SY_FUSE} fp32: flash_"
+        f"attention 1 launch, fused vs unfused {rel:.3e} of max |out| "
+        f"(tolerance {SY_FUSE_RTOL:g}); bound executor forward fused "
+        f"{fused_ms:.3f} ms, unfused {plain_ms:.3f} ms (CUDA events) on "
+        f"{card}")
+    del plain, fused, out_f, out_p, feed
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rel": rel, "fused_ms": fused_ms,
+            "plain_ms": plain_ms}
+
+
+def sy_param_changes(torch, before, after):
+    return {n: (after[n].detach().float() - before[n].float())
+            for n in before}
+
+
+def sy_module_fit(torch, mx, card, ctx, prefix):
+    """(d): Module.fit on (a)'s exported ResNet-50 symbol + SoftmaxOutput
+    over examples/train_imagenet.py's synthetic batch."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
+    dev = ctx.torch_device
+    sym = mx.sym.SoftmaxOutput(mx.sym.load(f"{prefix}-symbol.json"),
+                               name="softmax")
+    arg_params, aux_params = mx.model.load_params(prefix, 0)
+    rng = np.random.RandomState(0)      # examples/train_imagenet.py's batch
+    x = rng.randn(SY_FIT_BATCH, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, (SY_FIT_BATCH,)).astype(np.float32)
+
+    def iterator(n):
+        return mx.io.NDArrayIter(np.concatenate([x] * n),
+                                 np.concatenate([y] * n),
+                                 batch_size=SY_FIT_BATCH)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # one step from the same state and batch: Module vs Trainer
+        mod = mx.mod.Module(sym, context=ctx)
+        it = iterator(1)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=arg_params, aux_params=aux_params)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(SY_STEP_SGD))
+        before = {n: mod._exec.arg_dict[n]._data.clone()
+                  for n in mod._param_names}
+        batch = next(iter(it))
+        mod.forward_backward(batch)
+        g_mod = {n: mod._exec.grad_dict[n]._data.clone() for n in before}
+        mod.update()
+        d_mod = sy_param_changes(torch, before, {
+            n: mod._exec.arg_dict[n]._data for n in before})
+        # a change is stored in float32 beside its weight: its resolution
+        # is one ulp of the weight, eps * max |w| of max |change|
+        floor = max(float(torch.finfo(torch.float32).eps
+                          * before[n].abs().max()
+                          / d_mod[n].abs().max().clamp_min(1e-30))
+                    for n in before)
+        del mod, before
+        net = resnet50_v1()
+        net.load_dict({k: v.asnumpy() for k, v in
+                       {**arg_params, **aux_params}.items()}, ctx=ctx)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(SY_STEP_SGD))
+        params = dict(net.collect_params())
+        before = {n: params[n].detach().clone() for n in d_mod}
+        xb = torch.from_numpy(x).to(dev)
+        yb = torch.from_numpy(y).to(dev)
+        with mx.autograd.record():
+            loss = loss_fn(net(xb), yb)
+        mx.autograd.backward(loss)
+        g_rel = max(sy_rel(g_mod[n], params[n].grad) for n in g_mod)
+        trainer.step(SY_FIT_BATCH)
+        d_gl = sy_param_changes(torch, before, params)
+        worst, name = max((sy_rel(d_mod[n], d_gl[n]), n) for n in d_gl)
+        if not worst <= SY_STEP_RTOL:
+            fail(f"Module's step differs from the Trainer's by {worst} of "
+                 f"max |change| ({name})")
+        log(f"symbol (d): one step from the same state and batch: Module "
+            f"vs gluon.Trainer parameter changes within {worst:.3e} of each "
+            f"tensor's max |change| (worst {name}; {len(d_gl)} tensors; "
+            f"tolerance {SY_STEP_RTOL:g}; float32 storage's floor "
+            f"{floor:.3e}); gradients within {g_rel:.3e} of max |grad|; "
+            "cuDNN deterministic")
+        del net, trainer, loss, d_mod, d_gl, before, params, g_mod
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+    fit_prefix = os.path.join(SY_ROOT, "fit")
+    mod = mx.mod.Module(sym, context=ctx)
+    marks, losses, counts = [], [], {}
+    yi = torch.from_numpy(y.astype(np.int64)).to(dev)
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        p = mod.get_outputs()[0]._data
+        losses.append(float(-torch.log(
+            p[torch.arange(SY_FIT_BATCH, device=dev), yi]).mean()))
+        if len(marks) == 1:              # the first step captured
+            kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(iterator(SY_FIT_BATCHES), num_epoch=SY_FIT_EPOCHS,
+            optimizer="sgd", optimizer_params=dict(SY_SGD),
+            arg_params=arg_params, aux_params=aux_params,
+            checkpoint_prefix=fit_prefix, keep_last=1,
+            batch_end_callback=batch_end)
+    fit_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = SY_FIT_EPOCHS * SY_FIT_BATCHES
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"Module.fit losses {losses} are not {steps} finite values")
+    want = dict.fromkeys(counts, 0)
+    want["conv_epilogue"] = 48 * (steps - 1)
+    if counts != want:
+        fail(f"launches in Module.fit's {steps - 1} steps after the capture "
+             f"{counts}, want {want} (48 conv_epilogue per training "
+             "forward)")
+    if mx.model.list_checkpoint_epochs(fit_prefix) != [SY_FIT_EPOCHS]:
+        fail(f"checkpoints {mx.model.list_checkpoint_epochs(fit_prefix)} "
+             f"with keep_last=1, want [{SY_FIT_EPOCHS}]")
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    final = {n: t._data.clone() for n, t in {
+        **mod._exec.arg_dict, **mod._exec.aux_dict}.items()
+        if n in mod._param_names or n in mod._aux_names}
+    # the step alone, on a resident batch
+    it = iterator(1)
+    batch = next(iter(it))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    calls = _launch_calls(prof.key_averages())
+    step_ms = _median(times)
+    log(f"symbol (d): Module.fit of exported ResNet-50 v1 + SoftmaxOutput, "
+        f"batch {SY_FIT_BATCH}, fp32 (TF32 off), SGD lr "
+        f"{SY_SGD['learning_rate']:g} momentum {SY_SGD['momentum']:g}, "
+        f"{SY_FIT_EPOCHS} epochs of {SY_FIT_BATCHES} batches in "
+        f"{fit_s:.1f} s: losses {[round(v, 4) for v in losses]}")
+    log(f"symbol (d): per batch in fit (data, step, metric) after the "
+        f"capture: median {_median(gaps):.3f} ms; the step alone "
+        f"(forward_backward + update) median {step_ms:.3f} ms of "
+        f"{[round(t, 3) for t in times]}, {SY_FIT_BATCH * 1e3 / step_ms:.1f} "
+        f"images/s; conv_epilogue {counts['conv_epilogue'] // (steps - 1)} "
+        f"launches per training forward; {calls} host launch calls per "
+        f"step (graph replays and the per-parameter updates) on {card}")
+    del mod
+    torch.cuda.empty_cache()
+    fresh = mx.mod.Module(sym, context=ctx)
+    fresh.fit(iterator(SY_FIT_BATCHES), num_epoch=SY_FIT_EPOCHS,
+              optimizer="sgd", optimizer_params=dict(SY_SGD),
+              checkpoint_prefix=fit_prefix, keep_last=1, resume=True)
+    got = {**fresh._exec.arg_dict, **fresh._exec.aux_dict}
+    differ = [n for n, t in final.items() if not torch.equal(got[n]._data, t)]
+    if differ:
+        fail(f"fit(resume=True) restored {differ[:3]} not bit for bit")
+    log(f"symbol (d): fit(resume=True) in a fresh Module restored all "
+        f"{len(final)} parameters and statistics bit for bit")
+    del fresh, got, final
+    torch.cuda.empty_cache()
+    return {"launches": counts, "steps_counted": steps - 1,
+            "step_ms": step_ms, "fit_batch_ms": _median(gaps),
+            "launch_calls": calls, "losses": losses, "step_rel": worst,
+            "grad_rel": g_rel}
+
+
+def sy_lenet(mx):
+    """examples/train_mnist.py's lenet_symbol, with the port's mx."""
+    sym = mx.sym
+    data = sym.var("data")
+    c1 = sym.Activation(sym.Convolution(data, kernel=(5, 5), num_filter=20),
+                        act_type="tanh")
+    p1 = sym.Pooling(c1, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    c2 = sym.Activation(sym.Convolution(p1, kernel=(5, 5), num_filter=50),
+                        act_type="tanh")
+    p2 = sym.Pooling(c2, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    f = sym.Flatten(p2)
+    fc1 = sym.Activation(sym.FullyConnected(f, num_hidden=500),
+                         act_type="tanh")
+    fc2 = sym.FullyConnected(fc1, num_hidden=10)
+    return sym.SoftmaxOutput(fc2, name="softmax")
+
+
+def sy_mnist_iters(mx, batch_size):
+    """examples/train_mnist.py's get_iters without MNIST files: its
+    synthetic stand-in."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    n = 2048
+    x = rng.rand(n, 1, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.float32)
+    for i in range(n):
+        c = int(y[i])
+        x[i, 0, (c // 4) * 7:(c // 4) * 7 + 7,
+          (c % 4) * 7:(c % 4) * 7 + 7] += 2.0
+    split = n - 512
+    return (mx.io.NDArrayIter(x[:split], y[:split], batch_size,
+                              shuffle=True),
+            mx.io.NDArrayIter(x[split:], y[split:], batch_size))
+
+
+def sy_mnist(torch, mx, card):
+    """(e): examples/train_mnist.py --module as the example writes it."""
+    import numpy as np
+    np.random.seed(SEED)
+    torch.manual_seed(SEED)
+    cfg = SY_MNIST
+    train, val = sy_mnist_iters(mx, cfg["batch_size"])
+    t0 = time.perf_counter()
+    mod = mx.mod.Module(sy_lenet(mx),
+                        context=mx.context.current_context())
+    mod.fit(train, eval_data=val, num_epoch=cfg["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"], "momentum": 0.9},
+            initializer=mx.init.Xavier(),
+            batch_end_callback=mx.callback.Speedometer(cfg["batch_size"],
+                                                       50))
+    acc = mod.score(val, "acc")[0][1]
+    secs = time.perf_counter() - t0
+    log(f"symbol (e): examples/train_mnist.py --module (lenet_symbol, the "
+        f"synthetic stand-in, batch {cfg['batch_size']}, {cfg['epochs']} "
+        f"epochs, lr {cfg['lr']:g}) on {mx.context.current_context()}: "
+        f"final accuracy {acc:.4f} in {secs:.1f} s on {card}")
+    if not acc >= SY_MNIST_ACC:
+        fail(f"LeNet --module accuracy {acc} < {SY_MNIST_ACC}")
+    return {"acc": acc, "seconds": secs}
+
+
+def phase_symbol(torch, mx, card, ctx, phase4):
+    """Phase 30: mx.sym, mx.mod and export on the card (a)-(e)."""
+    import shutil
+    shutil.rmtree(SY_ROOT, ignore_errors=True)
+    os.makedirs(SY_ROOT)
+    out = {}
+    try:
+        for key, fn in (("a", lambda: sy_serve_resnet(torch, mx, card, ctx,
+                                                      phase4)),
+                        ("b", lambda: sy_bert(torch, mx, card, ctx)),
+                        ("c", lambda: sy_fuse_attention(torch, mx, card,
+                                                        ctx)),
+                        ("d", lambda: sy_module_fit(torch, mx, card, ctx,
+                                                    out["a"]["prefix"])),
+                        ("e", lambda: sy_mnist(torch, mx, card))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            log(f"phase 30 ({key}): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(SY_ROOT, ignore_errors=True)
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
         fail(f"no mxnet_tpu_torch package beside {__file__}: run from the "
@@ -8538,6 +9023,8 @@ def main():
     run("train-zoo", lambda: phase_train_zoo(torch, mx, card, mx.gpu(0)))
     run("nd", lambda: phase_nd(torch, mx, card, mx.gpu(0)))
     run("item 6", lambda: phase_item6(torch, mx, card, mx.gpu(0), ce, me))
+    run("symbol", lambda: phase_symbol(torch, mx, card, mx.gpu(0),
+                                       out["serve ResNet"]))
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     k1, s1 = out["kernel K1"], out["serve ResNet"]
     k2, s2 = out["kernel K2"], out["serve BERT"]
@@ -8554,6 +9041,25 @@ def main():
     sz, tz = out["serve-zoo"], out["train-zoo"]
     ndk = out["nd"]
     it6 = out["item 6"]
+    sy = out["symbol"]
+
+    def symbolic(kernel):
+        """The kernel's launches on phase 30's symbolic path: (a) the
+        exported ResNet-50's served burst, (b) one forward of the imported
+        BERT-base, (c) one fused-attention forward, (d) Module.fit's
+        steps after the capture."""
+        runs = {"a_served_exported_resnet50": sy["a"]["launches"][kernel],
+                "b_imported_bert_per_forward": sy["b"]["launches"][kernel],
+                "c_fused_attention_per_forward":
+                    sy["c"]["launches"][kernel],
+                "d_module_fit": sy["d"]["launches"][kernel]}
+        return {"symbol_launches": runs,
+                "symbol_per": f"phase 30: (a) {N_REQUESTS} requests of "
+                              "Server.from_checkpoint(ResNet-50 v1), 48 "
+                              "per batch forward; (b) batch "
+                              f"{LONG_BATCH}, S {LONG_SEQ}; (c) q, k, v "
+                              f"{SY_FUSE}; (d) {sy['d']['steps_counted']} "
+                              f"training steps at batch {SY_FIT_BATCH}"}
 
     def item6(kernel):
         """The kernel in phase 29: launches under amp.init's bf16 list in
@@ -8737,7 +9243,7 @@ def main():
                            "and remat=\"dots\" (its 2 eager warm-up passes "
                            "and the capture's replay)",
         **nd_launches("conv_epilogue"),
-        **item6("conv_epilogue")}, {
+        **item6("conv_epilogue"), **symbolic("conv_epilogue")}, {
         "name": "matmul_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/matmul_epilogue.cu",
         "replaces": "mxnet_tpu/pallas/kernels.py:285",
@@ -8822,7 +9328,7 @@ def main():
                           "from their stats frames; decode: the BERT "
                           "burst beside 64 TinyLM streams",
         **nd_launches("matmul_epilogue"),
-        **item6("matmul_epilogue")}, {
+        **item6("matmul_epilogue"), **symbolic("matmul_epilogue")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:316 (K3); "
@@ -8845,7 +9351,7 @@ def main():
         **k3_half_rows(),
         **sharded("flash_attention", ("c",)),
         **remat("flash_attention"), **nd_launches("flash_attention"),
-        **item6("flash_attention")}, {
+        **item6("flash_attention"), **symbolic("flash_attention")}, {
         "name": "flash_attention_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1121 (_flash_attention_bwd_dkv) via "
@@ -8862,7 +9368,8 @@ def main():
         **sharded("flash_attention_bwd_dkv", ("c",)),
         **remat("flash_attention_bwd_dkv"),
         **nd_launches("flash_attention_bwd_dkv"),
-        **item6("flash_attention_bwd_dkv")}, {
+        **item6("flash_attention_bwd_dkv"),
+        **symbolic("flash_attention_bwd_dkv")}, {
         "name": "flash_attention_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     "1456 (_flash_attention_bwd_dq) via "
@@ -8879,7 +9386,8 @@ def main():
         **sharded("flash_attention_bwd_dq", ("c",)),
         **remat("flash_attention_bwd_dq"),
         **nd_launches("flash_attention_bwd_dq"),
-        **item6("flash_attention_bwd_dq")}]}
+        **item6("flash_attention_bwd_dq"),
+        **symbolic("flash_attention_bwd_dq")}]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,14 +22,18 @@ from . import elastic           # after parallel, whose files it reads
 from . import operator          # registers Custom
 from . import (attribute, library, name, numpy_extension, runtime,
                test_utils, util)
+from . import io, model, module, symbol, visualization
 from . import numpy as np
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 init = initializer
+mod = module
 nd = ndarray
 npx = numpy_extension
+sym = symbol
+viz = visualization
 # detection mAP lives beside the classification metrics, one registry
 metric.VOCMApMetric = metric_det.VOCMApMetric
 metric.VOC07MApMetric = metric_det.VOC07MApMetric
@@ -37,9 +41,10 @@ metric.VOC07MApMetric = metric_det.VOC07MApMetric
 __all__ = ["AttrScope", "Context", "MXNetError", "attribute", "autograd",
            "callback", "contrib", "convert", "cpu", "current_context",
            "diagnostics", "elastic", "engine", "gluon", "gpu", "guardrails",
-           "init", "initializer", "kernels", "library", "lr_scheduler",
-           "metric", "metric_det", "name", "nd", "ndarray", "np", "npx",
-           "numpy_extension", "observability", "operator", "ops",
-           "optimizer", "parallel", "random", "resilience", "runtime",
-           "serving", "test_utils", "util"]
+           "init", "initializer", "io", "kernels", "library",
+           "lr_scheduler", "metric", "metric_det", "mod", "model", "module",
+           "name", "nd", "ndarray", "np", "npx", "numpy_extension",
+           "observability", "operator", "ops", "optimizer", "parallel",
+           "random", "resilience", "runtime", "serving", "sym", "symbol",
+           "test_utils", "util", "visualization", "viz"]
 __version__ = "0.1.0"

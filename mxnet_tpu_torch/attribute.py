@@ -1,9 +1,9 @@
 """``mx.AttrScope`` (counterpart of ``mxnet_tpu/attribute.py``, ref
 ``python/mxnet/attribute.py``): scoped attributes for what is created
 inside the scope, nested scopes merged — the reference's mechanism
-behind ``ctx_group`` placement hints and custom attributes. The port
-keeps the scope; the symbols that read it wait for ROADMAP Queue 1
-item 7."""
+behind ``ctx_group`` placement hints and custom attributes. ``mx.sym``'s
+operators read it: a node made inside the scope carries its attributes
+as ``__key__``."""
 from __future__ import annotations
 
 import threading

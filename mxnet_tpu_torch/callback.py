@@ -1,13 +1,10 @@
 """Training callbacks (counterpart of ``mxnet_tpu/callback.py``; ref:
-python/mxnet/callback.py). ``do_checkpoint`` writes through
-``model.save_checkpoint``, which comes with the Module API (ROADMAP Queue
-1 item 7): until then it raises."""
+python/mxnet/callback.py). ``do_checkpoint`` writes epoch checkpoints
+through ``model.save_checkpoint``."""
 from __future__ import annotations
 
 import logging
 import time
-
-from .base import MXNetError
 
 __all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
            "LogValidationMetricsCallback", "module_checkpoint"]
@@ -54,10 +51,20 @@ class Speedometer:
 
 def do_checkpoint(prefix, period=1, keep_last=None):
     """Epoch-end checkpointing callback (ref: callback.py do_checkpoint):
-    not ported yet, it needs ``model.save_checkpoint``."""
-    raise MXNetError("callback.do_checkpoint is not ported yet: it needs "
-                     "model.save_checkpoint, which comes with the Module "
-                     "API (ROADMAP Queue 1 item 7)")
+    ``callback(epoch, symbol, arg_params, aux_params)`` saves epoch
+    ``epoch + 1`` every ``period`` epochs through the atomic path (a
+    preemption mid-save leaves the previous epoch intact), creating the
+    prefix's directory if missing; ``keep_last=k`` then keeps the newest
+    k epochs."""
+    from . import model
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            model.save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+            if keep_last:
+                model.gc_checkpoints(prefix, keep_last)
+    return _callback
 
 
 module_checkpoint = do_checkpoint

@@ -3,10 +3,10 @@ from __future__ import annotations
 
 from . import loss, model_zoo, nn, utils
 from . import contrib           # after nn and utils, which it imports
-from .block import Block, HybridBlock, ParameterDict
+from .block import Block, HybridBlock, ParameterDict, SymbolBlock
 from .parameter import DeferredInitializationError
 from .trainer import Trainer
 
 __all__ = ["Block", "DeferredInitializationError", "HybridBlock",
-           "ParameterDict", "Trainer", "contrib", "loss", "model_zoo", "nn",
-           "utils"]
+           "ParameterDict", "SymbolBlock", "Trainer", "contrib", "loss",
+           "model_zoo", "nn", "utils"]

@@ -36,7 +36,7 @@ from .cached_graph import (CudaGraphs, GraphCache, in_capture,
                            structure_changed)
 from .parameter import DeferredParams
 
-__all__ = ["Block", "HybridBlock", "ParameterDict"]
+__all__ = ["Block", "HybridBlock", "ParameterDict", "SymbolBlock"]
 
 
 class ParameterDict(OrderedDict):
@@ -288,7 +288,176 @@ class HybridBlock(Block):
         """ref: HybridBlock.__call__ — the cached program when hybridized
         and no outer program is being captured on this thread, else the
         eager forward."""
+        if not in_capture():
+            # the input signature ``export`` traces with
+            self.__dict__["_last_inputs"] = [
+                (tuple(a.shape), a.dtype) for a in args
+                if isinstance(a, torch.Tensor)]
         graphs = self.__dict__.get("_graphs")
         if graphs is None or in_capture():
             return nn.Module.__call__(self, *args, **kwargs)
         return graphs.call(self, args, kwargs)
+
+    # -- deployment (ref: HybridBlock.export -> -symbol.json + .params) ------
+    def export(self, path, epoch=0, remove_amp_cast=True, input_specs=None):
+        """Write ``path-symbol.json`` (the block's predict-mode graph,
+        loadable by ``SymbolBlock.imports`` and ``mx.sym.load`` of either
+        package) and ``path-%04d.params`` (``nd.save``, ``arg:`` and
+        ``aux:`` keys by ``collect_params()`` name, ``aux:`` for the
+        graph's auxiliary states). The graph is traced on meta tensors
+        (:mod:`.export`) of the shapes and dtypes of the block's last
+        call, as MXNet exports after a forward, or of ``input_specs``
+        ([(shape, dtype)]). Returns the two file names."""
+        from .export import trace
+        specs = input_specs or self.__dict__.get("_last_inputs")
+        if not specs:
+            raise MXNetError("export: run a forward with this block (or "
+                             "pass input_specs=) before export")
+        specs = [(tuple(s), as_torch_dtype(d)) for s, d in specs]
+        names = ["data"] if len(specs) == 1 else \
+            [f"data{i}" for i in range(len(specs))]
+        sym = trace(self, specs, names)
+        sym.save(f"{path}-symbol.json")
+        aux = set(sym.list_auxiliary_states())
+        params = {("aux:" if name in aux else "arg:") + name: t
+                  for name, t in self.collect_params().items()}
+        nd.save(f"{path}-{epoch:04d}.params", params)
+        return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
+
+
+class _ParamNode(Block):
+    """A container on the path of a dotted parameter name, so that a
+    SymbolBlock's ``collect_params()`` keys are its variables' names."""
+
+
+class SymbolBlock(HybridBlock):
+    """A loaded Symbol graph as a Gluon block (ref: gluon SymbolBlock;
+    counterpart of ``mxnet_tpu/gluon/block.py:556-588``): the deployment
+    path of ``export`` and ``model.save_checkpoint`` files. Its
+    parameters are the graph's variables but the inputs, keyed by the
+    variable names (``features.0.weight`` lives at that structural path);
+    the aux states (BatchNorm's moving statistics) are buffers. ``forward``
+    runs the graph in predict mode, as the JAX SymbolBlock does;
+    ``hybridize()`` runs it as CUDA graphs on the card. Without
+    ``params`` the parameters materialize at the first forward from the
+    inputs' shapes (``infer_shape``), filled by the initializer that
+    ``initialize`` recorded."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__()
+        from .. import symbol as sym_mod
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(list(outputs))
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._outputs = outputs
+        self._inputs = list(inputs)
+        input_names = {s.name for s in self._inputs}
+        self._aux_names = [n for n in outputs.list_auxiliary_states()
+                           if n not in input_names]
+        self._param_names = [n for n in outputs.list_arguments()
+                             if n not in input_names] + self._aux_names
+        self._slots = []
+        self._plan = None
+        if params is not None:
+            self._set_params(params)
+
+    def _set_params(self, params, device=None):
+        """Register ``params`` (name -> tensor, NDArray or array) at their
+        structural paths."""
+        missing = [n for n in self._param_names if n not in params]
+        if missing:
+            raise MXNetError(f"SymbolBlock: parameters {missing[:5]} "
+                             "missing")
+        aux = set(self._aux_names)
+        slots = []
+        for name in self._param_names:
+            value = params[name]
+            if isinstance(value, nd.NDArray):
+                value = value._data
+            elif not isinstance(value, torch.Tensor):
+                value = torch.as_tensor(np.asarray(value))
+            if device is not None:
+                value = value.to(device)
+            *path, leaf = name.split(".")
+            node = self
+            for part in path:
+                child = node._modules.get(part)
+                if child is None:
+                    child = _ParamNode()
+                    node.add_module(part, child)
+                node = child
+            value = value.detach()
+            if name in aux:
+                node.register_buffer(leaf, value)
+            else:
+                node.register_parameter(
+                    leaf, nn.Parameter(value, requires_grad=True))
+            slots.append((name, node, leaf))
+        self._slots = slots
+        self._clear_cached_op()
+
+    def initialize(self, init=None, ctx=None, generator=None,
+                   force_reinit=False):
+        """Record how the first forward fills parameters that were not
+        given (ref: Block.initialize); loaded ones are kept unless
+        ``force_reinit``."""
+        self._plan = (_init_mod.create(init if init is not None
+                                       else _init_mod.Uniform()),
+                      resolve_device(ctx), generator)
+        if force_reinit and self._slots:
+            with torch.no_grad():
+                for name, node, leaf in self._slots:
+                    self._plan[0](name, getattr(node, leaf), generator)
+        return self
+
+    def _materialize(self, args):
+        if self._plan is None:
+            raise MXNetError("SymbolBlock: no parameters; load them "
+                             "(imports with a param file) or call "
+                             "initialize() first")
+        init, device, generator = self._plan
+        shapes = {s.name: tuple(a.shape) for s, a in zip(self._inputs, args)}
+        arg_shapes, _, aux_shapes = self._outputs.infer_shape(**shapes)
+        known = dict(zip(self._outputs.list_arguments(), arg_shapes))
+        known.update(zip(self._outputs.list_auxiliary_states(), aux_shapes))
+        params = {}
+        for name in self._param_names:
+            if known.get(name) is None:
+                raise MXNetError(f"SymbolBlock: cannot infer the shape of "
+                                 f"{name!r} from the inputs")
+            t = torch.empty(known[name], dtype=torch.float32, device=device)
+            init(name, t, generator)
+            params[name] = t
+        self._set_params(params)
+
+    def forward(self, *args):
+        from .. import symbol as sym_mod
+        if not self._slots and self._param_names:
+            self._materialize(args)
+        params = {name: getattr(node, leaf)
+                  for name, node, leaf in self._slots}
+        return sym_mod.eval_symbol(self._outputs, self._inputs, args, params)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """ref: SymbolBlock.imports — a block of the graph in
+        ``symbol_file`` with ``input_names`` as its inputs and, when
+        ``param_file`` is given, its parameters loaded onto ``ctx``
+        (``cuda:0`` unless the caller asks for the CPU); ``arg:`` /
+        ``aux:`` prefixes are stripped and extra entries ignored."""
+        from .. import symbol as sym_mod
+        symbol = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(symbol, [sym_mod.var(n) for n in input_names])
+        if param_file:
+            loaded = nd._load_tensors(param_file)
+            if not isinstance(loaded, dict):
+                raise MXNetError(f"{param_file} is not a parameter dict "
+                                 "file")
+            params = {k.partition(":")[2] if k.partition(":")[0] in
+                      ("arg", "aux") and ":" in k else k: v
+                      for k, v in loaded.items()}
+            block._set_params(params, device=resolve_device(ctx))
+        return block

@@ -2,8 +2,9 @@
 
 The same name-suffix dispatch as the reference: an initializer is called
 with a parameter name and a tensor and fills the tensor; ``*weight`` goes
-to ``_init_weight``, ``*bias``/``*beta``/``*running_mean`` to zeros,
-``*gamma``/``*running_var`` to ones. Random fills draw from an explicit
+to ``_init_weight``, ``*bias``/``*beta``/``*running_mean`` and a
+symbol's ``*moving_mean`` to zeros, ``*gamma``/``*running_var``/
+``*moving_var`` to ones. Random fills draw from an explicit
 ``torch.Generator`` (PyTorch's default generator when none is given) on
 the generator's device, then copy into the tensor, so one seed gives the
 same weights on the CPU and on the card.
@@ -48,10 +49,10 @@ class Initializer:
         name = str(name).lower()
         if name.endswith("weight"):
             self._init_weight(name, arr, generator)
-        elif name.endswith("bias") or name.endswith("beta") \
-                or name.endswith("running_mean"):
+        elif name.endswith(("bias", "beta", "running_mean",
+                            "moving_mean")):
             self._fill(arr, 0.0)
-        elif name.endswith("gamma") or name.endswith("running_var"):
+        elif name.endswith(("gamma", "running_var", "moving_var")):
             self._fill(arr, 1.0)
         else:
             self._init_default(name, arr, generator)

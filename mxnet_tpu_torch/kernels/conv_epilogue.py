@@ -136,7 +136,8 @@ def fused_conv_epilogue_plain(x, scale=None, bias=None, res=None,
 
 def _forward(y, scale, bias, res, act_type, channel_axis, mode, c, inner):
     note_route("conv_epilogue", y.device)
-    if y.device.type == "cpu":
+    # a meta tensor computes nothing: its shape comes from the plain version
+    if y.device.type in ("cpu", "meta"):
         return fused_conv_epilogue_plain(y, scale, bias, res, channel_axis,
                                          act_type)
     if y.device.type == "cuda":

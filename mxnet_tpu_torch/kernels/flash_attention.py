@@ -345,7 +345,9 @@ def _launch_bwd(q, k, v, out, lse, dout, dq, dk, dv, causal, scale):
 
 def _device_kind(q, k, v):
     kinds = {t.device.type for t in (q, k, v)}
-    if kinds == {"cpu"}:
+    # a meta tensor computes nothing: it takes the plain versions, whose
+    # shapes it needs (shape inference)
+    if kinds in ({"cpu"}, {"meta"}):
         return "cpu"
     if kinds == {"cuda"}:
         return "cuda"

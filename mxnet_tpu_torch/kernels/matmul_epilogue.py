@@ -138,7 +138,9 @@ class _MatmulEpilogue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, bias, bits, act_type, p, mode):
         note_route("matmul_epilogue", y.device)
-        if y.device.type == "cpu":
+        # a meta tensor computes nothing: its shape comes from the plain
+        # version
+        if y.device.type in ("cpu", "meta"):
             out = matmul_epilogue_plain(y, bias, bits, act_type, p)
         elif y.device.type == "cuda":
             out = _launch(y, bias, bits, act_type, p, mode)

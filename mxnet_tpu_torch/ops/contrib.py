@@ -5,7 +5,7 @@ Three reach the hand-written kernels on a CUDA tensor: ``conv_epilogue``
 ``fused_self_attention`` above 1024 keys (K3). The rest are plain
 PyTorch, as the JAX package's are jnp. The detection operators (ROADMAP
 Queue 1 item 10), the binary and quantized ones (item 12), ring and
-Ulysses attention (item 9) and ``fused_cross_attention`` (item 7) are
+Ulysses attention (item 9) and ``fused_cross_attention`` (item 7c) are
 the registry's ``DEFERRED`` names.
 """
 from __future__ import annotations

@@ -8,7 +8,7 @@ Dropout have both their predict and their training branch. The loss
 heads ``SoftmaxOutput``, the three regression outputs and ``MakeLoss``
 keep MXNet's own backward, which ignores the head gradient
 (``torch.autograd.Function``s). The 28 names of the JAX package's
-``ops/nn.py`` but ``RNN`` (ROADMAP Queue 1 item 7) are registered.
+``ops/nn.py`` but ``RNN`` (ROADMAP Queue 1 item 7b) are registered.
 """
 from __future__ import annotations
 

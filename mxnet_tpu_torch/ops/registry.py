@@ -8,9 +8,10 @@ tuple of tensors; with ``needs_rng`` the dispatch passes ``generator=``
 (the device's generator, ``mx.random``), with ``needs_mode`` it passes
 ``training=`` (``autograd.is_training()``).
 
-The JAX package also infers shapes through ``jax.eval_shape``. The port
-needs no shape inference until ``symbol/`` (ROADMAP Queue 1 item 7), so
-it has none yet.
+Shapes are inferred by running ``fn`` on PyTorch ``meta`` tensors
+(``Symbol.infer_shape``), where the JAX package runs ``jax.eval_shape``:
+the same function, no per-op rules, nothing computed. The kernel entries
+take their plain versions on a meta tensor, so inference needs no card.
 
 :data:`DEFERRED` lists the JAX package's operator names that are not
 ported yet, each with the ROADMAP item that brings it: :func:`get` of
@@ -54,8 +55,8 @@ DEFERRED: Dict[str, str] = {
     **{n: "item 12 (quantization)" for n in _QUANTIZATION},
     "_contrib_ring_attention": "item 9 (parallel/)",
     "_contrib_ulysses_attention": "item 9 (parallel/)",
-    "_contrib_fused_cross_attention": "item 7 (the NMT transformer)",
-    "RNN": "item 7 (gluon/rnn)",
+    "_contrib_fused_cross_attention": "item 7c (the NMT transformer)",
+    "RNN": "item 7b (gluon/rnn)",
 }
 
 

@@ -47,9 +47,12 @@ Chaos seam: every tenant predictor call trips the ``serving_tenant``
 site with the tenant name as its path, so a fault hook can target one
 tenant.
 
+A tenant's factory may return an imported ``gluon.SymbolBlock``
+(``SymbolBlock.imports`` of an exported pair), as in the JAX package.
+
 Not ported: the AOT disk store (ROADMAP Queue 1 item 5g), so
 ``_restore_predictors`` restores nothing, as the reference's does
-without one; imported ``SymbolBlock`` factories (item 7).
+without one.
 """
 from __future__ import annotations
 

@@ -213,6 +213,22 @@ class Server:
                          "deadline_miss_post_batch": 0, "errors": 0,
                          "reloads": 0, "batches": 0}
 
+    # -- deployment-pair constructor ------------------------------------------
+    @classmethod
+    def from_checkpoint(cls, prefix, epoch, input_names=("data",),
+                        config=None, param_store=None, ctx=None):
+        """Serve a ``prefix-symbol.json`` + ``prefix-NNNN.params`` pair
+        (``HybridBlock.export`` / ``model.save_checkpoint`` files of
+        either package) through ``SymbolBlock.imports`` onto ``ctx``
+        (``cuda:0`` unless the caller asks for the CPU), behind the same
+        batching front end (ref: the JAX package's
+        ``Server.from_checkpoint``)."""
+        from ..gluon.block import SymbolBlock
+        block = SymbolBlock.imports(
+            f"{prefix}-symbol.json", list(input_names),
+            f"{prefix}-{epoch:04d}.params", ctx=ctx)
+        return cls(block, config=config, param_store=param_store, ctx=ctx)
+
     # -- lifecycle -----------------------------------------------------------
     def start(self):
         if self._worker is not None and self._worker.is_alive():

@@ -1,6 +1,6 @@
 """``nd.contrib.foreach``, ``while_loop`` and ``cond`` in the port
 against the JAX package, on the CPU (tests/test_control_flow.py but its
-symbolic tests, which wait for ROADMAP Queue 1 item 7).
+symbolic tests, which tests/test_torch_symbol.py holds).
 
 The same seeded inputs go through both packages: eagerly (the Python
 loop, each step recorded) and inside a hybridized block (the JAX package

@@ -25,7 +25,8 @@ package numpy arrays.
   the registry's refusals.
 - ``Speedometer``, ``log_train_metric`` and
   ``LogValidationMetricsCallback``: equal log lines with both modules'
-  clocks patched; ``do_checkpoint`` raises naming the Module API.
+  clocks patched; ``do_checkpoint`` writes the epochs the JAX
+  package's writes (period, keep_last), files either package reads.
 """
 import logging
 import random
@@ -305,10 +306,36 @@ def _callback_lines(cb_mod, metric_mod, caplog, monkeypatch, as_tensor):
     return [r.getMessage() for r in caplog.records]
 
 
-def test_callbacks_log_the_same_lines(caplog, monkeypatch):
+def _checkpoints(mx, cb_mod, prefix):
+    """Epochs 0-5 through ``do_checkpoint(period=2, keep_last=2)``: the
+    epoch files left, and the parameters of each as numpy."""
+    sym = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                name="fc")
+    callback = cb_mod.do_checkpoint(prefix, period=2, keep_last=2)
+    kw = {"ctx": tmx.cpu()} if mx is tmx else {}
+    for epoch in range(6):
+        w = mx.nd.array(np.full((2, 3), epoch, np.float32), **kw)
+        callback(epoch, sym, {"fc_weight": w, "fc_bias": w[0]}, {})
+    epochs = mx.model.list_checkpoint_epochs(prefix)
+    return epochs, [{k: v.asnumpy() for k, v in
+                     mx.model.load_params(prefix, e)[0].items()}
+                    for e in epochs]
+
+
+def test_callbacks_log_the_same_lines(caplog, monkeypatch, tmp_path):
     got = _callback_lines(tcallback, tmetric, caplog, monkeypatch, True)
     want = _callback_lines(jcallback, jmetric, caplog, monkeypatch, False)
     assert got == want
     assert any("samples/sec" in line for line in got)
-    with pytest.raises(MXNetError, match="Queue 1 item 7"):
-        tcallback.do_checkpoint("prefix")
+    t_epochs, t_params = _checkpoints(tmx, tcallback, str(tmp_path / "t"))
+    j_epochs, j_params = _checkpoints(jmx, jcallback, str(tmp_path / "j"))
+    assert t_epochs == j_epochs == [4, 6]
+    for t, j in zip(t_params, j_params):
+        assert sorted(t) == sorted(j)
+        for k in t:
+            np.testing.assert_array_equal(t[k], j[k])
+    # each package reads the other's files
+    jsym = jmx.model.load_checkpoint(str(tmp_path / "t"), 6)[0]
+    tsym = tmx.model.load_checkpoint(str(tmp_path / "j"), 6)[0]
+    assert jsym.list_arguments() == tsym.list_arguments()
+    assert tcallback.module_checkpoint is tcallback.do_checkpoint

@@ -4,8 +4,8 @@
 checks the JAX package's; the operators leave the registry after each
 test),
 ``mx.runtime``, ``mx.name`` and ``mx.attribute`` scopes (the scope
-semantics of tests/test_misc_parity.py; the symbols that read them wait
-for ROADMAP Queue 1 item 7), ``mx.util`` (tests/test_compat_apis.py's
+semantics of tests/test_misc_parity.py, and the symbols that read them:
+names and ``__key__`` attributes as the JAX package's), ``mx.util`` (tests/test_compat_apis.py's
 util tests) and ``mx.test_utils``. Also: the item-6 names of ``mx.nd``
 resolve, and no module of the port imports JAX."""
 import os
@@ -128,6 +128,12 @@ def test_name_and_attr_scopes_as_jax():
     import mxnet_tpu_torch.attribute as tattr
     assert attrs(TScope, tattr.current) == attrs(JScope, jattr.current)
     assert tmx.AttrScope is TScope
+
+    def symbols(mx):
+        with mx.name.Prefix("blk_"), mx.AttrScope(ctx_group="dev2"):
+            fc = mx.sym.FullyConnected(mx.sym.var("x"), num_hidden=2)
+        return fc.name, fc.list_arguments(), fc.list_attr()["__ctx_group__"]
+    assert symbols(tmx) == symbols(jmx)
 
 
 def test_util_np_array_scope_as_jax():
